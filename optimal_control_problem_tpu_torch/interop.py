@@ -1,0 +1,76 @@
+"""Carry the JAX package's state into the port.
+
+The counterpart of loading weights: each function takes the JAX package's
+objects after ``np.asarray`` on their arrays (or ``dataclasses.asdict`` on
+its settings) and builds the port's equivalents, so a test feeds both
+packages identical inputs.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Union
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .parallel.batch import BatchState
+from .solvers.admm import ADMMSettings
+from .solvers.admm_banded import BandedQP
+from .solvers.sqp import SQPOptions
+
+__all__ = ["banded_qp_from_numpy", "batch_state_from_numpy", "settings_from_jax_dict"]
+
+
+def _fields(obj, names):
+    if isinstance(obj, Mapping):
+        return [obj[n] for n in names]
+    return [getattr(obj, n) for n in names]
+
+
+def _tensor(a, device, dtype=None):
+    arr = np.array(a)  # a writable copy (JAX hands out read-only buffers)
+    if dtype is None:
+        dtype = torch.float64 if arr.dtype == np.float64 else torch.float32
+    return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def banded_qp_from_numpy(qp_np: Any, device=None, dtype=None) -> BandedQP:
+    """A JAX ``BandedQP`` (fields as numpy arrays, or a mapping of them) ->
+    the port's :class:`BandedQP` on ``device`` (default: the GPU).
+    ``dtype`` defaults to the arrays' own float width."""
+    dev = resolve_device(device)
+    return BandedQP(*(_tensor(a, dev, dtype) for a in _fields(qp_np, BandedQP._fields)))
+
+
+def batch_state_from_numpy(state_np: Any, device=None, dtype=None) -> BatchState:
+    """A JAX ``BatchState`` (``x``, ``qp_x``, ``qp_y`` as numpy arrays, or a
+    mapping of them) -> the port's :class:`BatchState` on ``device``."""
+    dev = resolve_device(device)
+    return BatchState(*(_tensor(a, dev, dtype) for a in _fields(state_np, BatchState._fields)))
+
+
+def _torch_dtype(d) -> torch.dtype:
+    return torch.float64 if np.dtype(d) == np.float64 else torch.float32
+
+
+def settings_from_jax_dict(d: Mapping[str, Any]) -> Union[ADMMSettings, SQPOptions]:
+    """``dataclasses.asdict`` of a JAX ``ADMMSettings`` -> the port's
+    :class:`ADMMSettings`; of a JAX ``SQPOptions`` (recognised by its
+    ``admm`` entry) -> the port's :class:`SQPOptions` with its nested
+    settings and dtype converted.  Fields the port does not know are
+    dropped."""
+
+    def known(cls, src):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return {k: v for k, v in src.items() if k in names}
+
+    if "admm" in d:
+        kw = known(SQPOptions, d)
+        admm = kw["admm"]
+        kw["admm"] = admm if isinstance(admm, ADMMSettings) else ADMMSettings(**known(ADMMSettings, admm))
+        if "dtype" in kw:
+            kw["dtype"] = _torch_dtype(kw["dtype"])
+        return SQPOptions(**kw)
+    return ADMMSettings(**known(ADMMSettings, d))

@@ -1,0 +1,154 @@
+"""The port's main path end to end against the JAX package, plus the port's
+package rules.
+
+* Batched cart-pole h8 MPC ticks (B=4, step_num=3, the bench's banded
+  settings) through ``BatchedSolver`` in both packages: trajectories agree
+  to 5e-3 (the f32 closed-loop floor recorded in PARITY.md), objectives to
+  rtol 1e-3.
+* The entry points run on the GPU unless told ``device="cpu"``, and raise
+  when there is none.
+* No module of the port, and no line of ``chip_smoke.py``, imports JAX or
+  the JAX package (AST scan).
+"""
+
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from optimal_control_problem_tpu.models import cartpole as jcp
+from optimal_control_problem_tpu.parallel import BatchedSolver as JBatchedSolver
+from optimal_control_problem_tpu.solvers.admm import ADMMSettings as JSettings
+from optimal_control_problem_tpu.solvers.sqp import SQPOptions as JOptions
+from optimal_control_problem_tpu_torch import OptimalControlProblem
+from optimal_control_problem_tpu_torch.interop import (
+    batch_state_from_numpy,
+    settings_from_jax_dict,
+)
+from optimal_control_problem_tpu_torch.models import cartpole as tcp
+from optimal_control_problem_tpu_torch.parallel import BatchedSolver
+from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
+from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
+from optimal_control_problem_tpu_torch.solvers.sqp import SQPOptions
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+ADMM = {
+    "method": "banded", "max_iter": 500, "adaptive_rho": False, "rho": 0.05,
+    "check_every": 2, "scaling_refresh": "tick",
+}
+
+
+def config(module, H=8, step_num=3):
+    return module.make_config(horizon=H, dt=0.04, alpha=0.3, step_num=step_num,
+                              formulation="reduced", ADMM_settings=dict(ADMM))
+
+
+def frames_refs(B, seed=0):
+    rng = np.random.default_rng(seed)
+    frames = np.zeros((B, tcp.FRAME), np.float32)
+    frames[:, 2] = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+    return frames, np.full((B, 1), np.pi, np.float32)
+
+
+def test_batched_tick_matches_jax():
+    B = 4
+    frames, refs = frames_refs(B)
+    jb = JBatchedSolver(jcp.build(config(jcp), stagewise=True))
+    tb = BatchedSolver(tcp.build(config(tcp), stagewise=True, device="cpu"), device="cpu")
+    jst = jb.init_state(B)
+    tst = batch_state_from_numpy(jst._asdict(), device="cpu")
+    for _ in range(2):
+        jx, jf, jst = jb.solve(frames, refs, jst)
+        tx, tf, tst = tb.solve(frames, refs, tst)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=5e-3)
+        np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-3)
+    assert np.isfinite(tx.numpy()).all()
+    hist = tb.last_result
+    assert hist.f_history.shape == (3, B) and hist.qp_iters.shape == (3, B)
+    np.testing.assert_array_equal(
+        hist.qp_converged.numpy(), np.asarray(jb.last_result.qp_converged)
+    )
+
+
+def test_per_scenario_tick_matches_batched():
+    """compute_optimal_trajectory (per-scenario banded solver) gives the
+    batched tick's trajectory for the same frame."""
+    frames, refs = frames_refs(2, seed=3)
+    ocp = tcp.build(config(tcp, H=6, step_num=2), stagewise=True, device="cpu")
+    ocp.compute_optimal_trajectory(frames[0], refs[0])
+    one = ocp.get_optimal_trajectory().numpy()
+    assert ocp.get_optimal_frames().shape == (6, tcp.FRAME)
+    b = BatchedSolver(tcp.build(config(tcp, H=6, step_num=2), stagewise=True, device="cpu"),
+                      device="cpu")
+    tx, _, _ = b.solve(frames, refs, b.init_state(2))
+    np.testing.assert_allclose(one, tx[0].numpy(), atol=5e-3)
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config(tcp, H=4, step_num=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcp.build(cfg, stagewise=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OptimalControlProblem(cfg)
+    ocp = tcp.build(config(tcp, H=4, step_num=1), stagewise=True, device="cpu")
+    assert ocp.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedSolver(ocp)
+    BatchedSolver(ocp, device="cpu")
+    from optimal_control_problem_tpu_torch.solvers.admm_banded import BandedQP
+
+    N, w = 3, 2
+    qp = BandedQP(
+        torch.eye(w).expand(1, N, w, w).clone(), torch.zeros(1, N - 1, 1, w),
+        torch.zeros(1, N - 1, 1, w), torch.zeros(1, N, 0, w), torch.zeros(1, N * w),
+        -torch.ones(1, N * w + N - 1), torch.ones(1, N * w + N - 1),
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        abb.admm_solve_banded_batch(qp)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        abb.admm_solve_banded_batch_T(BandedQP(*(abb._t(a) for a in qp)))
+    sol = abb.admm_solve_banded_batch(qp, ADMMSettings(method="banded"), device="cpu")
+    assert bool(sol.converged.all())
+
+
+def test_unported_paths_raise_not_implemented():
+    cfg = config(tcp, H=4, step_num=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcp.build(cfg, stagewise=False, device="cpu")
+    mixed = tcp.make_config(horizon=4, solve_method="MIXED", formulation="reduced")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcp.build(mixed, stagewise=True, device="cpu")
+
+
+def test_settings_from_jax_dicts():
+    st = JSettings(rho=0.05, check_every=2, method="banded", scaling_refresh="tick")
+    ours = settings_from_jax_dict(dataclasses.asdict(st))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(st)
+    opts = settings_from_jax_dict(dataclasses.asdict(JOptions(max_iter=3, alpha=0.3, admm=st)))
+    assert isinstance(opts, SQPOptions) and opts.dtype == torch.float32
+    assert opts.admm == ours and opts.max_iter == 3 and opts.alpha == 0.3
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "optimal_control_problem_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "optimal_control_problem_tpu"), (
+                f"{path.relative_to(ROOT)} imports {name}"
+            )
