@@ -2,5 +2,10 @@
 
 Each TPU (Pallas) kernel of the JAX package becomes a hand-written CUDA
 kernel under ``csrc/``, with a plain PyTorch version of the same contract
-beside its wrapper.  Ported: ``banded_kernel.banded_admm_chunk``.
+beside its wrapper.  Ported: the two banded ADMM chunk kernels of the
+batched MPC tick, ``banded_kernel.banded_admm_chunk`` (one-way
+block-Thomas, ``w`` in ``KERNEL_WIDTHS``) and
+``banded_rolled_kernel.banded_admm_chunk_rolled`` (two-way factorization
+with an optional depth-1 cyclic-reduction level, any ``w`` up to 16);
+``solvers/admm_banded_batch.chunk_kernel`` picks between them.
 """

@@ -17,18 +17,31 @@ built by ``nvcc`` at first use) and counts the launch in
 :func:`banded_admm_chunk_plain`, the straightforward PyTorch transcription
 of the same contract that the CPU tests hold against the Pallas kernel.
 There is no fallback from one to the other.
+
+The iteration loop (:func:`admm_chunk_iterate_plain`), the ascending-chain
+block algebra (:func:`mv`, :func:`mm`, ...) and the wrapper's contract
+checks and launch (:func:`chunk_contract`, :func:`launch_chunk`) are
+shared with the rolled two-way kernel of ``banded_rolled_kernel.py``:
+the two chunks differ only in how they factor ``M`` and solve with it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 from .block_tridiag import small_spd_inv
 
-__all__ = ["banded_admm_chunk", "banded_admm_chunk_plain", "KERNEL_WIDTHS"]
+__all__ = [
+    "banded_admm_chunk",
+    "banded_admm_chunk_plain",
+    "admm_chunk_iterate_plain",
+    "chunk_contract",
+    "launch_chunk",
+    "KERNEL_WIDTHS",
+]
 
 
 def csum(t, dim):
@@ -47,23 +60,74 @@ _BOUNDS = ("lx", "ux", "rx", "ld", "ud", "rd", "lc", "uc", "rc")
 _SCALES = ("ds", "ex", "ed", "ec", "ci")
 
 
-def banded_admm_chunk_plain(
-    it0,  # (B,) int32 per-scenario iteration counts at entry
-    done0,  # (B,) int32 1 = frozen at entry
-    HbT,  # (N, w, w, B) scaled Hessian blocks
-    J0T,  # (Nd, r, w, B) scaled dynamics Jacobian wrt frame k
-    J1T,  # (Nd, r, w, B) scaled dynamics Jacobian wrt frame k+1
-    JcT,  # (N, r2, w, B) scaled stage-constraint Jacobians
-    qT,  # (N, w, B) scaled linear term
-    boundsT: Dict[str, torch.Tensor],  # lx ux rx (N,w,B) ld ud rd (Nd,r,B) lc uc rc (N,r2,B)
-    scaleT: Dict[str, torch.Tensor],  # ds ex (N,w,B) ed (Nd,r,B) ec (N,r2,B) ci (B,)
-    xT,  # (N, w, B) scaled primal warm start
-    yxT,  # (N, w, B) scaled duals by section
-    ydT,  # (Nd, r, B)
-    ycT,  # (N, r2, B)
-    zxT,  # carried z sections
-    zdT,
-    zcT,
+def outer_r(rho_s, ja, jb):
+    """sum_i (rho[., i] ja[., i, a]) jb[., i, c] as an ascending i-chain ->
+    (., w, w, B): the ``row_r`` terms of both kernels' M assembly."""
+    acc = None
+    for i in range(ja.shape[1]):
+        t = (rho_s[:, i, None, None, :] * ja[:, i, :, None, :]) * jb[:, i, None, :, :]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+# ---- ascending-chain block algebra on batch-last blocks (..., w, w, B) and
+# vectors (..., w, B), shared by both chunks' plain versions; one product
+# per term, so only the chain order decides the rounding.
+
+
+def mv(a, v):
+    """a @ v: out[c] = sum_j a[c, j] v[j]."""
+    acc = None
+    for j in range(a.shape[-2]):
+        t = a[..., :, j, :] * v[..., j : j + 1, :]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def mtv(a, v):
+    """a^T @ v: out[c] = sum_j a[j, c] v[j]."""
+    acc = None
+    for j in range(a.shape[-3]):
+        t = a[..., j, :, :] * v[..., j : j + 1, :]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def mm(a, b):
+    """a @ b: out[i, c] = sum_j a[i, j] b[j, c]."""
+    acc = None
+    for j in range(a.shape[-2]):
+        t = a[..., :, j, None, :] * b[..., None, j, :, :]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def mmt(a, b):
+    """a @ b^T: out[i, c] = sum_j a[i, j] b[c, j]."""
+    acc = None
+    for j in range(a.shape[-2]):
+        t = a[..., :, j, None, :] * b[..., None, :, j, :]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def mtm(a, b):
+    """a^T @ b: out[i, c] = sum_j a[j, i] b[j, c]."""
+    acc = None
+    for j in range(a.shape[-3]):
+        t = a[..., j, :, None, :] * b[..., None, j, :, :]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def block_inv(m):
+    """Gauss-Jordan inverse of SPD blocks (..., w, w, B)."""
+    return small_spd_inv(m.movedim(-1, -3)).movedim(-3, -1)
+
+
+def admm_chunk_iterate_plain(
+    it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT, state,
+    btd_solve: Callable[[torch.Tensor], torch.Tensor],
     *,
     interval: int,
     check_every: int,
@@ -73,12 +137,13 @@ def banded_admm_chunk_plain(
     eps_abs: float,
     eps_rel: float,
 ):
-    """Plain PyTorch version of the chunk, op for op the JAX ``_kernel``.
+    """The chunk's iteration loop, op for op the JAX kernels' ``one_iter``,
+    ``residuals`` and check-block while loop, around a factored solve
+    ``btd_solve(rhs (N, w, B)) -> (N, w, B)``.
 
-    Returns ``(x, yx, yd, yc, zx, zd, zc, done, it_inc, rp, rd, mp, md)``
-    with the input layouts; the last six are (B,), ``done``/``it_inc``
-    int32, ``rp``/``rd``/``mp``/``md`` ``inf`` where no check ran.  The
-    check-block loop reads its condition on the host.
+    ``state`` is ``(x, zx, zd, zc, yx, yd, yc)``.  Returns the 13 chunk
+    outputs ``(x, yx, yd, yc, zx, zd, zc, done, it_inc, rp, rd, mp, md)``.
+    The check-block loop reads its condition on the host.
     """
     N, w, B = qT.shape
     dtype, dev = qT.dtype, qT.device
@@ -88,46 +153,6 @@ def banded_admm_chunk_plain(
     lc, uc, rc = boundsT["lc"], boundsT["uc"], boundsT["rc"]
     ds, ex, ed, ec = scaleT["ds"], scaleT["ex"], scaleT["ed"], scaleT["ec"]
     ci = scaleT["ci"]
-    nd = N - 1
-
-    # ---- M assembly + block-Thomas factorization ---------------------
-    eye_w = torch.eye(w, dtype=dtype, device=dev)[:, :, None]  # (w, w, 1)
-    eye_w4 = eye_w[None]
-
-    def outer(rho_s, ja, jb):
-        """sum_i (rho[., i] ja[., i, a]) jb[., i, c] as an ascending
-        i-chain -> (., w, w, B) (the kernel's ``row_r``)."""
-        acc = None
-        for i in range(ja.shape[1]):
-            t = (rho_s[:, i, None, None, :] * ja[:, i, :, None, :]) * jb[:, i, None, :, :]
-            acc = t if acc is None else acc + t
-        return acc
-
-    diag = hb + sigma * eye_w4 + eye_w4 * rx[:, :, None, :]
-    diag = diag.clone()
-    diag[:nd] = diag[:nd] + outer(rd_, j0, j0)
-    diag[1:] = diag[1:] + outer(rd_, j1, j1)
-    diag = diag + outer(rc, jc, jc)
-    low = outer(rd_, j1, j0)  # (Nd, w, w, B)
-
-    def spd_inv_bl(m):
-        return small_spd_inv(m.permute(2, 0, 1)).permute(1, 2, 0)
-
-    def mm(a, b):
-        """(w, w, B) block product, sequential j-chain."""
-        acc = None
-        for j in range(w):
-            t = a[:, j : j + 1, :] * b[j : j + 1, :, :]
-            acc = t if acc is None else acc + t
-        return acc
-
-    dinv = [spd_inv_bl(diag[0])]
-    g = []
-    for k in range(1, N):
-        g_k = mm(low[k - 1], dinv[k - 1])
-        schur = diag[k] - mm(g_k, low[k - 1].transpose(0, 1))
-        dinv.append(spd_inv_bl(schur))
-        g.append(g_k)
 
     def mat_A(x):
         ax_d = csum(j0 * x[:-1, None], 2) + csum(j1 * x[1:, None], 2)
@@ -145,15 +170,6 @@ def banded_admm_chunk_plain(
 
     def mat_P(x):
         return csum(hb * x[:, None], 2)
-
-    def btd_solve(rhs):
-        s = [rhs[0]]
-        for k in range(1, N):
-            s.append(rhs[k] - csum(g[k - 1] * s[k - 1][None], 1))
-        s[N - 1] = csum(dinv[N - 1] * s[N - 1][None], 1)
-        for k in range(N - 2, -1, -1):
-            s[k] = csum(dinv[k] * s[k][None], 1) - csum(g[k] * s[k + 1][:, None], 0)
-        return torch.stack(s)
 
     def one_iter(c):
         x, zx, zd, zc, yx, yd, yc = c
@@ -204,7 +220,6 @@ def banded_admm_chunk_plain(
 
     it0 = it0.to(torch.int32)
     done = done0.to(torch.int32)
-    state = (xT, zxT, zdT, zcT, yxT, ydT, ycT)
     inf_row = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     it_inc = torch.zeros((B,), dtype=torch.int32, device=dev)
     rp = rd = mp = md = inf_row
@@ -234,35 +249,82 @@ def banded_admm_chunk_plain(
     return (x, yx, yd, yc, zx, zd, zc, done, it_inc, rp, rd, mp, md)
 
 
+def banded_admm_chunk_plain(
+    it0,  # (B,) int32 per-scenario iteration counts at entry
+    done0,  # (B,) int32 1 = frozen at entry
+    HbT,  # (N, w, w, B) scaled Hessian blocks
+    J0T,  # (Nd, r, w, B) scaled dynamics Jacobian wrt frame k
+    J1T,  # (Nd, r, w, B) scaled dynamics Jacobian wrt frame k+1
+    JcT,  # (N, r2, w, B) scaled stage-constraint Jacobians
+    qT,  # (N, w, B) scaled linear term
+    boundsT: Dict[str, torch.Tensor],  # lx ux rx (N,w,B) ld ud rd (Nd,r,B) lc uc rc (N,r2,B)
+    scaleT: Dict[str, torch.Tensor],  # ds ex (N,w,B) ed (Nd,r,B) ec (N,r2,B) ci (B,)
+    xT,  # (N, w, B) scaled primal warm start
+    yxT,  # (N, w, B) scaled duals by section
+    ydT,  # (Nd, r, B)
+    ycT,  # (N, r2, B)
+    zxT,  # carried z sections
+    zdT,
+    zcT,
+    *,
+    interval: int,
+    check_every: int,
+    max_iter: int,
+    sigma: float,
+    alpha: float,
+    eps_abs: float,
+    eps_rel: float,
+):
+    """Plain PyTorch version of the chunk, op for op the JAX ``_kernel``.
+
+    Returns ``(x, yx, yd, yc, zx, zd, zc, done, it_inc, rp, rd, mp, md)``
+    with the input layouts; the last six are (B,), ``done``/``it_inc``
+    int32, ``rp``/``rd``/``mp``/``md`` ``inf`` where no check ran.  The
+    check-block loop reads its condition on the host.
+    """
+    N, w, B = qT.shape
+    dtype, dev = qT.dtype, qT.device
+    j0, j1, jc = J0T, J1T, JcT
+    rx, rd_, rc = boundsT["rx"], boundsT["rd"], boundsT["rc"]
+    nd = N - 1
+
+    # ---- M assembly + block-Thomas factorization ---------------------
+    eye_w = torch.eye(w, dtype=dtype, device=dev)[:, :, None]  # (w, w, 1)
+    eye_w4 = eye_w[None]
+
+    diag = HbT + sigma * eye_w4 + eye_w4 * rx[:, :, None, :]
+    diag = diag.clone()
+    diag[:nd] = diag[:nd] + outer_r(rd_, j0, j0)
+    diag[1:] = diag[1:] + outer_r(rd_, j1, j1)
+    diag = diag + outer_r(rc, jc, jc)
+    low = outer_r(rd_, j1, j0)  # (Nd, w, w, B)
+
+    dinv = [block_inv(diag[0])]
+    g = []
+    for k in range(1, N):
+        g_k = mm(low[k - 1], dinv[k - 1])
+        dinv.append(block_inv(diag[k] - mmt(g_k, low[k - 1])))
+        g.append(g_k)
+
+    def btd_solve(rhs):
+        s = [rhs[0]]
+        for k in range(1, N):
+            s.append(rhs[k] - mv(g[k - 1], s[k - 1]))
+        s[N - 1] = mv(dinv[N - 1], s[N - 1])
+        for k in range(N - 2, -1, -1):
+            s[k] = mv(dinv[k], s[k]) - mtv(g[k], s[k + 1])
+        return torch.stack(s)
+
+    return admm_chunk_iterate_plain(
+        it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
+        (xT, zxT, zdT, zcT, yxT, ydT, ycT), btd_solve,
+        interval=interval, check_every=check_every, max_iter=max_iter,
+        sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
+    )
+
+
 # ---------------------------------------------------------------------------
-# CUDA launch
-
-
-def _chunk_fn():
-    fn = _CHUNK_FN.get("fn")
-    if fn is None:
-        from .build import load_library
-
-        lib = load_library("banded_chunk")
-        fn = lib.ocp_banded_admm_chunk_f32
-        fn.argtypes = [
-            ctypes.c_void_p,  # const void* const* ptrs
-            ctypes.c_int,  # nptrs
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # N w r r2 B
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # interval check_every max_iter
-            ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
-            ctypes.c_void_p,  # stream
-        ]
-        fn.restype = ctypes.c_int
-        err = lib.ocp_cuda_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _CHUNK_FN["fn"] = fn
-        _CHUNK_FN["err"] = err
-    return fn
-
-
-_CHUNK_FN: Dict[str, object] = {}
+# Wrapper contract and CUDA launch, shared by the chunk kernels
 
 
 def _check(name, t, shape, dtype, dev):
@@ -274,6 +336,117 @@ def _check(name, t, shape, dtype, dev):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def chunk_contract(
+    label, it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
+    xT, yxT, ydT, ycT, zxT, zdT, zcT, check_every,
+) -> Tuple[List[torch.Tensor], Tuple[int, int, int, int, int]]:
+    """Check a chunk call against the kernels' contract, on both devices
+    (so the CPU tests hold the driver to it): row-major batch-last arrays
+    of one float type (float32 on the card), int32 per-scenario counters,
+    ``N >= 2``, ``r, r2 >= 1``.  Returns the 28 inputs in the kernels'
+    pointer order and ``(N, w, r, r2, B)``."""
+    dev = qT.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{label}: unsupported device {dev}")
+    N, w, B = qT.shape
+    nd = N - 1
+    r = J0T.shape[1]
+    r2 = JcT.shape[1]
+    if N < 2 or r < 1 or r2 < 1:
+        raise ValueError(
+            f"{label} needs N >= 2, r >= 1, r2 >= 1 (got N={N}, "
+            f"r={r}, r2={r2}); the driver pads absent sections"
+        )
+    if check_every < 1:
+        raise ValueError("check_every must be >= 1")
+    f32, i32 = (torch.float32 if dev.type == "cuda" else qT.dtype), torch.int32
+    vx, vd, vc = (N, w, B), (nd, r, B), (N, r2, B)
+    inputs = [
+        ("it0", it0, (B,), i32), ("done0", done0, (B,), i32),
+        ("HbT", HbT, (N, w, w, B), f32), ("J0T", J0T, (nd, r, w, B), f32),
+        ("J1T", J1T, (nd, r, w, B), f32), ("JcT", JcT, (N, r2, w, B), f32),
+        ("qT", qT, vx, f32),
+    ]
+    for name, shape in zip(_BOUNDS, (vx, vx, vx, vd, vd, vd, vc, vc, vc)):
+        inputs.append((name, boundsT[name], shape, f32))
+    for name, shape in zip(_SCALES, (vx, vx, vd, vc, (B,))):
+        inputs.append((name, scaleT[name], shape, f32))
+    inputs += [
+        ("xT", xT, vx, f32), ("yxT", yxT, vx, f32), ("ydT", ydT, vd, f32),
+        ("ycT", ycT, vc, f32), ("zxT", zxT, vx, f32), ("zdT", zdT, vd, f32),
+        ("zcT", zcT, vc, f32),
+    ]
+    for name, t, shape, dt in inputs:
+        _check(name, t, shape, dt, dev)
+    return [t for _, t, _, _ in inputs], (N, w, r, r2, B)
+
+
+def chunk_outputs(dims, dev) -> tuple:
+    """The 13 output tensors of a chunk launch, uninitialised."""
+    N, w, r, r2, B = dims
+    vx, vd, vc = (N, w, B), (N - 1, r, B), (N, r2, B)
+
+    def empty(shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    i32 = torch.int32
+    return (
+        empty(vx), empty(vx), empty(vd), empty(vc),  # x yx yd yc
+        empty(vx), empty(vd), empty(vc),  # zx zd zc
+        empty((B,), i32), empty((B,), i32),  # done it_inc
+        empty((B,)), empty((B,)), empty((B,)), empty((B,)),  # rp rd mp md
+    )
+
+
+_LIB_FNS: Dict[str, Tuple[object, object]] = {}
+
+
+def _lib_fn(lib_name: str, symbol: str, n_int: int):
+    """``(fn, error_string)`` of a chunk kernel's C entry point, building
+    and loading its library on first use.  Every entry point takes
+    ``(ptrs, nptrs, <n_int ints>, sigma, alpha, eps_abs, eps_rel, stream)``
+    and returns the launch's ``cudaError_t``."""
+    key = f"{lib_name}:{symbol}"
+    if key not in _LIB_FNS:
+        from .build import load_library
+
+        lib = load_library(lib_name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_int] * n_int
+            + [ctypes.c_double] * 4
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        err = lib.ocp_cuda_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIB_FNS[key] = (fn, err)
+    return _LIB_FNS[key]
+
+
+def launch_chunk(
+    label: str, lib_name: str, symbol: str, tensors: Sequence[torch.Tensor],
+    ints: Sequence[int], floats: Sequence[float], dev,
+) -> None:
+    """Launch a chunk kernel on the current stream with the device
+    pointers of ``tensors`` (inputs, outputs, scratch, in the kernel's
+    order); raises if the launch is refused.  Does not synchronise."""
+    ptrs = [t.data_ptr() for t in tensors]
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    fn, err_fn = _lib_fn(lib_name, symbol, len(ints))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(
+        ctypes.cast(arr, ctypes.c_void_p), len(ptrs),
+        *(int(i) for i in ints), *(float(f) for f in floats),
+        ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        msg = err_fn(err).decode()
+        raise RuntimeError(f"{label} launch failed: cudaError {err} ({msg})")
 
 
 def banded_admm_chunk(
@@ -313,79 +486,37 @@ def banded_admm_chunk(
         interval=interval, check_every=check_every, max_iter=max_iter,
         sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
     )
+    inputs, dims = chunk_contract(
+        "banded_admm_chunk", it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
+        xT, yxT, ydT, ycT, zxT, zdT, zcT, check_every,
+    )
     dev = qT.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"banded_admm_chunk: unsupported device {dev}")
-    N, w, B = qT.shape
-    nd = N - 1
-    r = J0T.shape[1]
-    r2 = JcT.shape[1]
-    if N < 2 or r < 1 or r2 < 1:
-        raise ValueError(
-            f"banded_admm_chunk needs N >= 2, r >= 1, r2 >= 1 (got N={N}, "
-            f"r={r}, r2={r2}); the driver pads absent sections"
-        )
-    if check_every < 1:
-        raise ValueError("check_every must be >= 1")
-    # The kernel's contract, checked on both devices so the CPU tests hold
-    # the driver to it: row-major batch-last arrays of one float type
-    # (float32 on the card), int32 per-scenario counters.
-    f32, i32 = (torch.float32 if dev.type == "cuda" else qT.dtype), torch.int32
-    vx, vd, vc = (N, w, B), (nd, r, B), (N, r2, B)
-    inputs = [
-        ("it0", it0, (B,), i32), ("done0", done0, (B,), i32),
-        ("HbT", HbT, (N, w, w, B), f32), ("J0T", J0T, (nd, r, w, B), f32),
-        ("J1T", J1T, (nd, r, w, B), f32), ("JcT", JcT, (N, r2, w, B), f32),
-        ("qT", qT, vx, f32),
-    ]
-    for name, shape in zip(_BOUNDS, (vx, vx, vx, vd, vd, vd, vc, vc, vc)):
-        inputs.append((name, boundsT[name], shape, f32))
-    for name, shape in zip(_SCALES, (vx, vx, vd, vc, (B,))):
-        inputs.append((name, scaleT[name], shape, f32))
-    inputs += [
-        ("xT", xT, vx, f32), ("yxT", yxT, vx, f32), ("ydT", ydT, vd, f32),
-        ("ycT", ycT, vc, f32), ("zxT", zxT, vx, f32), ("zdT", zdT, vd, f32),
-        ("zcT", zcT, vc, f32),
-    ]
-    for name, t, shape, dt in inputs:
-        _check(name, t, shape, dt, dev)
     if dev.type == "cpu":
         return banded_admm_chunk_plain(
             it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
             xT, yxT, ydT, ycT, zxT, zdT, zcT, **kw,
         )
+    N, w, r, r2, B = dims
     if w not in KERNEL_WIDTHS:
         raise ValueError(
             f"banded_admm_chunk: block width w={w} has no CUDA instantiation "
-            f"(built for {KERNEL_WIDTHS})"
+            f"(built for {KERNEL_WIDTHS}); the rolled chunk takes it"
         )
-
-    def empty(shape, dt=f32):
-        return torch.empty(shape, dtype=dt, device=dev)
-
-    outs = (
-        empty(vx), empty(vx), empty(vd), empty(vc),  # x yx yd yc
-        empty(vx), empty(vd), empty(vc),  # zx zd zc
-        empty((B,), i32), empty((B,), i32),  # done it_inc
-        empty((B,)), empty((B,)), empty((B,)), empty((B,)),  # rp rd mp md
-    )
-    scratch = (empty(vx), empty((N, w, w, B)), empty((nd, w, w, B)))  # s dinv g
+    outs = chunk_outputs(dims, dev)
     if B == 0:
         return outs
-    ptrs = [t.data_ptr() for _, t, _, _ in inputs]
-    ptrs += [t.data_ptr() for t in outs] + [t.data_ptr() for t in scratch]
-    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    fn = _chunk_fn()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        ctypes.cast(arr, ctypes.c_void_p), len(ptrs),
-        N, w, r, r2, B, int(interval), int(check_every), int(max_iter),
-        float(sigma), float(alpha), float(eps_abs), float(eps_rel),
-        ctypes.c_void_p(stream),
+    f32 = torch.float32
+    scratch = (  # s dinv g
+        torch.empty((N, w, B), dtype=f32, device=dev),
+        torch.empty((N, w, w, B), dtype=f32, device=dev),
+        torch.empty((N - 1, w, w, B), dtype=f32, device=dev),
     )
-    if err != 0:
-        msg = _CHUNK_FN["err"](err).decode()
-        raise RuntimeError(f"banded_admm_chunk launch failed: cudaError {err} ({msg})")
+    launch_chunk(
+        "banded_admm_chunk", "banded_chunk", "ocp_banded_admm_chunk_f32",
+        [*inputs, *outs, *scratch],
+        (N, w, r, r2, B, interval, check_every, max_iter),
+        (sigma, alpha, eps_abs, eps_rel), dev,
+    )
     banded_admm_chunk.launches += 1
     return outs
 

@@ -5,8 +5,9 @@ The condensed ADMM operator ``M = P + sigma*I + A^T R A`` of a
 horizon-structured OCP is block-tridiagonal; its block LDL^T costs
 O(N w^3) instead of the dense O(N^3 w^3).  These are the per-scenario
 plain-torch versions used by ``solvers/admm_banded.py`` (the per-scenario
-reference path and the active-set polish).  The batched hot loop does the
-same factorization inside the CUDA chunk kernel (``ops/banded_kernel.py``).
+reference path and the active-set polish).  The batched hot loop factors
+inside the CUDA chunk kernels (``ops/banded_kernel.py``, one-way, and
+``ops/banded_rolled_kernel.py``, two-way).
 
 Every block product is an explicit add chain in the JAX module's order, so
 the two packages agree to f32 roundoff.  The cyclic-reduction variants

@@ -7,10 +7,17 @@ axis):
 * prepare (PyTorch, once): Ruiz equilibration — or the precomputed
   scalings when ``scaling_refresh="tick"`` — per-row rho, and z initialised
   to ``clip(A x0)`` (:func:`prepare_banded_batch_T`);
-* iterate (``ops/banded_kernel.banded_admm_chunk``): M assembly,
-  block-Thomas factorization and up to ``interval`` iterations with
-  per-scenario termination, one launch per rho-constant chunk — the CUDA
-  kernel for tensors on the card, its plain version on the CPU;
+* iterate (one chunk kernel launch per rho-constant chunk): M assembly,
+  block factorization and up to ``interval`` iterations with per-scenario
+  termination — the CUDA kernel for tensors on the card, its plain version
+  on the CPU.  Two chunk kernels share the contract (:func:`chunk_kernel`
+  picks): ``ops/banded_kernel.banded_admm_chunk`` (one-way block-Thomas,
+  one thread per scenario, ``w`` in ``KERNEL_WIDTHS``) and
+  ``ops/banded_rolled_kernel.banded_admm_chunk_rolled`` (two-way
+  factorization with an optional depth-1 cyclic-reduction level, one
+  thread per block row, any ``w`` up to 16).  The rule is the same on both
+  devices, so the CPU runs the plain version of the kernel the card would
+  run;
 * between chunks (PyTorch): infeasibility certificates on the chunk deltas
   and OSQP adaptive rho (the refactorization happens at the next launch);
 * finish: optional active-set polish (per scenario), unscaling.
@@ -23,7 +30,8 @@ block (as in the JAX driver).  Without adaptive rho the chunk interval is
 loop reads "any scenario still active" on the host between chunks.
 
 Not ported (nothing on the card needs them): the VMEM tile pickers, batch
-padding to a tile, and the vmapped per-scenario fallback.  A shape the
+padding to a tile, and the vmapped per-scenario fallback; the kernel
+choice is :func:`chunk_kernel`'s width rule instead.  A shape the chosen
 kernel does not take raises.
 """
 
@@ -34,7 +42,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import resolve_device
-from ..ops.banded_kernel import banded_admm_chunk
+from ..ops.banded_kernel import KERNEL_WIDTHS, banded_admm_chunk
+from ..ops.banded_rolled_kernel import banded_admm_chunk_rolled
 from ..ops.block_tridiag import btd_factor, btd_solve
 from .admm import ADMMSettings, QPSolution, _RHO_MAX, _RHO_MIN
 from .admm_banded import (
@@ -50,9 +59,11 @@ __all__ = [
     "admm_solve_banded_batch",
     "admm_solve_banded_batch_T",
     "chunk_inputs",
+    "chunk_kernel",
     "prepare_banded_batch_T",
     "ruiz_scalings_batch",
     "ruiz_scalings_batch_T",
+    "use_cr1",
 ]
 
 
@@ -273,7 +284,7 @@ def prepare_banded_batch_T(
 
 
 def chunk_inputs(prob: BandedBatchProblem, st: ADMMSettings, it_b, stop, x, y, z, rho):
-    """Positional and keyword arguments of one ``banded_admm_chunk`` launch
+    """Positional and keyword arguments of one chunk launch
     for iterates ``x (n,B)``, ``y``/``z``/``rho`` ``(m,B)``, per-scenario
     ``it_b`` (int32) and ``stop`` (bool)."""
     s = prob.scaled
@@ -310,7 +321,35 @@ def chunk_inputs(prob: BandedBatchProblem, st: ADMMSettings, it_b, stop, x, y, z
     return args, kw
 
 
-def _solve_banded_batch_T(qpT: BandedQP, st: ADMMSettings, x0T, y0T, scalingsT):
+def use_cr1(N: int, B: int) -> bool:
+    """Whether the rolled chunk runs its depth-1 cyclic-reduction level:
+    the JAX package's ``_use_cr1`` (even horizon, N >= 16, tile < 128) with
+    the whole batch in place of the tile.  JAX's ``pick_rolled_tile``
+    returns the whole batch for every B < 128 at quadrotor h100 and 128
+    above, so both packages take the same elimination order at every
+    batch the tests and the bench use.  Whether this card prefers the
+    level at every B is not measured yet."""
+    return N % 2 == 0 and N >= 16 and B < 128
+
+
+def chunk_kernel(N: int, w: int, B: int, rolled: Optional[bool] = None):
+    """The chunk kernel for a batch, and its extra keyword arguments.
+
+    ``rolled=True`` forces the rolled two-way kernel, ``False`` the one-way
+    kernel; ``None`` takes the one-way kernel where it is instantiated
+    (``w`` in ``KERNEL_WIDTHS``) and the rolled one otherwise.  The rule
+    does not look at the device: on the CPU the driver runs the plain
+    version of the kernel the card would run."""
+    if rolled is None:
+        rolled = w not in KERNEL_WIDTHS
+    if rolled:
+        return banded_admm_chunk_rolled, {"cr1": use_cr1(N, B)}
+    return banded_admm_chunk, {}
+
+
+def _solve_banded_batch_T(
+    qpT: BandedQP, st: ADMMSettings, x0T, y0T, scalingsT, rolled: Optional[bool] = None
+):
     if st.banded_solver != "thomas":
         raise NotImplementedError(
             f"banded_solver={st.banded_solver!r} is not ported yet "
@@ -324,6 +363,7 @@ def _solve_banded_batch_T(qpT: BandedQP, st: ADMMSettings, x0T, y0T, scalingsT):
     r, r2 = scaled.J0.shape[1], scaled.Jc.shape[1]
     nd = N - 1
 
+    chunk_fn, chunk_kw = chunk_kernel(N, w, B, rolled)
     it_b = torch.zeros((B,), dtype=torch.int32, device=dev)
     x, y, z, rho = prob.x, prob.y, prob.z, prob.rho
     false_b = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -342,7 +382,7 @@ def _solve_banded_batch_T(qpT: BandedQP, st: ADMMSettings, x0T, y0T, scalingsT):
         stop = done | pinf | dinf
         args, kw = chunk_inputs(prob, st, it_b, stop, x, y, z, rho)
         (xT2, yx2, yd2, yc2, zx2, zd2, zc2, kdone, it_inc,
-         rp_k, rd_k, mp_k, md_k) = banded_admm_chunk(*args, **kw)
+         rp_k, rd_k, mp_k, md_k) = chunk_fn(*args, **kw, **chunk_kw)
         x_new = xT2.reshape(n, B)
         y_new = torch.cat(
             [yx2.reshape(n, B), yd2.reshape(nd * r, B), yc2.reshape(N * r2, B)], dim=0
@@ -418,20 +458,22 @@ def admm_solve_banded_batch_T(
     y0T: Optional[torch.Tensor] = None,  # (m, B)
     scalingsT=None,  # optional precomputed (D (n,B), E (m,B), c (B,))
     device=None,
+    rolled: Optional[bool] = None,
 ):
     """Solve a batch of stage-structured QPs, batch-LAST: every field of
     ``qpT`` carries a trailing scenario axis (``Hb (N,w,w,B)``, ``q/l/u
     (rows, B)``); warm starts and returns are ``(rows, B)``.
 
-    Runs on ``device`` (default: the GPU; inputs are moved there).
-    Returns ``(x (n,B), y (m,B), z (m,B), iters (B,), converged, r_prim,
+    Runs on ``device`` (default: the GPU; inputs are moved there);
+    ``rolled`` picks the chunk kernel (:func:`chunk_kernel`).  Returns
+    ``(x (n,B), y (m,B), z (m,B), iters (B,), converged, r_prim,
     r_dual, prim_inf, dual_inf)``.
     """
     dev = resolve_device(device)
     mv = lambda a: None if a is None else a.to(dev)  # noqa: E731
     qpT = BandedQP(*(a.to(dev) for a in qpT))
     sc = None if scalingsT is None else tuple(mv(s) for s in scalingsT)
-    return _solve_banded_batch_T(qpT, settings, mv(x0T), mv(y0T), sc)
+    return _solve_banded_batch_T(qpT, settings, mv(x0T), mv(y0T), sc, rolled)
 
 
 def admm_solve_banded_batch(
@@ -441,6 +483,7 @@ def admm_solve_banded_batch(
     y0: Optional[torch.Tensor] = None,  # (B, m)
     scalings=None,  # optional precomputed (D (B,n), E (B,m), c (B,))
     device=None,
+    rolled: Optional[bool] = None,
 ) -> QPSolution:
     """Solve a BATCH of stage-structured QPs (leading dim B on every field).
 
@@ -457,7 +500,7 @@ def admm_solve_banded_batch(
         else (_t(scalings[0].to(dev)), _t(scalings[1].to(dev)), scalings[2].to(dev))
     )
     xT, yT, zT, it_b, done, rp, rd, pinf, dinf = _solve_banded_batch_T(
-        qpT, settings, x0T, y0T, scalingsT
+        qpT, settings, x0T, y0T, scalingsT, rolled
     )
     return QPSolution(
         x=xT.T, y=yT.T, z=zT.T,

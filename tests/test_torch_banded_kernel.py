@@ -51,9 +51,10 @@ def port(st):
     return settings_from_jax_dict(dataclasses.asdict(st))
 
 
-def chunk_case(st, seeds=(0, 1, 2), it0=None, done0=None):
-    """Chunk inputs from the port's driver prepare, with a warm start."""
-    _, tqp = stacked(seeds)
+def chunk_case(st, seeds=(0, 1, 2), it0=None, done0=None, **qp_kw):
+    """Chunk inputs from the port's driver prepare, with a warm start;
+    ``qp_kw`` sizes the ``random_stage_qp`` batch."""
+    _, tqp = stacked(seeds, **qp_kw)
     qpT = BandedQP(*(abb._t(a) for a in tqp))
     rng = np.random.default_rng(1)
     n, B = qpT.q.shape
@@ -66,14 +67,36 @@ def chunk_case(st, seeds=(0, 1, 2), it0=None, done0=None):
     return abb.chunk_inputs(prob, st, it0, done0, prob.x, prob.y, prob.z, prob.rho)
 
 
-def run_jax_chunk(args, kw):
+def run_jax_chunk(args, kw, chunk=j_chunk):
+    """A JAX chunk kernel in interpret mode with the whole batch as one tile
+    (for the rolled kernel: its depth-1 CR level is on exactly when N is
+    even and >= 16)."""
     to_j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
     jargs = [
         {k: to_j(v) for k, v in a.items()} if isinstance(a, dict) else to_j(a)
         for a in args
     ]
     B = args[6].shape[-1]
-    return j_chunk(*jargs, **kw, batch_tile=B, interpret=True)
+    return chunk(*jargs, **kw, batch_tile=B, interpret=True)
+
+
+def assert_chunk_close(ours, ref, atol=ATOL, rtol=RTOL):
+    """A forced-budget chunk against the JAX kernel's: equal ``done`` and
+    ``it_inc``, iterates to atol/rtol, max_prim/max_dual to rtol; the
+    residuals rp/rd are differences of nearly equal terms, so they agree
+    to rtol of the scale they measure."""
+    np.testing.assert_array_equal(ours[7].numpy(), np.asarray(ref[7]))  # done
+    np.testing.assert_array_equal(ours[8].numpy(), np.asarray(ref[8]))  # it_inc
+    for a, b in zip(ours[:7], ref[:7]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=atol, rtol=rtol)
+    for a, b in zip(ours[11:], ref[11:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=rtol)
+    for a, b, scale in zip(ours[9:11], ref[9:11], ours[11:]):
+        fin = np.isfinite(scale.numpy())
+        np.testing.assert_array_equal(np.isinf(a.numpy()), np.isinf(np.asarray(b)))
+        np.testing.assert_allclose(
+            a.numpy()[fin], np.asarray(b)[fin], atol=rtol * float(scale[fin].max()), rtol=0
+        )
 
 
 @pytest.mark.parametrize(
@@ -89,21 +112,7 @@ def test_chunk_plain_matches_pallas_interpret(it0, done0, interval, max_iter):
     args, kw = chunk_case(st, it0=it0, done0=done0)
     kw["interval"] = interval
     ours = bk.banded_admm_chunk_plain(*args, **kw)
-    ref = run_jax_chunk(args, kw)
-    np.testing.assert_array_equal(ours[7].numpy(), np.asarray(ref[7]))  # done
-    np.testing.assert_array_equal(ours[8].numpy(), np.asarray(ref[8]))  # it_inc
-    for a, b in zip(ours[:7], ref[:7]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=RTOL)
-    # max_prim/max_dual to RTOL; the residuals rp/rd are differences of
-    # nearly equal terms, so they agree to RTOL of the scale they measure.
-    for a, b in zip(ours[11:], ref[11:]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL)
-    for a, b, scale in zip(ours[9:11], ref[9:11], ours[11:]):
-        fin = np.isfinite(scale.numpy())
-        np.testing.assert_array_equal(np.isinf(a.numpy()), np.isinf(np.asarray(b)))
-        np.testing.assert_allclose(
-            a.numpy()[fin], np.asarray(b)[fin], atol=RTOL * float(scale[fin].max()), rtol=0
-        )
+    assert_chunk_close(ours, run_jax_chunk(args, kw))
     if done0 is not None:
         assert int(ours[8][2]) == 0 and np.isinf(ours[9][2].item())
 

@@ -73,3 +73,56 @@ def test_stagewise_fns_match_jax():
     )
     for a, b in zip(ours, batch):
         torch.testing.assert_close(a, b[..., 0], rtol=1e-6, atol=1e-7)
+
+
+# ---- quadrotor (w=16, r=12, per-stage reference slices) ----------------
+
+from optimal_control_problem_tpu.models import quadrotor as jqr  # noqa: E402
+from optimal_control_problem_tpu_torch.models import quadrotor as tqr  # noqa: E402
+
+HQ = 5
+
+
+def quad_point(seed):
+    """Frames near hover with random attitudes and rates; per-stage
+    reference positions."""
+    rng = np.random.default_rng(seed)
+    fr = np.tile(tqr.initial_state(), (HQ, B, 1)) + 0.3 * rng.normal(size=(HQ, B, tqr.FRAME))
+    xT = np.ascontiguousarray(np.moveaxis(fr, 1, -1).reshape(HQ * tqr.FRAME, B), np.float32)
+    pT = rng.normal(size=(HQ * 3, B)).astype(np.float32)
+    return xT, pT
+
+
+@pytest.mark.parametrize("hessian_reg", ["auto", 0.5])
+def test_quadrotor_stage_blocks_batch_match_jax(hessian_reg):
+    xT, pT = quad_point(3)
+    ours = tsw.build_stage_blocks_batch(tqr.stage_structure(HQ, 0.02), torch.float32, hessian_reg)(
+        torch.as_tensor(xT), torch.as_tensor(pT)
+    )
+    ref = jsw.build_stage_blocks_batch(jqr.stage_structure(HQ, 0.02), jnp.float32, hessian_reg)(
+        jnp.asarray(xT), jnp.asarray(pT)
+    )
+    assert tuple(ours[0].shape) == (HQ, 16, 16, B) and tuple(ours[1].shape) == (HQ - 1, 12, 16, B)
+    for a, b in zip(ours, ref):
+        assert a.dtype == torch.float32 and a.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
+def test_quadrotor_stage_vectors_and_derivatives_match_jax():
+    xT, pT = quad_point(4)
+    g, c = tsw.build_stage_vectors_batch(tqr.stage_structure(HQ, 0.02), torch.float32)(
+        torch.as_tensor(xT), torch.as_tensor(pT)
+    )
+    gj, cj = jsw.build_stage_vectors_batch(jqr.stage_structure(HQ, 0.02), jnp.float32)(
+        jnp.asarray(xT), jnp.asarray(pT)
+    )
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj), rtol=1e-5, atol=1e-6)
+    fr = xT[:, 0].reshape(HQ, tqr.FRAME)
+    ours = tqr.quadrotor_derivatives(*(torch.as_tensor(fr[:, s]) for s in (
+        slice(3, 6), slice(6, 9), slice(9, 12), slice(12, 16))))
+    ref = jqr.quadrotor_derivatives(*(jnp.asarray(fr[:, s]) for s in (
+        slice(3, 6), slice(6, 9), slice(9, 12), slice(12, 16))))
+    for a, b in zip(ours, ref):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
