@@ -15,16 +15,27 @@ Phases:
      r=4, r2=1, B=1024), the rolled two-way chunk at quadrotor shapes
      (N=100, w=16, r=12, r2=1) at B=64 (CR level on, also with entry
      counts near max_iter and scenarios frozen at entry) and B=128 (off);
+     the shared-operator chunk at B=4096, n=120, m=196 on the double
+     integrator's own first chunk of a cold tick and on a random shared QP
+     batch (forced budget that is no multiple of check_every, converging,
+     all done at entry, four termination groups with one done at entry);
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
      B=1024 through ``BatchedSolver`` (2 warm-up + 5 timed ticks), checking
      the launch counts, finite trajectories, and that each warm tick lowers
      the objective or the constraint violation (see ``drive``);
   4b. the long-horizon main path: the batched quadrotor h100 tick at the
      JAX bench's settings, B=64 and B=128, with the same checks;
+  4c. the LTI main path: the batched double-integrator h20 tick at the JAX
+     bench's settings (shared factorization, condensed, adaptive rho),
+     B=4096 and B=64, with backend="pallas" (the shared-operator chunk
+     kernel) and the same checks, then the same ticks with backend="xla"
+     (the torch.matmul loop), tick by tick from the same state;
   5. the cart-pole tick at B=64 on the card and on the CPU (plain chunk)
-     agree; 5b. the quadrotor h100 tick at B=8 likewise;
+     agree; 5b. the quadrotor h100 tick at B=8 likewise; 5c. the double
+     integrator tick at B=64 likewise;
   6. time each kernel at its main path's own inputs beside its plain
-     version and its bound (and the rolled one without its CR level).
+     version and its bound (the rolled one also without its CR level, the
+     shared one also beside a loop of torch.matmul products).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -51,6 +62,8 @@ CHUNK_REPLACES = "optimal_control_problem_tpu/ops/banded_kernel.py:403"
 CHUNK_SOURCE = "optimal_control_problem_tpu_torch/csrc/banded_chunk.cu"
 ROLLED_REPLACES = "optimal_control_problem_tpu/ops/banded_rolled_kernel.py:666"
 ROLLED_SOURCE = "optimal_control_problem_tpu_torch/csrc/banded_rolled_chunk.cu"
+SHARED_REPLACES = "optimal_control_problem_tpu/ops/shared_kernel.py:233"
+SHARED_SOURCE = "optimal_control_problem_tpu_torch/csrc/shared_chunk.cu"
 
 MAIN_ADMM = {
     "method": "banded",
@@ -68,6 +81,17 @@ QUAD_ADMM = {
     "rho": 0.05,
     "check_every": 2,
     "scaling_refresh": "tick",
+}
+
+
+# The JAX bench's double-integrator settings (bench.py:109-124); the backend
+# is added per solver.
+DI_ADMM = {
+    "method": "condensed",
+    "eps_abs": 1e-3,
+    "eps_rel": 1e-3,
+    "max_iter": 1000,
+    "adaptive_rho": True,
 }
 
 
@@ -166,6 +190,30 @@ def rolled_chunk_flops(N, w, r, r2, iters, checks, cr1):
     return assemble + factor + iters * per_iter + checks * per_check
 
 
+def shared_chunk_flops(n, m, iters, checks):
+    """Arithmetic operations of one shared-operator chunk for one scenario
+    (multiply and add each one): per iteration the three panel products
+    and the elementwise updates (rho z - y; sigma x - qb + .; the x and z
+    relaxations; y / rho, the sum, the two clips; the dual update), per
+    check the three residual products and the scaled differences."""
+    per_iter = 2 * (m * n + n * n + n * m) + 6 * n + 12 * m
+    per_check = 2 * (n * m + n * n + m * n) + 4 * m + 6 * n
+    return iters * per_iter + checks * per_check
+
+
+def random_shared_qp(seed, B, n, m):
+    """A random shared QP batch (the shape of tests' ``problem``)."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(n, n))
+    P = L @ L.T + 0.5 * np.eye(n)
+    A = rng.normal(size=(m, n))
+    qs = rng.normal(size=(B, n))
+    centers = rng.normal(size=(B, n)) @ A.T
+    ls = centers - rng.uniform(0.2, 1.5, size=(B, m))
+    us = centers + rng.uniform(0.2, 1.5, size=(B, m))
+    return [np.ascontiguousarray(a, np.float32) for a in (P, A, qs, ls, us)]
+
+
 def launch_shapes(args):
     """(N, w, r, r2) of one recorded chunk launch."""
     N, w = args[6].shape[0], args[6].shape[1]
@@ -192,12 +240,15 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from optimal_control_problem_tpu_torch.models import cartpole, quadrotor
+    from optimal_control_problem_tpu_torch.models import cartpole, double_integrator, quadrotor
     from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
     from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
     from optimal_control_problem_tpu_torch.ops import build
+    from optimal_control_problem_tpu_torch.ops import shared_kernel as sk
     from optimal_control_problem_tpu_torch.parallel import BatchedSolver
+    from optimal_control_problem_tpu_torch.parallel.batch import BatchState
     from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
+    from optimal_control_problem_tpu_torch.solvers import admm_batched as tab
     from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
     from optimal_control_problem_tpu_torch.solvers.admm_banded import BandedQP
 
@@ -320,10 +371,11 @@ def main(argv) -> int:
     log(f"phase 3: largest gap kernel vs plain: one-way {max_abs_err:.3g}, "
         f"rolled {rolled_err:.3g}")
 
-    # Recording wrappers: the driver looks both kernels up on its module at
-    # each SQP step (chunk_kernel), so these see whichever it dispatched.
-    captured = {"banded_admm_chunk": [], "banded_admm_chunk_rolled": []}
-    real = {k: getattr(abb, k) for k in captured}
+    # Recording wrappers: each driver looks its kernels up on its own
+    # module at every call, so these see whichever was dispatched.
+    homes = {"banded_admm_chunk": abb, "banded_admm_chunk_rolled": abb, "shared_admm_chunk": tab}
+    captured = {k: [] for k in homes}
+    real = {k: getattr(mod, k) for k, mod in homes.items()}
 
     def record(solve):
         def recorder(name):
@@ -332,21 +384,133 @@ def main(argv) -> int:
                 return real[name](*args, **kw)
             return fn
 
-        for k in captured:
-            setattr(abb, k, recorder(k))
+        for k, mod in homes.items():
+            setattr(mod, k, recorder(k))
         try:
             return solve()
         finally:
-            for k, f in real.items():
-                setattr(abb, k, f)
+            for k, mod in homes.items():
+                setattr(mod, k, real[k])
 
     def reset_counts():
         bk.banded_admm_chunk.launches = 0
         brk.banded_admm_chunk_rolled.launches = 0
+        sk.shared_admm_chunk.launches = 0
+        tab._admm_iterate_fused.chunks = 0
 
-    def drive(solver, frames, refs, ticks, label, expect_one_way, expect_rolled):
+    def counts():
+        return (bk.banded_admm_chunk.launches, brk.banded_admm_chunk_rolled.launches,
+                sk.shared_admm_chunk.launches)
+
+    # -- 3 (continued). the shared-operator chunk vs its plain version ----
+    H_di, dt_di, B_di = 20, 0.005, 4096
+
+    def di_solver(backend, device="cuda"):
+        cfg_ = double_integrator.make_config(
+            horizon=H_di, dt=dt_di, solve_method="TPU_SQP", alpha=0.1, step_num=10,
+            formulation="reduced", ADMM_settings={**DI_ADMM, "backend": backend})
+        return BatchedSolver(double_integrator.build(cfg_, device=device), device=device)
+
+    rng_di = np.random.default_rng(0)  # frames and references as bench.py:129-133
+    di_frames = np.zeros((B_di, double_integrator.FRAME), np.float32)
+    di_frames[:, 0:2] = rng_di.uniform(-1, 1, size=(B_di, 2)).astype(np.float32)
+    di_refs = np.tile(double_integrator.reference_circle(H_di, dt_di)[None, :],
+                      (B_di, 1)).astype(np.float32)
+    di_pallas = di_solver("pallas")
+    if not di_pallas.solver.shared_system or di_pallas._solve_batch is not di_pallas.solver.solve_batch_fn:
+        raise SystemExit("phase 3: the double integrator was not routed to the shared-system path")
+    record(lambda: di_pallas.solve(di_frames, di_refs, di_pallas.init_state(B_di)))
+    sync()
+    di_args, di_kw = captured["shared_admm_chunk"][0]
+    captured["shared_admm_chunk"].clear()
+    s_names = ("x", "z", "y", "conv", "it_inc", "rp", "rd", "rp_rel", "rd_rel")
+    shared_err = 0.0
+
+    def compare_shared(args, kw, label, check):
+        """Kernel and plain version on the same inputs: conv, it_inc and
+        the pattern of infinite residuals equal, every float output within
+        1e-6 (both sum each product as the same ascending chain without
+        FMA contraction, so the measured gap is 0)."""
+        nonlocal shared_err
+        out_k = sk.shared_admm_chunk(*args, **kw)
+        sync()
+        out_p = sk.shared_admm_chunk_plain(*args, **kw)
+        sync()
+        errs = {}
+        for nm, a, b in zip(s_names, out_k, out_p):
+            if a.dtype in (torch.bool, torch.int32):
+                if not torch.equal(a, b):
+                    raise SystemExit(f"phase 3 [{label}]: {nm} differs between kernel and plain")
+                continue
+            fin = torch.isfinite(b)
+            if not torch.equal(torch.isfinite(a), fin):
+                raise SystemExit(f"phase 3 [{label}]: {nm} is infinite in other places")
+            errs[nm] = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+        B_ = out_k[0].shape[0]
+        log(f"phase 3 [{label}]: B={B_} n={out_k[0].shape[1]} m={out_k[1].shape[1]}: max "
+            f"|kernel - plain| " + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
+            + f"; it_inc {sorted(set(out_k[4].tolist()))}, converged {float(out_k[3].float().mean()):.4f}")
+        if max(errs.values()) > 1e-6:
+            raise SystemExit(f"phase 3 [{label}]: kernel and plain version disagree")
+        check(out_k)
+        shared_err = max(shared_err, max(errs.values()))
+        return out_k
+
+    def expect(cond, label):
+        if not cond:
+            raise SystemExit(f"phase 3 [{label}]: unexpected chunk result")
+
+    def shared_cases(args, kw, where):
+        done0 = args[0]
+        B_ = done0.shape[0]
+        forced = {**kw, "eps_abs": 0.0, "eps_rel": 0.0}
+        # check_every is 25: a budget of 60 ends after the third whole block.
+        compare_shared((done0, 60) + args[2:], forced, f"{where}, forced budget 60",
+                       lambda o: expect(bool((o[4] == 75).all()) and not bool(o[3].any()), where))
+        compare_shared((done0, 1000) + args[2:], kw, f"{where}, converging, eps 1e-3",
+                       lambda o: expect(int(o[4][0]) % 25 == 0 and 0 < int(o[4][0]) <= 1000 and (
+                           bool(o[3].all()) or int(o[4][0]) == 1000), where))
+        ones = torch.ones_like(done0)
+        compare_shared((ones, 60) + args[2:], forced, f"{where}, all done at entry",
+                       lambda o: expect(
+                           bool((o[4] == 0).all()) and bool(o[3].all())
+                           and all(torch.equal(o[i], args[12 + i]) for i in range(3))
+                           and bool(torch.isinf(o[5]).all()) and bool(torch.isinf(o[8]).all()),
+                           where))
+        # Four termination groups; the third enters all done and must come
+        # back untouched while the others iterate.
+        tile = B_ // 4
+        part = torch.zeros_like(done0)
+        part[2 * tile:3 * tile] = 1
+        g3 = slice(2 * tile, 3 * tile)
+
+        def check_groups(o):
+            expect(bool((o[4][g3] == 0).all()) and bool((o[4][:2 * tile] == 75).all())
+                   and bool((o[4][3 * tile:] == 75).all())
+                   and all(torch.equal(o[i][g3], args[12 + i][g3]) for i in range(3))
+                   and bool(torch.isinf(o[5][g3]).all())
+                   and bool(torch.isfinite(o[5][:2 * tile]).all()), where)
+
+        compare_shared((part, 60) + args[2:], {**forced, "batch_tile": tile},
+                       f"{where}, 4 groups of {tile}, one done at entry", check_groups)
+
+    shared_cases(di_args, di_kw, "shared chunk, double integrator cold tick")
+    P_r, A_r, q_r, l_r, u_r = (torch.as_tensor(a, device=dev)
+                               for a in random_shared_qp(0, B_di, 120, 196))
+    st_r = ADMMSettings(**DI_ADMM, backend="pallas")
+    fac_r = tab.prepare_shared(P_r, A_r, l_r, u_r, q_r, st_r)
+    record(lambda: tab.admm_iterate_prepared(fac_r, q_r, l_r, u_r, st_r))
+    sync()
+    r_args, r_kw = captured["shared_admm_chunk"][0]
+    captured["shared_admm_chunk"].clear()
+    shared_cases(r_args, r_kw, "shared chunk, random shared QP")
+    log(f"phase 3: largest gap kernel vs plain, shared chunk: {shared_err:.3g}")
+
+    def drive(solver, frames, refs, ticks, label, expect_launches, pinned=False):
         """Run ``ticks`` ticks of one main path with the launch counts
         reset just before and read just after; check and report.
+        ``expect_launches``: the (one-way, rolled, shared) launch counts, or
+        a function of the counted triple that says whether it is right.
 
         The frames are the same every tick, so each tick warm-starts the
         SQP from the last.  The plan's objective alone need not fall: as
@@ -354,12 +518,21 @@ def main(argv) -> int:
         rise.  So every tick after the first must lower the objective
         (rtol 1e-3) or the defect, the defect must end below its value at
         the first warm tick, and the objective must not end above the
-        first tick's."""
+        first tick's.
+
+        ``pinned`` (the double integrator): its dynamics are linear, so
+        the zero start satisfies them exactly and the only rows violated
+        are the box rows that pin the first frame to the measurement; the
+        violation then counts those rows too, and closing the pin raises
+        the tracking cost from the cold tick on, so in place of "not above
+        the first tick's" the objective must settle: its last change
+        smaller than its first."""
         state = solver.init_state(frames.shape[0])
         refs_t = torch.as_tensor(refs, device=dev)
         lbg, ubg = (torch.as_tensor(b, dtype=torch.float32, device=dev) for b in (
             solver.ocp.get_constraint_lower_bounds(), solver.ocp.get_constraint_upper_bounds()))
         g_batch = torch.func.vmap(solver.solver.g_fn)
+        pin = torch.as_tensor(frames, device=dev)
         tick_ms, f_mean, defect = [], [], []
         reset_counts()
         for _ in range(ticks):
@@ -372,16 +545,21 @@ def main(argv) -> int:
                 raise SystemExit(f"{label}: non-finite trajectory")
             f_mean.append(float(f.mean()))
             g = g_batch(traj, refs_t)
-            viol = torch.clamp(torch.maximum(lbg - g, g - ubg), min=0)
-            defect.append(float(viol.sum(dim=1).mean()))  # mean l1 violation
-        n1, n2 = bk.banded_admm_chunk.launches, brk.banded_admm_chunk_rolled.launches
-        log(f"{label}: {ticks} ticks: one-way launches {n1}, rolled launches {n2}, "
-            f"mean f by tick " + ", ".join(f"{v:.4f}" for v in f_mean)
+            viol = torch.clamp(torch.maximum(lbg - g, g - ubg), min=0).sum(dim=1)
+            if pinned:
+                viol = viol + (traj[:, :pin.shape[1]] - pin).abs().sum(dim=1)
+            defect.append(float(viol.mean()))  # mean l1 violation
+        n = counts()
+        log(f"{label}: {ticks} ticks: one-way launches {n[0]}, rolled launches {n[1]}, "
+            f"shared launches {n[2]}, mean f by tick " + ", ".join(f"{v:.4f}" for v in f_mean)
             + "; mean l1 constraint violation by tick " + ", ".join(f"{v:.3e}" for v in defect))
-        if (n1, n2) != (expect_one_way, expect_rolled):
-            raise SystemExit(f"{label}: expected launches one-way {expect_one_way}, "
-                             f"rolled {expect_rolled}; got {n1}, {n2}")
-        if f_mean[-1] > f_mean[0] * (1 + 1e-3):
+        ok = expect_launches(n) if callable(expect_launches) else n == tuple(expect_launches)
+        if not ok:
+            raise SystemExit(f"{label}: unexpected launch counts (one-way, rolled, shared) {n}")
+        if pinned:
+            if not abs(f_mean[-1] - f_mean[-2]) < abs(f_mean[1] - f_mean[0]):
+                raise SystemExit(f"{label}: the objective did not settle")
+        elif f_mean[-1] > f_mean[0] * (1 + 1e-3):
             raise SystemExit(f"{label}: the objective rose between the first and last tick")
         for t in range(1, ticks):
             if f_mean[t] > f_mean[t - 1] * (1 + 1e-3) and defect[t] >= defect[t - 1]:
@@ -392,11 +570,13 @@ def main(argv) -> int:
                              "first warm tick")
         B = frames.shape[0]
         med = statistics.median(tick_ms[warm:])
-        qp_iters = solver.last_result.qp_iters.float().mean(dim=1).tolist()
+        qp_iters = solver.last_result.qp_iters.float()
+        if qp_iters.dim() > 1:  # per scenario on the banded paths
+            qp_iters = qp_iters.mean(dim=1)
         log(f"{label}: ms/tick {', '.join(f'{t:.2f}' for t in tick_ms)}; median of "
             f"timed {med:.3f} ms, {B / (med / 1e3):.1f} solves/s; mean QP iterations "
-            f"per step at the last tick {', '.join(f'{v:.1f}' for v in qp_iters)}")
-        return state, n1 + n2
+            f"per step at the last tick {', '.join(f'{v:.1f}' for v in qp_iters.tolist())}")
+        return state, sum(n)
 
     # -- 4. the short-horizon main path: cart-pole h20 --------------------
     step_num, ticks, warm = 10, 7, 2
@@ -410,7 +590,7 @@ def main(argv) -> int:
     frames[:, 2] = rng.uniform(-0.5, 0.5, Bm).astype(np.float32)
     refs = np.full((Bm, 1), np.pi, np.float32)
     state, launches = drive(solver, frames, refs, ticks, f"phase 4 cart-pole h20 B={Bm}",
-                            step_num * ticks, 0)
+                            (step_num * ticks, 0, 0))
     # One more tick records the chunk inputs the main path produces.
     record(lambda: solver.solve(frames, refs, state))
     sync()
@@ -454,7 +634,7 @@ def main(argv) -> int:
         qcfg, qfr, qrf = quad_case(Bq)
         qsolver = BatchedSolver(quadrotor.build(qcfg, stagewise=True, device="cuda"))
         qstate, n = drive(qsolver, qfr, qrf, q_ticks, f"phase 4b quadrotor h100 B={Bq}",
-                          0, q_steps * q_ticks)
+                          (0, q_steps * q_ticks, 0))
         rolled_launches += n
         if Bq == 64:
             record(lambda: qsolver.solve(qfr, qrf, qstate))
@@ -463,8 +643,94 @@ def main(argv) -> int:
             captured["banded_admm_chunk"]) != step_num:
         raise SystemExit("phase 4/4b: the recorded ticks did not go through the expected kernels")
 
+    # -- 4c. the LTI main path: double integrator h20 ---------------------
+    di_steps = 10
+
+    def di_launch_rule(n):
+        # Adaptive rho makes the chunk count depend on the data: every SQP
+        # step enters the kernel at least once, each driver chunk is one
+        # launch, and the banded kernels stay out of this path.
+        return (n[0], n[1]) == (0, 0) and n[2] == tab._admm_iterate_fused.chunks and (
+            n[2] >= di_steps * ticks)
+
+    di_xla = di_solver("xla")
+    shared_launches = 0
+    di_state = None
+    for Bd in (B_di, 64):
+        label = f"phase 4c double integrator h20 B={Bd}"
+        fr_d, rf_d = di_frames[:Bd], di_refs[:Bd]
+        state_d, n = drive(di_pallas, fr_d, rf_d, ticks, f"{label} backend=pallas",
+                           di_launch_rule, pinned=True)
+        shared_launches += n
+        log(f"{label} backend=pallas: {n / ticks:.1f} chunk launches per tick over {ticks} ticks")
+        if Bd == B_di:
+            di_state = state_d
+        # The same ticks on the "xla" backend (the torch.matmul loop), each
+        # from the state the "pallas" backend started that tick from, so a
+        # difference stays within one tick.
+        st_p = di_pallas.init_state(Bd)
+        xla_ms, pal_ms, gap_pv, gap_acc, same_conv = [], [], 0.0, 0.0, True
+        iters_p, iters_x = [], []
+        reset_counts()
+        for _ in range(ticks):
+            st_in = BatchState(*(a.clone() for a in st_p))
+            sync()
+            t0 = time.perf_counter()
+            tp, _, st_p = di_pallas.solve(fr_d, rf_d, st_p)
+            sync()
+            pal_ms.append((time.perf_counter() - t0) * 1e3)
+            rp_ = di_pallas.last_result
+            t0 = time.perf_counter()
+            tx, _, _ = di_xla.solve(fr_d, rf_d, st_in)
+            sync()
+            xla_ms.append((time.perf_counter() - t0) * 1e3)
+            rx_ = di_xla.last_result
+            iters_p.append(rp_.qp_iters.tolist())
+            iters_x.append(rx_.qp_iters.tolist())
+            same_conv &= torch.equal(rp_.qp_converged, rx_.qp_converged)
+            d = (tp - tx).abs().reshape(Bd, H_di, double_integrator.FRAME)
+            gap_pv = max(gap_pv, float(d[..., 0:4].max()))
+            gap_acc = max(gap_acc, float(d[..., 4:6].max()))
+        if counts()[2] != tab._admm_iterate_fused.chunks or counts()[:2] != (0, 0):
+            raise SystemExit(f"{label}: the xla backend launched a chunk kernel")
+        # The kernel sums each product as an ascending chain, cuBLAS in
+        # its own order, so a scenario whose residual sits within an ulp
+        # of eps at a check can stop the batch one check block apart (the
+        # knife edge of the termination test; a CPU rehearsal at B=16 saw
+        # it in 6 of 70 steps, all in ticks 2 and 3).  The counts must be
+        # equal at the last tick (steady state: every QP ends at its first
+        # check, far from the edge) and in at least 8 of 10 steps overall;
+        # the differing steps are listed.
+        steps_all = sum(len(a) for a in iters_p)
+        steps_same = sum(a == b for p_, x_ in zip(iters_p, iters_x) for a, b in zip(p_, x_))
+        for t_, (p_, x_) in enumerate(zip(iters_p, iters_x)):
+            if p_ != x_:
+                log(f"{label}: tick {t_ + 1} qp_iters pallas {p_} xla {x_}")
+        log(f"{label}: backend=xla ms/tick {', '.join(f'{t:.2f}' for t in xla_ms)} (median of "
+            f"timed {statistics.median(xla_ms[warm:]):.3f}) beside backend=pallas "
+            f"{', '.join(f'{t:.2f}' for t in pal_ms)} (median of timed "
+            f"{statistics.median(pal_ms[warm:]):.3f}); qp_iters equal in {steps_same} of "
+            f"{steps_all} steps, at the last tick: {iters_p[-1] == iters_x[-1]}; "
+            f"qp_converged equal: {same_conv}, converged share at the last tick "
+            f"{float(rp_.qp_converged.float().mean()):.4f}; max |pallas - xla| positions and "
+            f"velocities {gap_pv:.3g} (limit 5e-3), accelerations {gap_acc:.3g} (limit 0.1, "
+            f"range +-50)")
+        if not (same_conv and iters_p[-1] == iters_x[-1] and steps_same >= 0.8 * steps_all):
+            raise SystemExit(f"{label}: the two backends disagree on qp_iters or qp_converged")
+        if not (gap_pv <= 5e-3 and gap_acc <= 0.1):
+            raise SystemExit(f"{label}: the two backends' trajectories disagree")
+    # One more B=4096 tick records the chunk inputs of a steady-state tick.
+    record(lambda: di_pallas.solve(di_frames, di_refs, di_state))
+    sync()
+    if not captured["shared_admm_chunk"] or len(captured["banded_admm_chunk"]) != step_num:
+        raise SystemExit("phase 4c: the recorded tick did not go through the shared chunk")
+
     # -- 5. card vs CPU ---------------------------------------------------
-    def card_vs_cpu(build_fn, fr, rf, label):
+    def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None):
+        """Two ticks on the card and on the CPU (plain chunks): trajectories
+        within 5e-3; with ``acc_limit`` the double integrator's weakly
+        weighted accelerations (columns 4:6 of each frame) are held to it
+        and the rest to 5e-3."""
         trajs = {}
         for d in ("cuda", "cpu"):
             s_ = BatchedSolver(build_fn(d), device=d)
@@ -476,7 +742,15 @@ def main(argv) -> int:
                 out.append(tr.cpu().numpy())
             trajs[d] = out
             log(f"{label}: 2 ticks at B={fr.shape[0]} on {d}: {time.perf_counter() - t0:.2f} s")
-        gap = max(float(np.abs(a - b).max()) for a, b in zip(trajs["cuda"], trajs["cpu"]))
+        diffs = [np.abs(a - b) for a, b in zip(trajs["cuda"], trajs["cpu"])]
+        if acc_limit is not None:
+            diffs = [d.reshape(d.shape[0], -1, double_integrator.FRAME) for d in diffs]
+            acc_gap = max(float(d[..., 4:6].max()) for d in diffs)
+            diffs = [d[..., 0:4] for d in diffs]
+            log(f"{label}: max |card - CPU| acceleration gap {acc_gap:.3g} (limit {acc_limit})")
+            if not acc_gap <= acc_limit:
+                raise SystemExit(f"{label}: card and CPU ticks disagree")
+        gap = max(float(d.max()) for d in diffs)
         log(f"{label}: max |card - CPU| trajectory gap {gap:.3g} (limit 5e-3)")
         if not gap <= 5e-3:
             raise SystemExit(f"{label}: card and CPU ticks disagree")
@@ -489,6 +763,8 @@ def main(argv) -> int:
     qcfg, qfr, qrf = quad_case(8)
     card_vs_cpu(lambda d: quadrotor.build(qcfg, stagewise=True, device=d), qfr, qrf,
                 "phase 5b quadrotor h100")
+    card_vs_cpu(lambda d: di_solver("pallas", d).ocp, di_frames[:Bs], di_refs[:Bs],
+                "phase 5c double integrator h20", acc_limit=0.1)
 
     # -- 6. kernel timing at the main paths' inputs ------------------------
     def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces):
@@ -555,7 +831,81 @@ def main(argv) -> int:
     log(f"phase 6: banded_admm_chunk_rolled on the same inputs without the CR level: "
         f"{no_cr1_ms:.4f} ms/launch (with it: {row2['ms']:.4f})")
 
-    print(json.dumps({"kernels": [row1, row2]}), flush=True)
+    # The shared-operator chunk on the recorded launches of one
+    # steady-state B=4096 tick of the double integrator.
+    scalls = captured["shared_admm_chunk"]
+    n_s = len(scalls)
+    n_, m_ = scalls[0][0][12].shape[1], scalls[0][0][13].shape[1]
+
+    def matmul_loop(args, kw, iters, checks):
+        """The chunk's products as torch.matmul calls (cuBLAS, true f32)
+        with the same elementwise updates, for the given iteration and
+        check counts: the "xla" backend's arithmetic on the chunk's inputs.
+        Times only; nothing reads its result."""
+        _, _, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y = args
+        sg, al = kw["sigma"], kw["alpha"]
+        AbT = Ab.T
+        per_block = iters // checks if checks else 0
+        for _ in range(checks):
+            for _ in range(per_block):
+                xt = (sg * x - qb + (rho * z - y) @ Ab) @ OP
+                zt = xt @ AbT
+                x = al * xt + (1 - al) * x
+                z_rel = al * zt + (1 - al) * z
+                z_new = torch.minimum(torch.maximum(z_rel + y / rho, lb), ub)
+                y = y + rho * (z_rel - z_new)
+                z = z_new
+            Ax, Px, Aty = x @ AbT, x @ Pb, y @ Ab
+            r_prim = ((Ax - z) * Einv).abs().amax(dim=1)
+            r_dual = cinv * ((Px + qb + Aty) * Dinv).abs().amax(dim=1)
+            max_prim = torch.maximum((Ax * Einv).abs().amax(dim=1), (z * Einv).abs().amax(dim=1))
+            max_dual = cinv * torch.maximum(torch.maximum(
+                (Aty * Dinv).abs().amax(dim=1), (Px * Dinv).abs().amax(dim=1)),
+                (qb * Dinv).abs().amax(dim=1))
+            _ = (r_prim <= kw["eps_abs"] + kw["eps_rel"] * max_prim) & (
+                r_dual <= kw["eps_abs"] + kw["eps_rel"] * max_dual)
+        return x, z, y
+
+    s_bytes = s_flops = 0
+    s_iters = []
+    for args, kw in scalls:
+        outs = sk.shared_admm_chunk_plain(*args, **kw)
+        it = int(outs[4].max())
+        s_iters.append(it)
+        tensors = [a for a in args if torch.is_tensor(a)]
+        s_bytes += sum(t_.numel() * t_.element_size() for t_ in tensors)
+        s_bytes += sum(t_.numel() * t_.element_size() for t_ in outs)
+        s_flops += args[12].shape[0] * shared_chunk_flops(n_, m_, it, it // kw["check_every"])
+    s_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in scalls], 7, sync) / n_s
+    s_plain_ms = time_ms(
+        lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in scalls], 3, sync) / n_s
+    s_mm_ms = time_ms(lambda: [
+        matmul_loop(a, k, it, it // k["check_every"]) for (a, k), it in zip(scalls, s_iters)],
+        7, sync) / n_s
+    by_rows = {
+        rows: time_ms(lambda: [sk.shared_admm_chunk(*a, **k, rows_per_block=rows)
+                               for a, k in scalls], 7, sync) / n_s
+        for rows in sk.ROWS_PER_BLOCK}
+    s_bytes_ms = s_bytes / n_s / PEAK_BYTES_PER_S * 1e3
+    s_ops_ms = s_flops / n_s / PEAK_F32_FLOPS * 1e3
+    log(f"phase 6: shared_admm_chunk at its main path's inputs ({n_s} launches of one "
+        f"steady-state tick, B={scalls[0][0][12].shape[0]}, n={n_}, m={m_}, iterations per "
+        f"launch {s_iters}): {s_ms:.4f} ms/launch, plain {s_plain_ms:.3f} ms, the same "
+        f"iterations and checks as torch.matmul products {s_mm_ms:.4f} ms, bound "
+        f"{max(s_bytes_ms, s_ops_ms) * 1e3:.3f} us (bytes {s_bytes_ms * 1e3:.3f} us, "
+        f"operations {s_ops_ms * 1e3:.3f} us); with 8 / 16 / 32 scenarios per thread "
+        f"block: " + " / ".join(f"{by_rows[r]:.4f}" for r in sk.ROWS_PER_BLOCK) + " ms/launch")
+    row3 = {
+        "name": "shared_admm_chunk", "route": "cuda", "source": SHARED_SOURCE,
+        "replaces": SHARED_REPLACES, "launches": shared_launches, "max_abs_err": shared_err,
+        "ms": s_ms, "plain_ms": s_plain_ms, "bound_ms": max(s_bytes_ms, s_ops_ms),
+        "bound_by": "bytes" if s_bytes_ms >= s_ops_ms else "operations",
+        # No single PyTorch call computes an ADMM chunk; the loop of
+        # torch.matmul products above is reported beside it.
+        "library_ms": None, "matmul_loop_ms": s_mm_ms,
+    }
+
+    print(json.dumps({"kernels": [row1, row2, row3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

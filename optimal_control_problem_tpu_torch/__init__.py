@@ -8,8 +8,8 @@ This package imports ``torch`` and never ``jax`` or the JAX package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`resolve_device`); with no GPU and no explicit CPU request they raise.
-The hot kernel of the batched banded MPC tick is hand-written CUDA
-(``csrc/banded_chunk.cu``, built with ``nvcc`` at first use).
+The hot kernels of the batched MPC ticks are hand-written CUDA
+(``csrc/*.cu``, built with ``nvcc`` at first use; see ``ops/``).
 
 Float32 matmuls stay true float32: TF32 is switched off here, once, for
 the whole process.  The JAX side pins the same with ``f32_matmuls``

@@ -18,9 +18,15 @@ from .device import resolve_device
 from .parallel.batch import BatchState
 from .solvers.admm import ADMMSettings
 from .solvers.admm_banded import BandedQP
+from .solvers.admm_batched import SharedQPFactor
 from .solvers.sqp import SQPOptions
 
-__all__ = ["banded_qp_from_numpy", "batch_state_from_numpy", "settings_from_jax_dict"]
+__all__ = [
+    "banded_qp_from_numpy",
+    "batch_state_from_numpy",
+    "settings_from_jax_dict",
+    "shared_factor_from_numpy",
+]
 
 
 def _fields(obj, names):
@@ -44,9 +50,20 @@ def banded_qp_from_numpy(qp_np: Any, device=None, dtype=None) -> BandedQP:
     return BandedQP(*(_tensor(a, dev, dtype) for a in _fields(qp_np, BandedQP._fields)))
 
 
+def shared_factor_from_numpy(fac_np: Any, device=None, dtype=None) -> SharedQPFactor:
+    """A JAX ``SharedQPFactor`` (fields as numpy arrays, or a mapping of
+    them) -> the port's :class:`SharedQPFactor` on ``device``, so both
+    packages iterate on the same equilibration, rho and operator inverse."""
+    dev = resolve_device(device)
+    return SharedQPFactor(
+        *(_tensor(a, dev, dtype) for a in _fields(fac_np, SharedQPFactor._fields))
+    )
+
+
 def batch_state_from_numpy(state_np: Any, device=None, dtype=None) -> BatchState:
     """A JAX ``BatchState`` (``x``, ``qp_x``, ``qp_y`` as numpy arrays, or a
-    mapping of them) -> the port's :class:`BatchState` on ``device``."""
+    mapping of them; the QP warm start at whatever size the path uses,
+    banded or dense) -> the port's :class:`BatchState` on ``device``."""
     dev = resolve_device(device)
     return BatchState(*(_tensor(a, dev, dtype) for a in _fields(state_np, BatchState._fields)))
 

@@ -7,5 +7,7 @@ batched MPC tick, ``banded_kernel.banded_admm_chunk`` (one-way
 block-Thomas, ``w`` in ``KERNEL_WIDTHS``) and
 ``banded_rolled_kernel.banded_admm_chunk_rolled`` (two-way factorization
 with an optional depth-1 cyclic-reduction level, any ``w`` up to 16);
-``solvers/admm_banded_batch.chunk_kernel`` picks between them.
+``solvers/admm_banded_batch.chunk_kernel`` picks between them; and the
+shared-operator chunk of the LTI path, ``shared_kernel.shared_admm_chunk``
+(``backend="pallas"`` of ``solvers/admm_batched.py``).
 """

@@ -1,0 +1,239 @@
+"""Fused shared-operator ADMM chunk, batch-leading — port of
+``optimal_control_problem_tpu/ops/shared_kernel.py::shared_admm_chunk``.
+
+One call runs a whole rho-constant condensed OSQP-ADMM chunk for a batch
+of QPs that share one operator: panels ``(B, n)`` / ``(B, m)`` against the
+shared ``OP (n, n)``, ``Ab (m, n)``, ``Pb (n, n)`` and per-row ``rho (m,)``.
+Each iteration is three panel products with the elementwise relaxation,
+projection and dual update between them::
+
+    rhs = sigma x - qb + (rho z - y) @ Ab
+    xt  = rhs @ OP
+    zt  = xt @ Ab^T
+
+and every ``check_every`` iterations three more (``x @ Ab^T``, ``x @ Pb``,
+``y @ Ab``) give the unscaled residuals of the OSQP termination test.
+Termination is shared by a *termination group* of ``batch_tile``
+consecutive scenarios: nobody freezes, ``conv`` is re-evaluated for every
+scenario at each check, and the group runs whole check blocks while its
+iteration count is below ``bound`` and not all of its scenarios have
+converged.  A group whose scenarios are all done at entry returns its
+inputs with ``it_inc = 0`` and infinite residuals.  The drivers pass
+``batch_tile = B`` (one batch-wide vote), which is what makes the fused
+path's iteration counts equal the ``"xla"`` loop's.
+
+:func:`shared_admm_chunk` is the wrapper: for CUDA tensors it launches the
+hand-written kernel ``csrc/shared_chunk.cu`` (built by ``nvcc`` at first
+use) and counts the launch in ``shared_admm_chunk.launches``; for CPU
+tensors it runs :func:`shared_admm_chunk_plain`, the plain PyTorch version
+of the same contract that the CPU tests hold against the Pallas kernel.
+There is no fallback from one to the other.
+
+Both versions form every product as an ascending chain over the
+contraction index, one multiply and one add per term (the CUDA build has
+FMA contraction off), so they round alike and can agree bitwise.  A
+``torch.matmul`` sums in another order: against it (the ``"xla"`` loop)
+iterates agree to f32 roundoff only.
+
+The JAX module's ``pick_shared_tile`` models the TPU's on-chip memory and
+is not ported: on the card one thread block holds 8, 16 or 32 scenarios,
+and the group's vote crosses thread blocks inside the kernel.  The
+``iter_precision`` variants are not ported (``ROADMAP.md`` A8).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .banded_kernel import _check, launch_chunk
+
+__all__ = ["shared_admm_chunk", "shared_admm_chunk_plain", "chain_matmul", "ROWS_PER_BLOCK"]
+
+# Scenarios per thread block the CUDA kernel is instantiated for.
+ROWS_PER_BLOCK = (8, 16, 32)
+
+
+def chain_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a (B, K) @ w (K, J)`` as an ascending chain over ``k`` from zero,
+    a multiply and an add per term — the CUDA kernel's order."""
+    acc = torch.zeros((a.shape[0], w.shape[1]), dtype=a.dtype, device=a.device)
+    for k in range(w.shape[0]):
+        acc = acc + a[:, k : k + 1] * w[k]
+    return acc
+
+
+def _contract(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+              check_every, batch_tile):
+    """Check a chunk call on either device; returns ``(B, n, m, bound,
+    done0 as int32, cinv as a (1,) tensor)``."""
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"shared_admm_chunk: unsupported device {dev}")
+    if x.dim() != 2 or z.dim() != 2:
+        raise ValueError("shared_admm_chunk: x must be (B, n) and z (B, m)")
+    B, n = x.shape
+    m = z.shape[1]
+    if n < 1 or m < 1:
+        raise ValueError(f"shared_admm_chunk needs n >= 1 and m >= 1 (got n={n}, m={m})")
+    if check_every < 1:
+        raise ValueError("check_every must be >= 1")
+    if batch_tile < 1 or B % batch_tile:
+        raise ValueError(f"batch {B} not divisible by tile {batch_tile}")
+    ft = torch.float32 if dev.type == "cuda" else x.dtype
+    cinv = torch.as_tensor(cinv, dtype=ft, device=dev).reshape(1)
+    done0 = done0.to(torch.int32)
+    for name, t, shape in (
+        ("OP", OP, (n, n)), ("Ab", Ab, (m, n)), ("Pb", Pb, (n, n)), ("rho", rho, (m,)),
+        ("lb", lb, (B, m)), ("ub", ub, (B, m)), ("qb", qb, (B, n)),
+        ("Dinv", Dinv, (n,)), ("Einv", Einv, (m,)), ("cinv", cinv, (1,)),
+        ("x", x, (B, n)), ("z", z, (B, m)), ("y", y, (B, m)),
+    ):
+        _check(name, t, shape, ft, dev)
+    _check("done0", done0, (B,), torch.int32, dev)
+    return B, n, m, int(bound), done0, cinv
+
+
+def shared_admm_chunk_plain(
+    done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+    *,
+    check_every: int,
+    sigma: float,
+    alpha: float,
+    eps_abs: float,
+    eps_rel: float,
+    batch_tile: int,
+):
+    """Plain PyTorch version of the shared-operator chunk, op for op the
+    JAX ``_kernel``.
+
+    ``done0 (B,)`` bool/int: scenario enters converged or certified;
+    ``bound``: the chunk's iteration budget (an int; need not be a multiple
+    of ``check_every``, the last check block still runs whole); panels and
+    operators as in the module docstring; ``Dinv (n,)``, ``Einv (m,)``,
+    ``cinv`` (scalar) unscale the residuals.  Returns ``(x, z, y, conv
+    (B,) bool, it_inc (B,) int32, rp, rd, rp_rel, rd_rel (B,))``.
+    """
+    B, n, m, bound, done0, cinv = _contract(
+        done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+        check_every, batch_tile,
+    )
+    AbT = Ab.T.contiguous()
+    one_m_alpha = 1.0 - alpha
+
+    def one_iter(x, z, y, qb, lb, ub):
+        rhs = sigma * x - qb + chain_matmul(rho * z - y, Ab)
+        xt = chain_matmul(rhs, OP)
+        zt = chain_matmul(xt, AbT)
+        x_n = alpha * xt + one_m_alpha * x
+        z_rel = alpha * zt + one_m_alpha * z
+        z_n = torch.minimum(torch.maximum(z_rel + y / rho, lb), ub)
+        y_n = y + rho * (z_rel - z_n)
+        return x_n, z_n, y_n
+
+    def rowmax(a):
+        return a.abs().amax(dim=1)
+
+    def residuals(x, z, y, qb):
+        Ax = chain_matmul(x, AbT)
+        Px = chain_matmul(x, Pb)  # Pb symmetric
+        Aty = chain_matmul(y, Ab)
+        r_prim = rowmax((Ax - z) * Einv)
+        r_dual = cinv * rowmax((Px + qb + Aty) * Dinv)
+        max_prim = torch.maximum(rowmax(Ax * Einv), rowmax(z * Einv))
+        max_dual = cinv * torch.maximum(
+            torch.maximum(rowmax(Aty * Dinv), rowmax(Px * Dinv)), rowmax(qb * Dinv)
+        )
+        return r_prim, r_dual, max_prim, max_dual
+
+    outs = [[] for _ in range(9)]
+    for g in range(B // batch_tile):
+        sl = slice(g * batch_tile, (g + 1) * batch_tile)
+        xg, zg, yg = x[sl], z[sl], y[sl]
+        qg, lg, ug = qb[sl], lb[sl], ub[sl]
+        conv = done0[sl] == 1
+        inf = torch.full((batch_tile,), float("inf"), dtype=x.dtype, device=x.device)
+        rp, rd, rpr, rdr = inf, inf, inf, inf
+        k = 0
+        all_conv = bool(conv.all())  # the group skips when all enter done
+        while k < bound and not all_conv:
+            for _ in range(check_every):
+                xg, zg, yg = one_iter(xg, zg, yg, qg, lg, ug)
+            rp, rd, max_prim, max_dual = residuals(xg, zg, yg, qg)
+            conv = (rp <= eps_abs + eps_rel * max_prim) & (rd <= eps_abs + eps_rel * max_dual)
+            rpr = rp / torch.clamp(max_prim, min=1e-12)
+            rdr = rd / torch.clamp(max_dual, min=1e-12)
+            all_conv = bool(conv.all())
+            k += check_every
+        it_inc = torch.full((batch_tile,), k, dtype=torch.int32, device=x.device)
+        for o, v in zip(outs, (xg, zg, yg, conv, it_inc, rp, rd, rpr, rdr)):
+            o.append(v)
+    return tuple(torch.cat(o) for o in outs)
+
+
+def shared_admm_chunk(
+    done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+    *,
+    check_every: int,
+    sigma: float,
+    alpha: float,
+    eps_abs: float,
+    eps_rel: float,
+    batch_tile: int,
+    rows_per_block: Optional[int] = None,
+):
+    """Run one rho-constant shared-operator ADMM chunk; same contract as
+    :func:`shared_admm_chunk_plain`.
+
+    CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
+    launch ``csrc/shared_chunk.cu`` on the current stream, or raise: the
+    kernel is a cooperative launch (the termination vote of a group
+    crosses thread blocks, so all of them must be resident at once), and a
+    batch or a panel width that does not fit the card is refused by the
+    launch.  ``rows_per_block`` (one of ``ROWS_PER_BLOCK``) forces the
+    scenarios per thread block, for timing; by default the launcher takes
+    the most that fit.  Results do not depend on it.
+    """
+    B, n, m, bound, done0, cinv = _contract(
+        done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+        check_every, batch_tile,
+    )
+    kw = dict(check_every=check_every, sigma=sigma, alpha=alpha, eps_abs=eps_abs,
+              eps_rel=eps_rel, batch_tile=batch_tile)
+    dev = x.device
+    if dev.type == "cpu":
+        return shared_admm_chunk_plain(
+            done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, **kw
+        )
+
+    def empty(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    outs = (
+        empty(B, n), empty(B, m), empty(B, m),  # x z y
+        empty(B, dt=torch.int32), empty(B, dt=torch.int32),  # conv it_inc
+        empty(B), empty(B), empty(B), empty(B),  # rp rd rp_rel rd_rel
+    )
+    if B == 0:
+        return outs[:3] + (outs[3].bool(),) + outs[4:]
+    groups = B // batch_tile
+    rows = rows_per_block or 0
+    if rows and rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"rows_per_block must be one of {ROWS_PER_BLOCK}, got {rows}")
+    n_checks = max(1, -(-bound // check_every))
+    # Per group and check block: how many of the group's thread blocks
+    # still hold an unconverged scenario, and how many have voted.
+    votes = torch.zeros((2, groups, n_checks), dtype=torch.int32, device=dev)
+    launch_chunk(
+        "shared_admm_chunk", "shared_chunk", "ocp_shared_admm_chunk_f32",
+        [done0, OP, Ab, Ab.T.contiguous(), Pb, rho, lb, ub, qb, Dinv, Einv, cinv,
+         x, z, y, *outs, votes],
+        (B, n, m, batch_tile, rows, bound, check_every, n_checks),
+        (sigma, alpha, eps_abs, eps_rel), dev,
+    )
+    shared_admm_chunk.launches += 1
+    return outs[:3] + (outs[3].bool(),) + outs[4:]
+
+
+shared_admm_chunk.launches = 0

@@ -2,9 +2,12 @@
 ``optimal_control_problem_tpu/parallel/batch.py``.
 
 The reference is strictly one problem at a time; here a whole batch of
-independent scenarios runs as one SQP solve whose QPs iterate together in
-the fused banded chunk (``ops/banded_kernel.py``): on the card one CUDA
-launch per SQP step covers every scenario.
+independent scenarios runs as one SQP solve whose QPs iterate together:
+shared-system (LTI) problems through one shared factorization
+(``solvers/admm_batched.py``; with ``backend="pallas"`` its iterations run
+in the fused chunk of ``ops/shared_kernel.py``), stage-structured problems
+in the fused banded chunk (``ops/banded_kernel.py``): on the card one CUDA
+launch per rho-constant chunk covers every scenario.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ class BatchState(NamedTuple):
 
 
 class BatchedSolver:
-    """Batched front-end over a generated stage-structured problem.
+    """Batched front-end over a generated problem that is shared-system
+    or stage-structured.
 
     Usage::
 
@@ -65,7 +69,15 @@ class BatchedSolver:
         self._ubx_tail = as_t(cfg.upper_bounds_flat())
         self._lbg = as_t(ocp.get_constraint_lower_bounds())
         self._ubg = as_t(ocp.get_constraint_upper_bounds())
-        self._solve_batch = self.solver.solve_batch_banded_fn
+        # The shared-factorization batch function first, then the banded
+        # one, as the JAX package chooses.
+        self._solve_batch = self.solver.solve_batch_fn or self.solver.solve_batch_banded_fn
+        if self._solve_batch is None:
+            raise NotImplementedError(
+                "this problem is neither shared-system (LTI) nor stage-structured: "
+                "its batch would run the per-scenario dense solver, which is not "
+                "ported yet (ROADMAP Queue A8b, kernel B5)"
+            )
         # Full SQPResult of the last .solve() call.
         self.last_result = None
 

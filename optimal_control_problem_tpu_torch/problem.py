@@ -5,15 +5,18 @@
 Kept: the solver-settings parsing and validation with the YAML schema, the
 cost/constraint registries (torch callables ``fn(X, P)``), the stage
 structure and ``gen_solver``'s automatic switch to the banded QP method,
-the per-tick solve with first-frame pinning and cross-tick warm start, and
-input validation.
+problems without a stage structure (the NLP functions are assembled from
+the registries and feed the dense or shared-system QP paths of
+``solvers/sqp.py``), the per-tick solve with first-frame pinning and
+cross-tick warm start, and input validation.
 
 The problem lives on one device, chosen at construction: ``cuda`` unless
 the caller passes ``device="cpu"`` (:func:`..device.resolve_device`).
 
-Not ported yet (ROADMAP Queue A): problems without a stage structure (the
-dense QP path), the reference-parity preset, and the MIXED/IPOPT/SQP host
-backends — ``gen_solver`` raises ``NotImplementedError`` for them.
+Not ported yet (ROADMAP Queue A): ``Sym`` expression terms (A5), the
+reference-parity preset and the augmented formulation (A8d), and the
+MIXED/IPOPT/SQP host backends (A9) — ``gen_solver`` raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -264,6 +267,29 @@ class OptimalControlProblem:
         return sum(self._constraint_sizes)
 
     # ------------------------------------------------------------------
+    def _build_nlp_fns(self):
+        """``(f_fn, g_fn)`` from the registries: the sum of the scalar costs
+        and the concatenated constraint terms, as callables of ``(X, P)``."""
+        costs = list(self._costs)
+        constraints = list(self._constraints)
+        for term in costs + constraints:
+            if isinstance(term, Sym):
+                raise NotImplementedError(
+                    "Sym expression costs/constraints are not ported yet "
+                    "(ROADMAP Queue A5); register torch callables fn(X, P)"
+                )
+
+        def f_fn(X, P):
+            total = torch.zeros((), dtype=X.dtype, device=X.device)
+            for c in costs:
+                total = total + torch.as_tensor(c(X, P)).reshape(())
+            return total
+
+        def g_fn(X, P):
+            return torch.cat([torch.as_tensor(c(X, P)).reshape(-1) for c in constraints])
+
+        return f_fn, (g_fn if constraints else None)
+
     def set_stage_structure(self, structure) -> None:
         """Declare the problem's stage-separable structure (stagewise.py).
         ``gen_solver`` then derives the NLP functions and the banded QP
@@ -285,35 +311,34 @@ class OptimalControlProblem:
         if self.ocp_config.num_variables == 0:
             raise RuntimeError("Status or input variables are empty")
         st = self.solver_settings
-        if self._stage_structure is None:
-            if not self._constraints:
-                raise RuntimeError("Constraints are empty")  # cpp:230-233
-            raise NotImplementedError(
-                "problems without a stage structure need the dense QP path, "
-                "which is not ported yet (ROADMAP Queue A6/A8)"
-            )
+        if self._stage_structure is None and not self._constraints:
+            raise RuntimeError("Constraints are empty")  # cpp:230-233
         if st.parity:
             raise NotImplementedError(
                 "the reference-parity preset (augmented formulation) is not "
-                "ported yet (ROADMAP Queue A6)"
+                "ported yet (ROADMAP Queue A8d)"
             )
         if st.solver_type != SolverType.TPU_SQP:
             raise NotImplementedError(
                 f"solve_method {st.solver_type.value} (host backends / MIXED "
                 "dispatch) is not ported yet (ROADMAP Queue A9)"
             )
-        from .stagewise import build_stagewise_fns, build_stagewise_parts
-
         ss = self._stage_structure
-        f_fn, g_fn, lbg, ubg = build_stagewise_fns(ss)
-        self._structure_lbg = lbg
-        self._structure_ubg = ubg
-        st.formulation = "reduced"
-        parts = build_stagewise_parts(ss, st.dtype, "auto")
-        # The block-tridiagonal QP path is the default whenever a stage
-        # structure is registered and the user did not pin a method.
-        if not st.admm_method_explicit and st.admm.method == "kkt":
-            st.admm = st.admm.replace(method="banded")
+        if ss is not None:
+            from .stagewise import build_stagewise_fns, build_stagewise_parts
+
+            f_fn, g_fn, lbg, ubg = build_stagewise_fns(ss)
+            self._structure_lbg = lbg
+            self._structure_ubg = ubg
+            st.formulation = "reduced"
+            parts = build_stagewise_parts(ss, st.dtype, "auto")
+            # The block-tridiagonal QP path is the default whenever a stage
+            # structure is registered and the user did not pin a method.
+            if not st.admm_method_explicit and st.admm.method == "kkt":
+                st.admm = st.admm.replace(method="banded")
+        else:
+            f_fn, g_fn = self._build_nlp_fns()
+            parts = None
 
         nlp = {
             "x": self.ocp_config.get_variables(),

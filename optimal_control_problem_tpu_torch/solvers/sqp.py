@@ -1,5 +1,4 @@
-"""SQP engine — port of ``optimal_control_problem_tpu/solvers/sqp.py`` for
-the banded (stage-structured) QP method.
+"""SQP engine — port of ``optimal_control_problem_tpu/solvers/sqp.py``.
 
 Reference semantics kept: a fixed number ``max_iter`` (``step_num``) of
 damped steps ``x += alpha * dx`` whose directions come from local QPs built
@@ -9,32 +8,49 @@ across calls from the persisted iterate (the incoming ``x0`` is ignored,
 as in the reference); the optional ``||alpha*dx|| < tol`` early exit that
 freezes the iterate.
 
-Here the QP is always the reduced-formulation banded QP: per step the
-batch-last stage derivatives (``stagewise.py``) feed
-``admm_solve_banded_batch_T`` (one CUDA chunk launch per rho-constant
-chunk) or, for one scenario, ``admm_solve_banded``.  The step loop is a
-Python loop that enqueues device work without host synchronisation on the
-non-adaptive banded path.
+Three QP paths, all on the reduced formulation, each a Python step loop
+that enqueues device work:
 
-Not ported yet (ROADMAP Queue A): the dense/condensed QP paths
-(``method="kkt"``/``"condensed"``), the augmented formulation and the
-``parity`` preset, the shared-system (LTI) batched path, the merit line
-search and ``Sym`` expression costs.  Each raises ``NotImplementedError``.
+* **banded** (``method="banded"``, stage-structured problems): per step the
+  batch-last stage derivatives (``stagewise.py``) feed
+  ``admm_solve_banded_batch_T`` (one CUDA chunk launch per rho-constant
+  chunk) or, for one scenario, ``admm_solve_banded``;
+* **dense, per problem** (``method="kkt"`` / ``"condensed"``): ``solve_fn``
+  assembles the dense local QP with ``torch.func`` (``hessian``, ``jacfwd``,
+  ``grad``) and calls ``admm_solve``;
+* **shared system** (the same methods on an LQ/LTI problem, detected by
+  probing whether ``(H, A)`` depend on the point): ``solve_batch_fn``
+  factors one operator for the whole batch and all steps
+  (``admm_batched.py``) and maps only the per-scenario vectors with
+  ``torch.func.vmap``.
+
+Not ported yet (``ROADMAP.md`` Queue A), each raising
+``NotImplementedError``: the augmented formulation and the ``parity``
+preset (A8d), the merit line search (A6), dense methods on stage-wise
+local-system parts (A8b) and ``Sym`` expression costs (A5).  A batch of a
+problem that is neither stage-structured nor shared-system has no batch
+function here (the per-scenario dense batch path, A8b / kernel B5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..sym import Sym
-from .admm import ADMMSettings
+from .admm import ADMMSettings, admm_solve
 
-__all__ = ["SQPOptions", "SQPResult", "SQPOptimizationSolver", "normalize_nlp"]
+__all__ = [
+    "SQPOptions",
+    "SQPResult",
+    "SQPOptimizationSolver",
+    "normalize_nlp",
+    "build_local_system_parts",
+]
 
 
 class SQPResult(NamedTuple):
@@ -129,12 +145,97 @@ def normalize_nlp(nlp: Dict[str, Any]):
     return f_fn, g_fn, n_x, n_p, n_g
 
 
-class SQPOptimizationSolver:
-    """Stateful SQP solver with the reference-parity API, banded QP method.
+def build_local_system_parts(
+    f_fn: Callable,
+    g_fn: Optional[Callable],
+    n_x: int,
+    n_p: int,
+    n_g: int,
+    formulation: str,
+    dtype,
+    hessian_reg="auto",
+):
+    """Composable pieces of the dense local-QP assembly (reduced
+    formulation).
 
-    ``solve_fn`` (one scenario) and ``solve_batch_banded_fn`` (a batch,
-    batch-leading arguments) are the functional cores; ``BatchedSolver``
-    drives the latter.
+    Returns ``(matrices, matrices_raw, vectors, stack_bounds)``:
+
+    * ``matrices(x, p) -> (H, A)`` — regularized objective Hessian and the
+      linearized constraint-stack Jacobian ``[I; dg/dx]``;
+    * ``matrices_raw(x, p) -> (H, A)`` — the same without Hessian
+      regularization (used for shared-system detection/extraction, where
+      the shift is applied on the host instead);
+    * ``vectors(x, p) -> (grad, cval)`` — objective gradient and the value
+      of the constraint stack ``c = [x; g(x)]`` at the point;
+    * ``stack_bounds(p, lbx, ubx, lbg, ubg) -> (lower, upper)`` — the raw
+      (un-shifted) bound stack; batched inputs work too (it concatenates
+      along the last axis).
+
+    Derivatives come from ``torch.func``; every output is cast back to
+    ``dtype`` (forward mode promotes ``tensor / python_float`` tangents to
+    float64).
+    """
+    if formulation not in ("augmented", "reduced"):
+        raise ValueError(f"unknown formulation {formulation!r}")
+    if formulation == "augmented":
+        raise NotImplementedError(
+            "the augmented formulation (and the parity preset built on it) is "
+            "not ported yet: use formulation='reduced' (ROADMAP Queue A8d)"
+        )
+
+    def _regularize(H):
+        """Convexify an indefinite objective Hessian (SQPOptions.hessian_reg):
+        "auto" shifts by a Gershgorin lower bound on the minimum eigenvalue,
+        "eigh" by the exact minimum eigenvalue, a float adds a fixed
+        multiple of identity, 0.0 reproduces the reference exactly."""
+        eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+        if hessian_reg == "auto":
+            Hs = 0.5 * (H + H.T)
+            diag = torch.diagonal(Hs)
+            offsum = torch.sum(torch.abs(Hs), dim=1) - torch.abs(diag)
+            bound = torch.min(diag - offsum)  # Gershgorin: lambda_min >= bound
+            return H + torch.clamp(1e-6 - bound, min=0.0) * eye
+        if hessian_reg == "eigh":
+            w_min = torch.linalg.eigvalsh(0.5 * (H + H.T))[0]
+            return H + torch.clamp(1e-6 - w_min, min=0.0) * eye
+        reg = float(hessian_reg)
+        return H + reg * eye if reg > 0.0 else H
+
+    def matrices_raw(x, p):
+        x = x.to(dtype)
+        H = torch.func.hessian(lambda xx: f_fn(xx, p))(x).to(dtype)
+        A = torch.eye(n_x, dtype=dtype, device=x.device)
+        if g_fn is not None:
+            J = torch.func.jacfwd(lambda xx: g_fn(xx, p))(x).to(dtype)
+            A = torch.cat([A, J], dim=0)
+        return H, A
+
+    def matrices(x, p):
+        H, A = matrices_raw(x, p)
+        return _regularize(H), A
+
+    def vectors(x, p):
+        x = x.to(dtype)
+        grad = torch.func.grad(lambda xx: f_fn(xx, p))(x).to(dtype)
+        cval = x if g_fn is None else torch.cat([x, g_fn(x, p).to(dtype)])
+        return grad, cval
+
+    def stack_bounds(p, lbx, ubx, lbg, ubg):
+        return (
+            torch.cat([lbx, lbg], dim=-1).to(dtype),
+            torch.cat([ubx, ubg], dim=-1).to(dtype),
+        )
+
+    return matrices, matrices_raw, vectors, stack_bounds
+
+
+class SQPOptimizationSolver:
+    """Stateful solver with the reference-parity API.
+
+    The functional cores: ``solve_fn`` (one scenario), and for a batch
+    (batch-leading arguments) ``solve_batch_fn`` (shared-system problems)
+    or ``solve_batch_banded_fn`` (``method="banded"``); ``BatchedSolver``
+    drives the batch ones.
     """
 
     def __init__(
@@ -155,40 +256,89 @@ class SQPOptimizationSolver:
         self.f_fn, self.g_fn, self.n_x, self.n_p, self.n_g = normalize_nlp(nlp)
         self.dtype = options.dtype
         self._verbose = options.verbose
+        banded = options.admm.method == "banded"
 
-        if options.admm.method != "banded":
-            raise NotImplementedError(
-                f"ADMM method {options.admm.method!r} is not ported yet: the "
-                "port runs the banded method (ROADMAP Queue A8: dense/LTI paths)"
+        if local_system_parts is not None:
+            # Structured override (stagewise.py): the caller supplies the
+            # (matrices, matrices_raw, vectors, stack_bounds) tuple.
+            if options.formulation != "reduced":
+                raise ValueError("custom local_system_parts require formulation='reduced'")
+            if not banded and local_system_parts[1] is None:
+                raise NotImplementedError(
+                    f"ADMM method {options.admm.method!r} on stage-wise local-system "
+                    "parts needs their dense (H, A) assembly, which is not ported "
+                    "yet (ROADMAP Queue A8b); use method='banded'"
+                )
+            self._parts = local_system_parts
+        else:
+            if banded and stage_structure is not None:
+                raise NotImplementedError(
+                    "the banded port needs stage-wise local-system parts "
+                    "(stagewise.build_stagewise_parts; ROADMAP Queue A6)"
+                )
+            self._parts = build_local_system_parts(
+                self.f_fn, self.g_fn, self.n_x, self.n_p, self.n_g,
+                options.formulation, self.dtype, options.hessian_reg,
             )
-        if stage_structure is None:
+        self.stage_structure = stage_structure
+        if banded and stage_structure is None:
             raise ValueError(
                 "ADMM method 'banded' requires a stage structure "
                 "(OptimalControlProblem.set_stage_structure)"
             )
-        if options.formulation != "reduced" or local_system_parts is None:
-            raise NotImplementedError(
-                "the banded port needs formulation='reduced' with stage-wise "
-                "local-system parts (augmented formulation: ROADMAP Queue A6)"
-            )
+        self._qp_n = self.n_x
+        self._qp_m = self._qp_n + self.n_g
+
         if options.line_search != "none":
             raise NotImplementedError(
                 f"line_search={options.line_search!r} is not ported yet "
                 "(ROADMAP Queue A6: merit line search)"
             )
-        if options.shared_system:
-            raise NotImplementedError(
-                "shared_system is not ported yet (ROADMAP Queue A8: LTI slice)"
-            )
-        self._parts = local_system_parts
-        self.stage_structure = stage_structure
-        self._qp_n = self.n_x
-        self._qp_m = self._qp_n + self.n_g
+        if banded:
+            if options.shared_system:
+                raise NotImplementedError(
+                    "shared_system with method='banded' needs the stage-wise dense "
+                    "(H, A) assembly, which is not ported yet (ROADMAP Queue A8b)"
+                )
+            self.shared_system = False
+        elif options.shared_system is None:
+            self.shared_system = self._detect_shared_system()
+        else:
+            self.shared_system = bool(options.shared_system)
 
-        self.solve_fn = self._build_solve_banded_fn()
-        self.solve_batch_banded_fn = self._build_solve_banded_batch_fn()
+        self.solve_fn = self._build_solve_banded_fn() if banded else self._build_solve_fn()
+        # Shared-system (LTI) batch path: one factorization for the whole
+        # batch and every step (admm_batched.py).
+        self.solve_batch_fn = self._build_solve_batch_fn() if self.shared_system else None
+        # Batch-native banded path: the whole scenario batch iterates inside
+        # the fused batch-last chunk kernel (admm_banded_batch.py).
+        self.solve_batch_banded_fn = self._build_solve_banded_batch_fn() if banded else None
         self.last_result = None
         self.reset()
+
+    # -- shared-system (LTI) detection ------------------------------------
+    def _detect_shared_system(self) -> bool:
+        """Probe whether (H, A) are independent of the evaluation point.
+
+        True for LQ/LTI problems (quadratic costs, linear dynamics), which
+        unlocks the shared-factorization batched ADMM (admm_batched.py).
+        Probing evaluates the matrices at two random points — exact for
+        polynomial costs and constraints.
+        """
+        matrices_raw = self._parts[1]
+        rng = np.random.default_rng(12345)
+        outs = []
+        for _ in range(2):
+            x, p = (
+                torch.as_tensor(rng.normal(size=(k,)) * 0.7, dtype=self.dtype, device=self.device)
+                for k in (self.n_x, self.n_p)
+            )
+            outs.append(matrices_raw(x, p))
+        (H1, A1), (H2, A2) = outs
+        return bool(
+            torch.allclose(H1, H2, rtol=1e-4, atol=1e-5)
+            and torch.allclose(A1, A2, rtol=1e-4, atol=1e-5)
+        )
 
     # ------------------------------------------------------------------
     def _early_exit(self):
@@ -202,13 +352,139 @@ class SQPOptimizationSolver:
         """``step(x, dx) -> (x_new, ||alpha*dx||)`` — the reference's fixed
         damped update, batched over any leading dims."""
         if self.options.line_search != "none":
-            raise NotImplementedError("merit line search is not ported yet")
+            raise NotImplementedError(
+                f"line_search={self.options.line_search!r} is not ported yet "
+                "(ROADMAP Queue A6: merit line search)"
+            )
         alpha = self.options.alpha
 
         def step(x, dx):
             return x + alpha * dx, torch.linalg.vector_norm(alpha * dx, dim=-1)
 
         return step
+
+    def _build_solve_fn(self):
+        """Single-scenario solve on the dense local QP: per step the
+        ``torch.func`` assembly, then :func:`.admm.admm_solve`."""
+        opt = self.options
+        dtype = opt.dtype
+        matrices, _, vectors, stack_bounds = self._parts
+        f_fn = self.f_fn
+        step = self._make_step_rule()
+        early, tol = self._early_exit()
+
+        def solve(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
+            x = x_init.to(dtype)
+            p = p.to(dtype)
+            lower, upper = stack_bounds(p, lbx, ubx, lbg, ubg)
+            qpx, qpy = qp_x0, qp_y0
+            stop = False
+            hist = []
+            for _ in range(opt.max_iter):
+                H, A = matrices(x, p)
+                grad, cval = vectors(x, p)
+                sol = admm_solve(
+                    H, grad, A, lower - cval, upper - cval, opt.admm,
+                    x0=qpx if opt.qp_warm_start else None,
+                    y0=qpy if opt.qp_warm_start else None,
+                )
+                x_new, step_norm = step(x, sol.x)
+                qp_it = sol.iters
+                took = not stop
+                if stop:
+                    # Frozen after the ||alpha*dx|| < tol break: the same
+                    # results as the reference's loop `break`.
+                    x_new, qp_it, step_norm = x, torch.zeros_like(qp_it), torch.zeros_like(step_norm)
+                else:
+                    qpx, qpy = sol.x, sol.y
+                    stop = early and bool(step_norm < tol)
+                x = x_new
+                hist.append((f_fn(x, p), qp_it, step_norm, sol.converged, sol.prim_inf,
+                             sol.dual_inf, torch.as_tensor(took, device=x.device)))
+            return _result(x, qpx, qpy, hist)
+
+        return solve
+
+    def _build_solve_batch_fn(self):
+        """Batched solve over B scenarios sharing the QP matrices.
+
+        Signature: ``(x (B,nx), p (B,np), lbx (B,nx), ubx, lbg (B,ng), ubg,
+        qp_x (B,qn), qp_y (B,qm)) -> SQPResult`` with leading batch dims
+        (``qp_iters`` is one count per step: the batch iterates together).
+        Each step calls the shared-factorization ADMM (admm_batched.py).
+        """
+        from .admm_batched import admm_iterate_prepared, prepare_shared
+
+        opt = self.options
+        dtype, dev = opt.dtype, self.device
+        _, matrices_raw, vectors, stack_bounds = self._parts
+        admm_settings = opt.admm
+
+        # (H, A) are iterate-independent: extract them ONCE at construction
+        # and apply the Hessian convexification shift on the host, keeping
+        # eigendecompositions out of the tick.
+        H_raw, A_raw = matrices_raw(
+            torch.zeros((self.n_x,), dtype=dtype, device=dev),
+            torch.zeros((self.n_p,), dtype=dtype, device=dev),
+        )
+        H_np = H_raw.cpu().numpy().astype(np.float64)
+        if opt.hessian_reg == "auto":
+            w_min = float(np.linalg.eigvalsh(0.5 * (H_np + H_np.T))[0])
+            shift = max(0.0, 1e-6 - w_min)
+        else:
+            shift = float(opt.hessian_reg)
+        if shift > 0.0:
+            H_np = H_np + shift * np.eye(H_np.shape[0])
+        H_const = torch.as_tensor(H_np, dtype=dtype, device=dev)
+        A_const = A_raw.to(dtype)
+
+        vectors_b = torch.func.vmap(vectors)
+        f_b = torch.func.vmap(self.f_fn)
+        step = self._make_step_rule()
+        early, tol = self._early_exit()
+
+        def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
+            x = x_init.to(dtype)
+            p = p.to(dtype)
+            # The raw bound stack is iterate-independent; only the shift by
+            # c(x_k) changes per SQP step.  Bound TYPES (equality / loose
+            # rows) are shift-invariant, so one factorization serves every
+            # step.
+            lower0, upper0 = stack_bounds(p, lbx, ubx, lbg, ubg)
+            grad0, _ = vectors_b(x, p)
+            fac = prepare_shared(H_const, A_const, lower0, upper0, grad0, admm_settings)
+            qpx, qpy = qp_x0, qp_y0
+            stop = torch.zeros((x.shape[0],), dtype=torch.bool, device=x.device)
+            hist = []
+            for _ in range(opt.max_iter):
+                grad, cval = vectors_b(x, p)
+                sol = admm_iterate_prepared(
+                    fac, grad, lower0 - cval, upper0 - cval, admm_settings,
+                    x0=qpx if opt.qp_warm_start else None,
+                    y0=qpy if opt.qp_warm_start else None,
+                )
+                x_new, step_norm = step(x, sol.x)
+                qp_it = sol.iters
+                if early:
+                    # Per-scenario freeze after ||alpha*dx|| < tol (the
+                    # scenario still rides the shared batch QP; its results
+                    # are discarded).
+                    x_new = torch.where(stop[:, None], x, x_new)
+                    qpx = torch.where(stop[:, None], qpx, sol.x)
+                    qpy = torch.where(stop[:, None], qpy, sol.y)
+                    qp_it = torch.where(stop, torch.zeros_like(qp_it), qp_it)
+                    step_norm = torch.where(stop, torch.zeros_like(step_norm), step_norm)
+                    took = ~stop
+                    stop = stop | (step_norm < tol)
+                else:
+                    qpx, qpy = sol.x, sol.y
+                    took = torch.ones_like(stop)
+                x = x_new
+                hist.append((f_b(x, p), qp_it, step_norm, sol.converged, sol.prim_inf,
+                             sol.dual_inf, took))
+            return _result(x, qpx, qpy, hist)
+
+        return solve_batch
 
     def _build_solve_banded_fn(self):
         """Single-scenario solve with the per-scenario banded ADMM."""

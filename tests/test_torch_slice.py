@@ -8,6 +8,16 @@ package rules.
   quadrotor bench's settings): there JAX runs its one-way kernel and the
   port its rolled two-way kernel with the depth-1 CR level, so the test
   also holds the two elimination orders together.
+* Batched double-integrator h20 ticks (the LTI, shared-factorization path)
+  through ``BatchedSolver`` in both packages and on both backends
+  (``"xla"``: the matmul loop; ``"pallas"``: JAX's fused kernel in interpret
+  mode against the port's plain chunk): under a forced iteration budget,
+  equal ``qp_iters`` and trajectories within 5e-3; at the bench's settings
+  (eps 1e-3) every QP converges in both and positions and velocities agree
+  to 5e-3, while the weakly weighted accelerations (range +-50, weight
+  1e-3) are held to 0.1: the termination test sits on a knife edge there
+  (JAX's own two backends stop at different counts and end 3.3e-2 apart on
+  an acceleration; ROADMAP Queue C).
 * The entry points run on the GPU unless told ``device="cpu"``, and raise
   when there is none.
 * No module of the port, and no line of ``chip_smoke.py``, imports JAX or
@@ -23,6 +33,7 @@ import pytest
 import torch
 
 from optimal_control_problem_tpu.models import cartpole as jcp
+from optimal_control_problem_tpu.models import double_integrator as jdi
 from optimal_control_problem_tpu.models import quadrotor as jqr
 from optimal_control_problem_tpu.parallel import BatchedSolver as JBatchedSolver
 from optimal_control_problem_tpu.solvers.admm import ADMMSettings as JSettings
@@ -33,6 +44,7 @@ from optimal_control_problem_tpu_torch.interop import (
     settings_from_jax_dict,
 )
 from optimal_control_problem_tpu_torch.models import cartpole as tcp
+from optimal_control_problem_tpu_torch.models import double_integrator as tdi
 from optimal_control_problem_tpu_torch.models import quadrotor as tqr
 from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
 from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
@@ -207,12 +219,154 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    cfg = config(tcp, H=4, step_num=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcp.build(cfg, stagewise=False, device="cpu")
+    # The banded method needs a stage structure (a ValueError, as in JAX).
+    with pytest.raises(ValueError, match="stage structure"):
+        tcp.build(config(tcp, H=4, step_num=1), stagewise=False, device="cpu")
     mixed = tcp.make_config(horizon=4, solve_method="MIXED", formulation="reduced")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcp.build(mixed, stagewise=True, device="cpu")
+    # The augmented formulation (the default without a stage structure) and
+    # the parity preset built on it.
+    with pytest.raises(NotImplementedError, match="A8d"):
+        tcp.build(tcp.make_config(horizon=4, step_num=1), stagewise=False, device="cpu")
+    parity = tcp.make_config(horizon=4, step_num=1)
+    parity["solver_settings"]["SQP_settings"]["parity"] = True
+    with pytest.raises(NotImplementedError, match="A8d"):
+        tcp.build(parity, stagewise=False, device="cpu")
+    # A dense method on a stage-structured problem, and the merit search.
+    dense = tcp.make_config(horizon=4, step_num=1, formulation="reduced",
+                            ADMM_settings={"method": "condensed"})
+    with pytest.raises(NotImplementedError, match="A8b"):
+        tcp.build(dense, stagewise=True, device="cpu")
+    merit = tdi.make_config(horizon=4, step_num=1, formulation="reduced")
+    merit["solver_settings"]["SQP_settings"]["line_search"] = "merit"
+    with pytest.raises(NotImplementedError, match="A6"):
+        tdi.build(merit, device="cpu")
+
+
+def test_shared_system_detection_and_batch_routing():
+    """(H, A) of the double integrator do not depend on the point: the
+    solver builds the shared-factorization batch function and
+    ``BatchedSolver`` takes it.  Cart-pole's dense NLP functions do depend
+    on it: no batch function, and a batch raises instead of looping."""
+    di = tdi.build(di_config(tdi, "xla", H=5, step_num=1), device="cpu")
+    assert di.solver.shared_system is True
+    assert di.solver.solve_batch_fn is not None and di.solver.solve_batch_banded_fn is None
+    assert BatchedSolver(di, device="cpu")._solve_batch is di.solver.solve_batch_fn
+    assert jdi.build(di_config(jdi, "xla", H=5, step_num=1)).solver.shared_system is True
+    cp = tcp.build(tcp.make_config(horizon=4, step_num=1, formulation="reduced"),
+                   stagewise=False, device="cpu")
+    assert cp.solver.shared_system is False and cp.solver.solve_batch_fn is None
+    with pytest.raises(NotImplementedError, match="B5"):
+        BatchedSolver(cp, device="cpu")
+    banded = tcp.build(config(tcp, H=4, step_num=1), stagewise=True, device="cpu")
+    assert banded.solver.shared_system is False
+    assert BatchedSolver(banded, device="cpu")._solve_batch is banded.solver.solve_batch_banded_fn
+
+
+# The JAX bench's double-integrator settings (bench.py:109-124).
+DI_ADMM = {"method": "condensed", "eps_abs": 1e-3, "eps_rel": 1e-3, "max_iter": 1000,
+           "adaptive_rho": True}
+
+
+def di_config(module, backend, H=20, step_num=10, **admm):
+    return module.make_config(
+        horizon=H, dt=0.005, solve_method="TPU_SQP", alpha=0.1, step_num=step_num,
+        formulation="reduced", ADMM_settings={**DI_ADMM, "backend": backend, **admm})
+
+
+def di_frames_refs(B, H=20, seed=0):
+    rng = np.random.default_rng(seed)
+    frames = np.zeros((B, tdi.FRAME), np.float32)
+    frames[:, 0:2] = rng.uniform(-1, 1, size=(B, 2)).astype(np.float32)
+    refs = np.tile(tdi.reference_circle(H, 0.005)[None, :], (B, 1)).astype(np.float32)
+    return frames, refs
+
+
+def di_ticks(cfg_kw, B, ticks):
+    """Both packages' ticks from the same zero state; yields per tick
+    ``(port x, JAX x, port f, JAX f, port result, JAX result)``."""
+    frames, refs = di_frames_refs(B)
+    jb = JBatchedSolver(jdi.build(di_config(jdi, **cfg_kw)))
+    tb = BatchedSolver(tdi.build(di_config(tdi, **cfg_kw), device="cpu"), device="cpu")
+    jst = jb.init_state(B)
+    tst = batch_state_from_numpy(jst._asdict(), device="cpu")
+    assert tst.qp_x.shape == (B, 120) and tst.qp_y.shape == (B, 196)
+    for _ in range(ticks):
+        jx, jf, jst = jb.solve(frames, refs, jst)
+        tx, tf, tst = tb.solve(frames, refs, tst)
+        yield (tx.numpy(), np.asarray(jx), tf.numpy(), np.asarray(jf),
+               tb.last_result, jb.last_result)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_double_integrator_tick_matches_jax_forced_budget(backend):
+    """h20, n=120, m=196, every QP run to max_iter = 150 (one rho adaptation
+    at 100): equal qp_iters by construction of both drivers' chunk bounds,
+    so the trajectories differ only by f32 roundoff (each package factors
+    its own operator): within the 5e-3 floor of PARITY.md."""
+    kw = dict(backend=backend, step_num=3, eps_abs=1e-7, eps_rel=1e-7, max_iter=150)
+    for tx, jx, tf, jf, tres, jres in di_ticks(kw, B=3, ticks=2):
+        np.testing.assert_array_equal(tres.qp_iters.numpy(), np.asarray(jres.qp_iters))
+        assert tres.qp_iters.tolist() == [150, 150, 150]
+        np.testing.assert_allclose(tx, jx, atol=5e-3)
+        np.testing.assert_allclose(tf, jf, rtol=1e-4)
+    assert np.isfinite(tx).all()
+    assert tres.f_history.shape == (3, 3) and tres.qp_converged.shape == (3, 3)
+    assert int(tres.steps_taken.min()) == 3
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_double_integrator_tick_matches_jax_bench_settings(backend):
+    B, H = 4, 20
+    for tx, jx, tf, jf, tres, jres in di_ticks(dict(backend=backend), B=B, ticks=3):
+        assert bool(tres.qp_converged.all()) and bool(np.asarray(jres.qp_converged).all())
+        assert not bool(tres.qp_prim_inf.any()) and not bool(tres.qp_dual_inf.any())
+        d = np.abs(tx - jx).reshape(B, H, tdi.FRAME)
+        assert d[..., 0:4].max() <= 5e-3  # positions, velocities
+        assert d[..., 4:6].max() <= 0.1  # accelerations (range +-50)
+        np.testing.assert_allclose(tf, jf, rtol=1e-3)
+    # Warm-started steady state: one check block per step in both.
+    assert tres.qp_iters.tolist() == np.asarray(jres.qp_iters).tolist() == [25] * 10
+
+
+def test_double_integrator_compute_optimal_trajectory_matches_jax():
+    """One frame through the per-problem path (dense assembly with
+    torch.func, then admm_solve), against JAX's, and against the batched
+    shared-factorization tick of the same frame."""
+    H = 8
+    frames, refs = di_frames_refs(2, H=H, seed=4)
+    cfg_kw = dict(backend="xla", H=H, step_num=3)
+    jo = jdi.build(di_config(jdi, **cfg_kw))
+    to = tdi.build(di_config(tdi, **cfg_kw), device="cpu")
+    with pytest.raises(ValueError, match="State dimension mismatch"):
+        to.compute_optimal_trajectory(frames[0][:4], refs[0])
+    for _ in range(2):
+        jo.compute_optimal_trajectory(frames[0], refs[0])
+        to.compute_optimal_trajectory(frames[0], refs[0])
+        d = np.abs(to.get_optimal_trajectory().numpy() - np.asarray(jo.get_optimal_trajectory()))
+        d = d.reshape(H, tdi.FRAME)
+        assert d[:, 0:4].max() <= 5e-3 and d[:, 4:6].max() <= 0.1
+    assert to.get_optimal_frames().shape == (H, tdi.FRAME)
+    res = to.solver.last_result
+    assert res.qp_iters.shape == (3,) and bool(res.qp_converged.all())
+    b = BatchedSolver(tdi.build(di_config(tdi, **cfg_kw), device="cpu"), device="cpu")
+    st = b.init_state(2)
+    for _ in range(2):
+        bx, _, st = b.solve(frames, refs, st)
+    # Two QP stacks (per-problem Ruiz and Gershgorin shift; shared scaling
+    # and eigenvalue shift), each at eps 1e-3: accelerations to 1% of range.
+    d = np.abs(bx[0].numpy() - to.get_optimal_trajectory().numpy()).reshape(H, tdi.FRAME)
+    assert d[:, 0:4].max() <= 5e-3 and d[:, 4:6].max() <= 0.5
+
+
+def test_double_integrator_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdi.build(di_config(tdi, "pallas", H=4, step_num=1))
+    ocp = tdi.build(di_config(tdi, "pallas", H=4, step_num=1), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedSolver(ocp)
 
 
 def test_settings_from_jax_dicts():
