@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; exits non-zero on any failure
-    python3 chip_smoke.py --profile  # also a torch.profiler window of one tick,
-                                     # summary written under chiprun_out/
+    python3 chip_smoke.py --profile  # also a torch.profiler window of one banded
+                                     # and one dense cart-pole tick, tables
+                                     # written to OUT_DIR
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -19,6 +20,11 @@ Phases:
      integrator's own first chunk of a cold tick and on a random shared QP
      batch (forced budget that is no multiple of check_every, converging,
      all done at entry, four termination groups with one done at entry);
+     the dense device loop at B=256, n=100, m=196 on the cart-pole h20
+     dense tick's own inputs (a forced budget of 60 with check_every 25,
+     the first SQP step of a cold tick, a later step whose scenarios stop
+     at different counts, one scenario alone) and on a QP with +-inf
+     bounds and equality rows;
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
      B=1024 through ``BatchedSolver`` (2 warm-up + 5 timed ticks), checking
      the launch counts, finite trajectories, and that each warm tick lowers
@@ -30,12 +36,20 @@ Phases:
      B=4096 and B=64, with backend="pallas" (the shared-operator chunk
      kernel) and the same checks, then the same ticks with backend="xla"
      (the torch.matmul loop), tick by tick from the same state;
+  4d. the per-scenario dense main path: the batched cart-pole h20 tick
+     without a stage structure (the JAX bench's ``cartpole_h20_pallas``),
+     B=256, with backend="pallas" (the dense device-loop kernel) and the
+     same checks, then the same ticks with backend="xla" (the torch.matmul
+     loop), tick by tick from the same state;
   5. the cart-pole tick at B=64 on the card and on the CPU (plain chunk)
      agree; 5b. the quadrotor h100 tick at B=8 likewise; 5c. the double
-     integrator tick at B=64 likewise;
+     integrator tick at B=64 likewise; 5d. the dense cart-pole tick at B=4
+     over 3 ticks likewise;
   6. time each kernel at its main path's own inputs beside its plain
      version and its bound (the rolled one also without its CR level, the
-     shared one also beside a loop of torch.matmul products).
+     shared one and the dense device loop also beside a loop of
+     torch.matmul products; the device loop on a cold and on a
+     steady-state tick).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -64,6 +78,8 @@ ROLLED_REPLACES = "optimal_control_problem_tpu/ops/banded_rolled_kernel.py:666"
 ROLLED_SOURCE = "optimal_control_problem_tpu_torch/csrc/banded_rolled_chunk.cu"
 SHARED_REPLACES = "optimal_control_problem_tpu/ops/shared_kernel.py:233"
 SHARED_SOURCE = "optimal_control_problem_tpu_torch/csrc/shared_chunk.cu"
+DEVLOOP_REPLACES = "optimal_control_problem_tpu/ops/admm_kernel.py:149"
+DEVLOOP_SOURCE = "optimal_control_problem_tpu_torch/csrc/admm_device_loop.cu"
 
 MAIN_ADMM = {
     "method": "banded",
@@ -92,6 +108,16 @@ DI_ADMM = {
     "eps_rel": 1e-3,
     "max_iter": 1000,
     "adaptive_rho": True,
+}
+
+
+# The JAX bench's cartpole_h20_pallas settings (bench_models.py:257-283);
+# the backend is added per solver.
+DENSE_ADMM = {
+    "method": "condensed",
+    "max_iter": 500,
+    "adaptive_rho": False,
+    "rho": 0.05,
 }
 
 
@@ -201,6 +227,14 @@ def shared_chunk_flops(n, m, iters, checks):
     return iters * per_iter + checks * per_check
 
 
+def device_loop_flops(n, m, iters, checks):
+    """Arithmetic operations of one scenario's device loop: the entry's
+    ``z = clip(x @ Ab^T)`` (a multiply and an add per term, two clips) and
+    the iterations and checks of :func:`shared_chunk_flops` (the same
+    algorithm, one operator per scenario)."""
+    return 2 * m * n + 2 * m + shared_chunk_flops(n, m, iters, checks)
+
+
 def random_shared_qp(seed, B, n, m):
     """A random shared QP batch (the shape of tests' ``problem``)."""
     rng = np.random.default_rng(seed)
@@ -241,12 +275,14 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, HERE)
     from optimal_control_problem_tpu_torch.models import cartpole, double_integrator, quadrotor
+    from optimal_control_problem_tpu_torch.ops import admm_kernel as ak
     from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
     from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
     from optimal_control_problem_tpu_torch.ops import build
     from optimal_control_problem_tpu_torch.ops import shared_kernel as sk
     from optimal_control_problem_tpu_torch.parallel import BatchedSolver
     from optimal_control_problem_tpu_torch.parallel.batch import BatchState
+    from optimal_control_problem_tpu_torch.solvers import admm as tadmm
     from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
     from optimal_control_problem_tpu_torch.solvers import admm_batched as tab
     from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
@@ -373,7 +409,8 @@ def main(argv) -> int:
 
     # Recording wrappers: each driver looks its kernels up on its own
     # module at every call, so these see whichever was dispatched.
-    homes = {"banded_admm_chunk": abb, "banded_admm_chunk_rolled": abb, "shared_admm_chunk": tab}
+    homes = {"banded_admm_chunk": abb, "banded_admm_chunk_rolled": abb, "shared_admm_chunk": tab,
+             "admm_device_loop": tadmm}
     captured = {k: [] for k in homes}
     real = {k: getattr(mod, k) for k, mod in homes.items()}
 
@@ -397,10 +434,12 @@ def main(argv) -> int:
         brk.banded_admm_chunk_rolled.launches = 0
         sk.shared_admm_chunk.launches = 0
         tab._admm_iterate_fused.chunks = 0
+        ak.admm_device_loop.launches = 0
+        tadmm._iterate_dense.entries = 0
 
     def counts():
         return (bk.banded_admm_chunk.launches, brk.banded_admm_chunk_rolled.launches,
-                sk.shared_admm_chunk.launches)
+                sk.shared_admm_chunk.launches, ak.admm_device_loop.launches)
 
     # -- 3 (continued). the shared-operator chunk vs its plain version ----
     H_di, dt_di, B_di = 20, 0.005, 4096
@@ -506,11 +545,103 @@ def main(argv) -> int:
     shared_cases(r_args, r_kw, "shared chunk, random shared QP")
     log(f"phase 3: largest gap kernel vs plain, shared chunk: {shared_err:.3g}")
 
+    # -- 3 (continued). the dense device loop vs its plain version --------
+    B_cd, steps_cd = 256, 10
+    cd_frames = np.zeros((B_cd, cartpole.FRAME), np.float32)
+    cd_frames[:, 2] = np.random.default_rng(0).uniform(-0.5, 0.5, B_cd).astype(np.float32)
+    cd_refs = np.full((B_cd, 1), np.pi, np.float32)
+
+    def cd_build(backend, device="cuda"):
+        cfg_ = cartpole.make_config(
+            horizon=20, dt=0.02, alpha=0.3, step_num=steps_cd, formulation="reduced",
+            ADMM_settings={**DENSE_ADMM, "backend": backend})
+        return cartpole.build(cfg_, stagewise=False, device=device)
+
+    cd_pallas = BatchedSolver(cd_build("pallas"))
+    if cd_pallas._solve_batch is not cd_pallas.solver.solve_batch_dense_fn:
+        raise SystemExit("phase 3: cart-pole without a stage structure was not routed to the "
+                         "dense batch path")
+    # One cold tick records the device loop's inputs of each SQP step.
+    record(lambda: cd_pallas.solve(cd_frames, cd_refs, cd_pallas.init_state(B_cd)))
+    sync()
+    cd_cold = list(captured["admm_device_loop"])
+    captured["admm_device_loop"].clear()
+    if len(cd_cold) != steps_cd:
+        raise SystemExit(f"phase 3: the cold dense tick entered the device loop {len(cd_cold)} "
+                         f"times, expected {steps_cd}")
+    loop_err = 0.0
+
+    def compare_loop(args, kw, label, check):
+        """Kernel and plain version on the same inputs: equal ``it``, every
+        float output within 1e-6 (both sum each product as the same
+        ascending chain without FMA contraction, so the gap should be 0)."""
+        nonlocal loop_err
+        out_k = ak.admm_device_loop(*args, **kw)
+        sync()
+        t0 = time.perf_counter()
+        out_p = ak.admm_device_loop_plain(*args, **kw)
+        sync()
+        plain_s = time.perf_counter() - t0
+        if not torch.equal(out_k[3], out_p[3]):
+            raise SystemExit(f"phase 3 [{label}]: iteration counts differ between kernel and plain")
+        errs = {}
+        for nm, a, b in zip("xyz", out_k, out_p):
+            if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+                raise SystemExit(f"phase 3 [{label}]: {nm} is infinite in other places")
+            fin = torch.isfinite(b)
+            errs[nm] = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+        its = sorted(set(out_k[3].tolist()))
+        log(f"phase 3 [{label}]: B={out_k[0].shape[0]} n={out_k[0].shape[1]} "
+            f"m={out_k[1].shape[1]}: max |kernel - plain| "
+            + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
+            + f"; it {its[:8]}{' ...' if len(its) > 8 else ''} (plain side {plain_s:.1f} s)")
+        if max(errs.values()) > 1e-6:
+            raise SystemExit(f"phase 3 [{label}]: kernel and plain version disagree")
+        if not check(out_k[3]):
+            raise SystemExit(f"phase 3 [{label}]: unexpected iteration counts")
+        loop_err = max(loop_err, max(errs.values()))
+
+    args0, kw0 = cd_cold[0]
+    forced_args = args0[:12] + (0.0, 0.0) + args0[14:]
+    compare_loop(forced_args, {**kw0, "max_iter": 60}, "device loop, cart-pole cold step 1, "
+                 "forced budget 60 (check_every 25)", lambda it: bool((it == 75).all()))
+    compare_loop(args0, kw0, "device loop, cart-pole cold step 1, eps 1e-3, max_iter 500",
+                 lambda it: bool((it % 25 == 0).all() and (it <= 500).all()))
+    args2, kw2 = cd_cold[2]
+    compare_loop(args2, kw2, "device loop, cart-pole cold step 3",
+                 lambda it: len(set(it.tolist())) > 1)
+    one = tuple(a[:1] if torch.is_tensor(a) else a for a in args0)
+    compare_loop(one, kw0, "device loop, cart-pole cold step 1, B=1",
+                 lambda it: it.shape == (1,))
+    # The +-inf / equality QP of tests/test_pallas_admm.py:48, prepared by
+    # the port's own driver, from 8 random warm starts.
+    P_e = torch.as_tensor(2 * np.eye(3), dtype=torch.float32, device=dev)
+    q_e = torch.as_tensor([-2.0, 0.0, 1.0], device=dev)
+    A_e = torch.as_tensor(np.vstack([np.eye(3), [[1.0, 1.0, 1.0]]]), dtype=torch.float32,
+                          device=dev)
+    l_e = torch.as_tensor([0.5, -np.inf, -1.0, 1.0], dtype=torch.float32, device=dev)
+    u_e = torch.as_tensor([0.5, np.inf, 1.0, 1.0], dtype=torch.float32, device=dev)
+    B_e = 8
+    st_e = ADMMSettings(method="condensed", eps_abs=1e-4, eps_rel=1e-4, adaptive_rho=False)
+    prep_e = tadmm.prepare_dense(*(a.expand((B_e,) + a.shape).contiguous()
+                                   for a in (P_e, q_e, A_e, l_e, u_e)), st_e)
+    rng_e = np.random.default_rng(0)
+    w_e = [torch.as_tensor(rng_e.normal(size=(B_e, k)) * 0.3, dtype=torch.float32, device=dev)
+           for k in (3, 4)]
+    args_e = (prep_e.OP.contiguous(), prep_e.Ab, prep_e.Pb, prep_e.qb, prep_e.lb, prep_e.ub,
+              prep_e.rho_v, 1.0 / prep_e.D, 1.0 / prep_e.E, 1.0 / prep_e.c,
+              st_e.sigma, st_e.alpha, st_e.eps_abs, st_e.eps_rel, *w_e)
+    compare_loop(args_e, {"max_iter": 1000, "check_every": 25},
+                 "device loop, +-inf bounds and equality rows, eps 1e-4",
+                 lambda it: bool((it > 0).all()))
+    log(f"phase 3: largest gap kernel vs plain, dense device loop: {loop_err:.3g}")
+
     def drive(solver, frames, refs, ticks, label, expect_launches, pinned=False):
         """Run ``ticks`` ticks of one main path with the launch counts
         reset just before and read just after; check and report.
-        ``expect_launches``: the (one-way, rolled, shared) launch counts, or
-        a function of the counted triple that says whether it is right.
+        ``expect_launches``: the (one-way, rolled, shared, device-loop)
+        launch counts, or a function of the counted four that says whether
+        they are right.
 
         The frames are the same every tick, so each tick warm-starts the
         SQP from the last.  The plan's objective alone need not fall: as
@@ -551,11 +682,13 @@ def main(argv) -> int:
             defect.append(float(viol.mean()))  # mean l1 violation
         n = counts()
         log(f"{label}: {ticks} ticks: one-way launches {n[0]}, rolled launches {n[1]}, "
-            f"shared launches {n[2]}, mean f by tick " + ", ".join(f"{v:.4f}" for v in f_mean)
+            f"shared launches {n[2]}, device-loop launches {n[3]}, mean f by tick "
+            + ", ".join(f"{v:.4f}" for v in f_mean)
             + "; mean l1 constraint violation by tick " + ", ".join(f"{v:.3e}" for v in defect))
         ok = expect_launches(n) if callable(expect_launches) else n == tuple(expect_launches)
         if not ok:
-            raise SystemExit(f"{label}: unexpected launch counts (one-way, rolled, shared) {n}")
+            raise SystemExit(f"{label}: unexpected launch counts (one-way, rolled, shared, "
+                             f"device loop) {n}")
         if pinned:
             if not abs(f_mean[-1] - f_mean[-2]) < abs(f_mean[1] - f_mean[0]):
                 raise SystemExit(f"{label}: the objective did not settle")
@@ -570,9 +703,10 @@ def main(argv) -> int:
                              "first warm tick")
         B = frames.shape[0]
         med = statistics.median(tick_ms[warm:])
-        qp_iters = solver.last_result.qp_iters.float()
-        if qp_iters.dim() > 1:  # per scenario on the banded paths
-            qp_iters = qp_iters.mean(dim=1)
+        res = solver.last_result
+        qp_iters = res.qp_iters.float()
+        if qp_iters.dim() > 1:  # per scenario: (steps, B) banded, (B, steps) dense
+            qp_iters = qp_iters.mean(dim=0 if res.f_history.shape[0] == B else 1)
         log(f"{label}: ms/tick {', '.join(f'{t:.2f}' for t in tick_ms)}; median of "
             f"timed {med:.3f} ms, {B / (med / 1e3):.1f} solves/s; mean QP iterations "
             f"per step at the last tick {', '.join(f'{v:.1f}' for v in qp_iters.tolist())}")
@@ -590,12 +724,15 @@ def main(argv) -> int:
     frames[:, 2] = rng.uniform(-0.5, 0.5, Bm).astype(np.float32)
     refs = np.full((Bm, 1), np.pi, np.float32)
     state, launches = drive(solver, frames, refs, ticks, f"phase 4 cart-pole h20 B={Bm}",
-                            (step_num * ticks, 0, 0))
+                            (step_num * ticks, 0, 0, 0))
     # One more tick records the chunk inputs the main path produces.
     record(lambda: solver.solve(frames, refs, state))
     sync()
 
-    if profile:
+    def profile_tick(solver, frames, refs, state, tag):
+        """One more tick under torch.profiler: its wall time, the device's
+        kernel time and busy share, and a table by op in ``OUT_DIR``."""
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as tprofile
 
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -605,17 +742,19 @@ def main(argv) -> int:
             sync()
             wall = (time.perf_counter() - t0) * 1e3
         os.makedirs(OUT_DIR, exist_ok=True)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-        with open(os.path.join(OUT_DIR, "profile_tick.txt"), "w") as fh:
-            fh.write(f"{smi}\none profiled tick at B={Bm}: {wall:.3f} ms wall\n{table}\n")
-        from torch.autograd import DeviceType
+        name = f"profile_tick_{tag}.txt"
+        avg = prof.key_averages()
+        with open(os.path.join(OUT_DIR, name), "w") as fh:
+            fh.write(f"{smi}\none profiled {tag} tick at B={frames.shape[0]}: {wall:.3f} ms wall\n"
+                     f"{avg.table(sort_by='cuda_time_total', row_limit=25)}\n"
+                     f"{avg.table(sort_by='cpu_time_total', row_limit=25)}\n")
+        dev_us = sum(getattr(e, "self_device_time_total", 0) for e in avg
+                     if getattr(e, "device_type", None) == DeviceType.CUDA)
+        log(f"profile {tag}: tick wall {wall:.3f} ms, device kernel time {dev_us / 1e3:.3f} ms "
+            f"({100 * dev_us / 1e3 / wall:.1f}% busy); table in {os.path.join(OUT_DIR, name)}")
 
-        dev_us = sum(
-            getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-        )
-        log(f"profile: tick wall {wall:.3f} ms, device kernel time {dev_us / 1e3:.3f} ms "
-            f"({100 * dev_us / 1e3 / wall:.1f}% busy); table in chiprun_out/profile_tick.txt")
+    if profile:
+        profile_tick(solver, frames, refs, state, "cartpole_banded")
 
     # -- 4b. the long-horizon main path: quadrotor h100 -------------------
     q_steps, q_ticks = 5, 7
@@ -634,7 +773,7 @@ def main(argv) -> int:
         qcfg, qfr, qrf = quad_case(Bq)
         qsolver = BatchedSolver(quadrotor.build(qcfg, stagewise=True, device="cuda"))
         qstate, n = drive(qsolver, qfr, qrf, q_ticks, f"phase 4b quadrotor h100 B={Bq}",
-                          (0, q_steps * q_ticks, 0))
+                          (0, q_steps * q_ticks, 0, 0))
         rolled_launches += n
         if Bq == 64:
             record(lambda: qsolver.solve(qfr, qrf, qstate))
@@ -650,7 +789,7 @@ def main(argv) -> int:
         # Adaptive rho makes the chunk count depend on the data: every SQP
         # step enters the kernel at least once, each driver chunk is one
         # launch, and the banded kernels stay out of this path.
-        return (n[0], n[1]) == (0, 0) and n[2] == tab._admm_iterate_fused.chunks and (
+        return (n[0], n[1], n[3]) == (0, 0, 0) and n[2] == tab._admm_iterate_fused.chunks and (
             n[2] >= di_steps * ticks)
 
     di_xla = di_solver("xla")
@@ -691,7 +830,7 @@ def main(argv) -> int:
             d = (tp - tx).abs().reshape(Bd, H_di, double_integrator.FRAME)
             gap_pv = max(gap_pv, float(d[..., 0:4].max()))
             gap_acc = max(gap_acc, float(d[..., 4:6].max()))
-        if counts()[2] != tab._admm_iterate_fused.chunks or counts()[:2] != (0, 0):
+        if counts()[2] != tab._admm_iterate_fused.chunks or counts()[:2] != (0, 0) or counts()[3]:
             raise SystemExit(f"{label}: the xla backend launched a chunk kernel")
         # The kernel sums each product as an ascending chain, cuBLAS in
         # its own order, so a scenario whose residual sits within an ulp
@@ -725,23 +864,95 @@ def main(argv) -> int:
     if not captured["shared_admm_chunk"] or len(captured["banded_admm_chunk"]) != step_num:
         raise SystemExit("phase 4c: the recorded tick did not go through the shared chunk")
 
+    # -- 4d. the per-scenario dense main path: cart-pole h20, B=256 ---------
+    label = f"phase 4d cart-pole h20 dense B={B_cd}"
+
+    def cd_launch_rule(n):
+        # Adaptive rho is off: one kernel entry per SQP step, unless the
+        # kernel stops a scenario on its own test that the driver's torch
+        # residuals find not done (the knife edge), which re-enters.
+        return n[:3] == (0, 0, 0) and n[3] == tadmm._iterate_dense.entries and (
+            n[3] >= steps_cd * ticks)
+
+    cd_state, n_cd = drive(cd_pallas, cd_frames, cd_refs, ticks, f"{label} backend=pallas",
+                           cd_launch_rule)
+    dense_launches = n_cd
+    log(f"{label} backend=pallas: {n_cd} device-loop launches over {ticks} ticks "
+        f"(step_num x ticks = {steps_cd * ticks}: {n_cd == steps_cd * ticks})")
+    # The same ticks on the "xla" backend, each from the state the "pallas"
+    # backend started that tick from.
+    cd_xla = BatchedSolver(cd_build("xla"))
+    st_p = cd_pallas.init_state(B_cd)
+    xla_ms, pal_ms, gap, same_conv = [], [], 0.0, True
+    iters_p, iters_x = [], []
+    reset_counts()
+    for _ in range(ticks):
+        st_in = BatchState(*(a.clone() for a in st_p))
+        sync()
+        t0 = time.perf_counter()
+        tp, _, st_p = cd_pallas.solve(cd_frames, cd_refs, st_p)
+        sync()
+        pal_ms.append((time.perf_counter() - t0) * 1e3)
+        rp_ = cd_pallas.last_result
+        t0 = time.perf_counter()
+        tx, _, _ = cd_xla.solve(cd_frames, cd_refs, st_in)
+        sync()
+        xla_ms.append((time.perf_counter() - t0) * 1e3)
+        rx_ = cd_xla.last_result
+        iters_p.append(rp_.qp_iters.cpu())
+        iters_x.append(rx_.qp_iters.cpu())
+        same_conv &= torch.equal(rp_.qp_converged, rx_.qp_converged)
+        gap = max(gap, float((tp - tx).abs().max()))
+    if counts()[3] != tadmm._iterate_dense.entries or counts()[:3] != (0, 0, 0):
+        raise SystemExit(f"{label}: the launch counts do not follow the dense driver's entries")
+    # Per scenario and step (B x steps per tick); the differing ones listed.
+    for t_, (p_, x_) in enumerate(zip(iters_p, iters_x)):
+        diff = (p_ != x_).nonzero().tolist()
+        if diff:
+            log(f"{label}: tick {t_ + 1}: qp_iters differ in {len(diff)} of {p_.numel()} "
+                "(scenario, step): " + ", ".join(
+                    f"({b}, {k}) pallas {int(p_[b, k])} xla {int(x_[b, k])}" for b, k in diff[:12]))
+    same_last = torch.equal(iters_p[-1], iters_x[-1])
+    n_same = sum(int((p_ == x_).sum()) for p_, x_ in zip(iters_p, iters_x))
+    log(f"{label}: backend=xla ms/tick {', '.join(f'{t:.2f}' for t in xla_ms)} (median of "
+        f"timed {statistics.median(xla_ms[warm:]):.3f}) beside backend=pallas "
+        f"{', '.join(f'{t:.2f}' for t in pal_ms)} (median of timed "
+        f"{statistics.median(pal_ms[warm:]):.3f}); qp_iters equal in {n_same} of "
+        f"{ticks * iters_p[0].numel()} (scenario, step) pairs, at the last tick: {same_last}; "
+        f"qp_converged equal: {same_conv}, converged share at the last tick "
+        f"{float(rp_.qp_converged.float().mean()):.4f}; max |pallas - xla| trajectory "
+        f"{gap:.3g} (limit 5e-3)")
+    if not (same_conv and same_last):
+        raise SystemExit(f"{label}: the two backends disagree on qp_iters or qp_converged")
+    if not gap <= 5e-3:
+        raise SystemExit(f"{label}: the two backends' trajectories disagree")
+    # One more tick records the device loop's inputs of a steady-state tick.
+    record(lambda: cd_pallas.solve(cd_frames, cd_refs, cd_state))
+    sync()
+    cd_steady = list(captured["admm_device_loop"])
+    if len(cd_steady) < steps_cd:
+        raise SystemExit("phase 4d: the recorded tick did not go through the device loop")
+    if profile:
+        profile_tick(cd_pallas, cd_frames, cd_refs, cd_state, "cartpole_dense")
+
     # -- 5. card vs CPU ---------------------------------------------------
-    def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None):
-        """Two ticks on the card and on the CPU (plain chunks): trajectories
-        within 5e-3; with ``acc_limit`` the double integrator's weakly
-        weighted accelerations (columns 4:6 of each frame) are held to it
-        and the rest to 5e-3."""
+    def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None, n_ticks=2):
+        """``n_ticks`` ticks on the card and on the CPU (plain kernels):
+        trajectories within 5e-3; with ``acc_limit`` the double
+        integrator's weakly weighted accelerations (columns 4:6 of each
+        frame) are held to it and the rest to 5e-3."""
         trajs = {}
         for d in ("cuda", "cpu"):
             s_ = BatchedSolver(build_fn(d), device=d)
             st_ = s_.init_state(fr.shape[0])
             t0 = time.perf_counter()
             out = []
-            for _ in range(2):
+            for _ in range(n_ticks):
                 tr, _, st_ = s_.solve(fr, rf, st_)
                 out.append(tr.cpu().numpy())
             trajs[d] = out
-            log(f"{label}: 2 ticks at B={fr.shape[0]} on {d}: {time.perf_counter() - t0:.2f} s")
+            log(f"{label}: {n_ticks} ticks at B={fr.shape[0]} on {d}: "
+                f"{time.perf_counter() - t0:.2f} s")
         diffs = [np.abs(a - b) for a, b in zip(trajs["cuda"], trajs["cpu"])]
         if acc_limit is not None:
             diffs = [d.reshape(d.shape[0], -1, double_integrator.FRAME) for d in diffs]
@@ -765,6 +976,8 @@ def main(argv) -> int:
                 "phase 5b quadrotor h100")
     card_vs_cpu(lambda d: di_solver("pallas", d).ocp, di_frames[:Bs], di_refs[:Bs],
                 "phase 5c double integrator h20", acc_limit=0.1)
+    card_vs_cpu(lambda d: cd_build("pallas", d), cd_frames[:4], cd_refs[:4],
+                "phase 5d cart-pole h20 dense", n_ticks=3)
 
     # -- 6. kernel timing at the main paths' inputs ------------------------
     def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces):
@@ -905,7 +1118,99 @@ def main(argv) -> int:
         "library_ms": None, "matmul_loop_ms": s_mm_ms,
     }
 
-    print(json.dumps({"kernels": [row1, row2, row3]}), flush=True)
+    # The dense device loop on the recorded launches of one cold and one
+    # steady-state B=256 tick of the cart-pole dense path.
+    def loop_matmul(args, kw, iters):
+        """The device loop's products as batched torch.matmul calls (cuBLAS,
+        true f32) with the same elementwise updates, ``iters`` iterations in
+        blocks of check_every with a check after each: the "xla" loop's
+        arithmetic on the kernel's inputs.  Times only."""
+        OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sg, al, ea, er, x, y = args
+        ce = kw["check_every"]
+        AbT = Ab.transpose(1, 2)
+
+        def mv(M, v):
+            return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+        z = torch.minimum(torch.maximum(mv(Ab, x), lb), ub)
+        for _ in range(iters // ce):
+            for _ in range(ce):
+                xt = mv(OP, sg * x - qb + mv(AbT, rho * z - y))
+                zt = mv(Ab, xt)
+                x = al * xt + (1 - al) * x
+                z_rel = al * zt + (1 - al) * z
+                z_new = torch.minimum(torch.maximum(z_rel + y / rho, lb), ub)
+                y = y + rho * (z_rel - z_new)
+                z = z_new
+            Ax, Px, Aty = mv(Ab, x), mv(Pb, x), mv(AbT, y)
+            r_prim = ((Ax - z) * Einv).abs().amax(dim=1)
+            r_dual = cinv * ((Px + qb + Aty) * Dinv).abs().amax(dim=1)
+            max_prim = torch.maximum((Ax * Einv).abs().amax(dim=1), (z * Einv).abs().amax(dim=1))
+            max_dual = cinv * torch.maximum(torch.maximum(
+                (Aty * Dinv).abs().amax(dim=1), (Px * Dinv).abs().amax(dim=1)),
+                (qb * Dinv).abs().amax(dim=1))
+            _ = (r_prim <= ea + er * max_prim) & (r_dual <= ea + er * max_dual)
+        return x, y, z
+
+    def loop_stats(calls):
+        """Per launch: the iteration counts (from the plain version's
+        contract: equal to the kernel's, phase 3), bytes read and written
+        once, and operations from each scenario's own counts."""
+        nbytes = flops = 0
+        iters = []
+        for args, kw in calls:
+            it = ak.admm_device_loop(*args, **kw)[3]
+            iters.append(it)
+            B_, n_, m_ = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+            tensors = [a for a in args if torch.is_tensor(a)]
+            nbytes += sum(t_.numel() * t_.element_size() for t_ in tensors)
+            nbytes += 4 * B_ * (n_ + 2 * m_ + 1)
+            flops += sum(device_loop_flops(n_, m_, k, k // kw["check_every"])
+                         for k in it.tolist())
+        nc = len(calls)
+        bytes_ms = nbytes / nc / PEAK_BYTES_PER_S * 1e3
+        ops_ms = flops / nc / PEAK_F32_FLOPS * 1e3
+        return iters, bytes_ms, ops_ms
+
+    loop_rows = {}
+    for which, calls in (("cold", cd_cold), ("steady", cd_steady)):
+        nc = len(calls)
+        iters, bytes_ms, ops_ms = loop_stats(calls)
+        k_ms = time_ms(lambda: [ak.admm_device_loop(*a, **k) for a, k in calls], 7, sync) / nc
+        mm_ms = time_ms(lambda: [loop_matmul(a, k, int(it.max())) for (a, k), it in
+                                 zip(calls, iters)], 3 if which == "steady" else 1, sync) / nc
+        plain_ms = None
+        if which == "steady":
+            plain_ms = time_ms(lambda: [ak.admm_device_loop_plain(*a, **k) for a, k in calls],
+                               2, sync) / nc
+        mean_it = statistics.fmean(float(it.float().mean()) for it in iters)
+        max_it = max(int(it.max()) for it in iters)
+        loop_rows[which] = dict(ms=k_ms, mm_ms=mm_ms, plain_ms=plain_ms,
+                                bound_ms=max(bytes_ms, ops_ms),
+                                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"phase 6: admm_device_loop at the {which} cart-pole dense tick's inputs ({nc} "
+            f"launches, B={calls[0][0][0].shape[0]}, n={calls[0][0][0].shape[1]}, "
+            f"m={calls[0][0][1].shape[1]}; iterations per scenario and launch: mean "
+            f"{mean_it:.2f}, largest {max_it}, by launch (largest) "
+            f"{[int(it.max()) for it in iters]}): {k_ms:.4f} ms/launch, plain "
+            + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured (minutes)")
+            + f", the same iterations and checks as batched torch.matmul products "
+            f"{mm_ms:.4f} ms, bound {max(bytes_ms, ops_ms) * 1e3:.3f} us (bytes "
+            f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us)")
+    st_row = loop_rows["steady"]
+    row4 = {
+        "name": "admm_device_loop", "route": "cuda", "source": DEVLOOP_SOURCE,
+        "replaces": DEVLOOP_REPLACES, "launches": dense_launches, "max_abs_err": loop_err,
+        "ms": st_row["ms"], "plain_ms": st_row["plain_ms"], "bound_ms": st_row["bound_ms"],
+        "bound_by": st_row["bound_by"],
+        # No single PyTorch call computes the loop; the batched
+        # torch.matmul loop above is reported beside it.
+        "library_ms": None, "matmul_loop_ms": st_row["mm_ms"],
+        "cold_ms": loop_rows["cold"]["ms"], "cold_bound_ms": loop_rows["cold"]["bound_ms"],
+        "cold_matmul_loop_ms": loop_rows["cold"]["mm_ms"],
+    }
+
+    print(json.dumps({"kernels": [row1, row2, row3, row4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -16,7 +16,7 @@ import torch
 
 from .device import resolve_device
 from .parallel.batch import BatchState
-from .solvers.admm import ADMMSettings
+from .solvers.admm import ADMMSettings, DensePrep
 from .solvers.admm_banded import BandedQP
 from .solvers.admm_batched import SharedQPFactor
 from .solvers.sqp import SQPOptions
@@ -24,6 +24,7 @@ from .solvers.sqp import SQPOptions
 __all__ = [
     "banded_qp_from_numpy",
     "batch_state_from_numpy",
+    "dense_prep_from_numpy",
     "settings_from_jax_dict",
     "shared_factor_from_numpy",
 ]
@@ -58,6 +59,18 @@ def shared_factor_from_numpy(fac_np: Any, device=None, dtype=None) -> SharedQPFa
     return SharedQPFactor(
         *(_tensor(a, dev, dtype) for a in _fields(fac_np, SharedQPFactor._fields))
     )
+
+
+def dense_prep_from_numpy(prep_np: Any, device=None, dtype=None) -> DensePrep:
+    """JAX's per-scenario prepared quantities of a batch of dense QPs (a
+    mapping with the :class:`DensePrep` field names — Ruiz ``D``, ``E``,
+    ``c``; scaled ``Pb``, ``qb``, ``Ab``, ``lb``, ``ub``; ``rho_v``; ``OP`` —
+    as batch-leading numpy arrays, e.g. from ``jax.vmap`` of the JAX
+    package's ``ruiz_equilibrate``, ``_rho_vec`` and ``_factor``) -> the
+    port's :class:`DensePrep` on ``device``, so both packages iterate on
+    one equilibration and one operator inverse."""
+    dev = resolve_device(device)
+    return DensePrep(*(_tensor(a, dev, dtype) for a in _fields(prep_np, DensePrep._fields)))
 
 
 def batch_state_from_numpy(state_np: Any, device=None, dtype=None) -> BatchState:

@@ -9,5 +9,7 @@ block-Thomas, ``w`` in ``KERNEL_WIDTHS``) and
 with an optional depth-1 cyclic-reduction level, any ``w`` up to 16);
 ``solvers/admm_banded_batch.chunk_kernel`` picks between them; and the
 shared-operator chunk of the LTI path, ``shared_kernel.shared_admm_chunk``
-(``backend="pallas"`` of ``solvers/admm_batched.py``).
+(``backend="pallas"`` of ``solvers/admm_batched.py``); and the dense
+per-scenario device loop, ``admm_kernel.admm_device_loop``
+(``backend="pallas"`` of ``solvers/admm.py``).
 """

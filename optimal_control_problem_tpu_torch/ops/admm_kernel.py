@@ -1,0 +1,223 @@
+"""Dense per-scenario ADMM device loop, batch-leading — port of
+``optimal_control_problem_tpu/ops/admm_kernel.py::admm_device_loop``.
+
+One call runs a whole rho-constant condensed OSQP-ADMM solve for each of B
+independent QPs, each with its OWN operators (the nonlinear models'
+local QPs change with the iterate): ``OP (B, n, n)`` (condensed inverse),
+``Ab (B, m, n)``, ``Pb (B, n, n)`` and per-row ``rho (B, m)``, all in the
+scaled space of the dense driver (``solvers/admm.py``).  At entry ``z`` is
+recomputed as ``clip(x @ Ab^T, lb, ub)``, as the JAX kernel does (it is not
+carried over).  Each iteration::
+
+    rhs = sigma x - qb + (rho z - y) @ Ab
+    xt  = rhs @ OP
+    zt  = xt @ Ab^T
+
+with the relaxation, the projection onto ``[lb, ub]`` and the dual update,
+and every ``check_every`` iterations three more products (``x @ Ab^T``,
+``x @ Pb``, ``y @ Ab``) give the unscaled residuals of the OSQP
+termination test.  Each scenario runs its own loop: whole check blocks
+while ``it < max_iter`` and it has not converged, ``it += check_every``
+(so ``it`` can pass ``max_iter``).  The product orientations are the JAX
+kernel's, not the ``"xla"`` loop's: an f32 inverse (and a Hessian from
+``torch.func``) need not be exactly symmetric, so ``rhs @ OP`` and
+``OP @ rhs`` differ.
+
+:func:`admm_device_loop` is the wrapper: for CUDA tensors it launches the
+hand-written kernel ``csrc/admm_device_loop.cu`` (built by ``nvcc`` at
+first use; one thread block per scenario with its operators resident in
+shared memory) and counts the launch in ``admm_device_loop.launches``; a
+problem whose operators do not fit in one block's shared memory is
+refused (:func:`check_fits`), the card's counterpart of the JAX driver's
+VMEM guard.  For CPU tensors it runs :func:`admm_device_loop_plain`, the
+plain PyTorch version of the same contract that the CPU tests hold
+against the Pallas kernel.  There is no fallback from one to the other.
+
+Both versions form every product as an ascending chain over the
+contraction index, one multiply and one add per term (the CUDA build has
+FMA contraction off), so they round alike and agree bitwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .banded_kernel import _check, launch_chunk
+
+__all__ = [
+    "admm_device_loop",
+    "admm_device_loop_plain",
+    "chain_bmm",
+    "check_fits",
+    "smem_bytes",
+    "SMEM_LIMIT",
+]
+
+# Dynamic shared memory one thread block may opt into on sm_90 (H100/H200).
+SMEM_LIMIT = 232_448
+# Threads per block of the CUDA kernel (its block-reduction scratch holds
+# 8 values for each of their warps).
+_THREADS = 256
+
+
+def smem_bytes(n: int, m: int) -> int:
+    """Shared memory of one thread block of ``csrc/admm_device_loop.cu``:
+    ``OP`` and ``Pb`` (n x n), ``Ab`` with its rows padded to an odd stride
+    (``n | 1``, so both of its orientations read without bank conflicts),
+    five n-vectors (x, rhs, xt, qb, 1/D), seven m-vectors (z, y, rho z - y,
+    lb, ub, rho, 1/E) and the reduction scratch."""
+    return 4 * (2 * n * n + m * (n | 1) + 5 * n + 7 * m + 8 * (_THREADS // 32))
+
+
+def check_fits(n: int, m: int) -> None:
+    """Raise if one scenario's operators do not fit in a thread block's
+    shared memory (there is no other kernel for such a problem)."""
+    need = smem_bytes(n, m)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"admm_device_loop: n={n}, m={m} needs {need} bytes of shared memory "
+            f"per thread block, above the card's {SMEM_LIMIT}; use backend='xla' "
+            "or method='banded'"
+        )
+
+
+def chain_bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a (B, K) @ w (B, K, J)`` per scenario, as an ascending chain over
+    ``k`` from zero, a multiply and an add per term — the CUDA kernel's
+    order."""
+    acc = torch.zeros((a.shape[0], w.shape[2]), dtype=a.dtype, device=a.device)
+    for k in range(w.shape[1]):
+        acc = acc + a[:, k : k + 1] * w[:, k]
+    return acc
+
+
+def _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every):
+    """Check a call on either device; returns ``(B, n, m)``."""
+    dev = x0.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"admm_device_loop: unsupported device {dev}")
+    if x0.dim() != 2 or y0.dim() != 2:
+        raise ValueError("admm_device_loop: x0 must be (B, n) and y0 (B, m)")
+    B, n = x0.shape
+    m = y0.shape[1]
+    if n < 1 or m < 1:
+        raise ValueError(f"admm_device_loop needs n >= 1 and m >= 1 (got n={n}, m={m})")
+    if check_every < 1:
+        raise ValueError("check_every must be >= 1")
+    ft = torch.float32 if dev.type == "cuda" else x0.dtype
+    for name, t, shape in (
+        ("OP", OP, (B, n, n)), ("Ab", Ab, (B, m, n)), ("Pb", Pb, (B, n, n)),
+        ("qb", qb, (B, n)), ("lb", lb, (B, m)), ("ub", ub, (B, m)), ("rho", rho, (B, m)),
+        ("Dinv", Dinv, (B, n)), ("Einv", Einv, (B, m)), ("cinv", cinv, (B,)),
+        ("x0", x0, (B, n)), ("y0", y0, (B, m)),
+    ):
+        _check(name, t, shape, ft, dev)
+    return B, n, m
+
+
+def admm_device_loop_plain(
+    OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv,
+    sigma: float, alpha: float, eps_abs: float, eps_rel: float,
+    x0, y0, max_iter: int = 10000, check_every: int = 25,
+):
+    """Plain PyTorch version of the device loop, op for op the JAX
+    ``_kernel`` over a leading batch axis.
+
+    Operators and vectors as in the module docstring; ``Dinv (B, n)``,
+    ``Einv (B, m)``, ``cinv (B,)`` unscale the residuals; ``x0 (B, n)``,
+    ``y0 (B, m)`` are scaled warm starts.  Returns ``(x, y, z, it)``, with
+    ``it (B,)`` int32.  Scenarios that have stopped are masked: they keep
+    their iterates while the others run on.
+    """
+    B, n, m = _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
+    AbT = Ab.transpose(1, 2)
+    one_m_alpha = 1.0 - alpha
+
+    def clip(v):
+        return torch.minimum(torch.maximum(v, lb), ub)
+
+    def one_iter(x, z, y):
+        rhs = sigma * x - qb + chain_bmm(rho * z - y, Ab)
+        xt = chain_bmm(rhs, OP)
+        zt = chain_bmm(xt, AbT)
+        x_n = alpha * xt + one_m_alpha * x
+        z_rel = alpha * zt + one_m_alpha * z
+        z_n = clip(z_rel + y / rho)
+        y_n = y + rho * (z_rel - z_n)
+        return x_n, z_n, y_n
+
+    def rowmax(a):
+        return a.abs().amax(dim=1)
+
+    def residual_ok(x, z, y):
+        ax = chain_bmm(x, AbT)
+        px = chain_bmm(x, Pb)
+        aty = chain_bmm(y, Ab)
+        r_prim = rowmax((ax - z) * Einv)
+        r_dual = cinv * rowmax((px + qb + aty) * Dinv)
+        max_prim = torch.maximum(rowmax(ax * Einv), rowmax(z * Einv))
+        max_dual = cinv * torch.maximum(
+            torch.maximum(rowmax(aty * Dinv), rowmax(px * Dinv)), rowmax(qb * Dinv)
+        )
+        return (r_prim <= eps_abs + eps_rel * max_prim) & (r_dual <= eps_abs + eps_rel * max_dual)
+
+    x, y = x0, y0
+    z = clip(chain_bmm(x, AbT))
+    it = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    done = torch.zeros((B,), dtype=torch.bool, device=x.device)
+    while True:
+        act = (it < max_iter) & ~done
+        if not bool(act.any()):
+            break
+        xs, zs, ys = x, z, y
+        for _ in range(check_every):
+            xs, zs, ys = one_iter(xs, zs, ys)
+        ok = residual_ok(xs, zs, ys)
+        a2 = act[:, None]
+        x, z, y = torch.where(a2, xs, x), torch.where(a2, zs, z), torch.where(a2, ys, y)
+        done = torch.where(act, ok, done)
+        it = it + check_every * act.to(torch.int32)
+    return x, y, z, it
+
+
+def admm_device_loop(
+    OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv,
+    sigma: float, alpha: float, eps_abs: float, eps_rel: float,
+    x0, y0, max_iter: int = 10000, check_every: int = 25,
+):
+    """Run the dense device loop for a batch of QPs; same contract as
+    :func:`admm_device_loop_plain`.
+
+    CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
+    launch ``csrc/admm_device_loop.cu`` on the current stream, one thread
+    block per scenario, or raise: a shape whose operators do not fit in
+    shared memory (:func:`check_fits`), or a refused launch.
+    """
+    B, n, m = _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
+    kw = dict(max_iter=max_iter, check_every=check_every)
+    dev = x0.device
+    if dev.type == "cpu":
+        return admm_device_loop_plain(
+            OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv,
+            sigma, alpha, eps_abs, eps_rel, x0, y0, **kw,
+        )
+    check_fits(n, m)
+    outs = (
+        torch.empty((B, n), dtype=torch.float32, device=dev),
+        torch.empty((B, m), dtype=torch.float32, device=dev),
+        torch.empty((B, m), dtype=torch.float32, device=dev),
+        torch.empty((B,), dtype=torch.int32, device=dev),
+    )
+    if B == 0:
+        return outs
+    launch_chunk(
+        "admm_device_loop", "admm_device_loop", "ocp_admm_device_loop_f32",
+        [OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, *outs],
+        (B, n, m, max_iter, check_every),
+        (sigma, alpha, eps_abs, eps_rel), dev,
+    )
+    admm_device_loop.launches += 1
+    return outs
+
+
+admm_device_loop.launches = 0

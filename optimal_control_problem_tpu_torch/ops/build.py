@@ -30,6 +30,7 @@ SOURCES: Dict[str, Path] = {
     "banded_chunk": _PKG / "csrc" / "banded_chunk.cu",
     "banded_rolled_chunk": _PKG / "csrc" / "banded_rolled_chunk.cu",
     "shared_chunk": _PKG / "csrc" / "shared_chunk.cu",
+    "admm_device_loop": _PKG / "csrc" / "admm_device_loop.cu",
 }
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

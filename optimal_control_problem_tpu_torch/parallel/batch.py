@@ -6,8 +6,11 @@ independent scenarios runs as one SQP solve whose QPs iterate together:
 shared-system (LTI) problems through one shared factorization
 (``solvers/admm_batched.py``; with ``backend="pallas"`` its iterations run
 in the fused chunk of ``ops/shared_kernel.py``), stage-structured problems
-in the fused banded chunk (``ops/banded_kernel.py``): on the card one CUDA
-launch per rho-constant chunk covers every scenario.
+in the fused banded chunk (``ops/banded_kernel.py``), and every other
+problem through its per-scenario dense QPs (``solvers/admm.py``'s
+``admm_solve_batch``; with ``backend="pallas"`` in the device-loop kernel
+of ``ops/admm_kernel.py``): on the card one CUDA launch per rho-constant
+chunk or round covers every scenario.
 """
 
 from __future__ import annotations
@@ -32,8 +35,7 @@ class BatchState(NamedTuple):
 
 
 class BatchedSolver:
-    """Batched front-end over a generated problem that is shared-system
-    or stage-structured.
+    """Batched front-end over a generated problem.
 
     Usage::
 
@@ -70,14 +72,12 @@ class BatchedSolver:
         self._lbg = as_t(ocp.get_constraint_lower_bounds())
         self._ubg = as_t(ocp.get_constraint_upper_bounds())
         # The shared-factorization batch function first, then the banded
-        # one, as the JAX package chooses.
-        self._solve_batch = self.solver.solve_batch_fn or self.solver.solve_batch_banded_fn
-        if self._solve_batch is None:
-            raise NotImplementedError(
-                "this problem is neither shared-system (LTI) nor stage-structured: "
-                "its batch would run the per-scenario dense solver, which is not "
-                "ported yet (ROADMAP Queue A8b, kernel B5)"
-            )
+        # one, then the per-scenario dense one, as the JAX package chooses.
+        self._solve_batch = (
+            self.solver.solve_batch_fn
+            or self.solver.solve_batch_banded_fn
+            or self.solver.solve_batch_dense_fn
+        )
         # Full SQPResult of the last .solve() call.
         self.last_result = None
 

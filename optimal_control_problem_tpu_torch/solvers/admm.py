@@ -8,17 +8,20 @@ Solved problem (OSQP standard form)::
 
 ``ADMMSettings`` is copied field for field (a frozen, hashable dataclass);
 ``QPSolution``, the OSQP rho limits and the Ruiz scaling limits come along
-with it.  Ported with the LTI slice: ``ruiz_equilibrate``, ``_rho_vec``,
-``_factor`` (condensed and quasi-definite KKT, explicit inverses through
-``torch.linalg.inv`` as JAX uses ``jnp.linalg.inv``), ``admm_solve`` (both
-methods, adaptive rho with refactorization, infeasibility certificates,
-warm start) and ``_polish``.  ``admm_solve`` is eager PyTorch with a Python
-loop for one problem at a time: it reads the termination flags on the host
-at every check block, where the JAX version runs a ``lax.while_loop``.
+with it.  Ported: ``ruiz_equilibrate``, ``_rho_vec``, ``_factor`` (condensed
+and quasi-definite KKT, explicit inverses through ``torch.linalg.inv`` as
+JAX uses ``jnp.linalg.inv``) and ``_polish``, each over any leading batch
+dims; ``admm_solve`` (both methods, both backends, adaptive rho with
+refactorization, infeasibility certificates, warm start, polish) and its
+batched counterpart :func:`admm_solve_batch`, the port of
+``jax.vmap(admm_solve)``, which ``admm_solve`` runs with a batch of one.
+Both are eager PyTorch: the loop conditions are read on the host once per
+check block (``backend="xla"``) or kernel entry (``backend="pallas"``, the
+device-loop kernel of ``ops/admm_kernel.py``), where the JAX version runs a
+``lax.while_loop``.
 
-Not ported yet, each raising ``NotImplementedError``: ``backend="pallas"``
-on this per-problem path (the dense device-loop kernel, ``ROADMAP.md``
-Queue B5) and the ``precision`` / ``iter_precision`` variants (Queue A8c).
+Not ported yet, raising ``NotImplementedError``: the ``precision`` /
+``iter_precision`` variants (``ROADMAP.md`` Queue A8c).
 
 The JAX module's ``f32_matmuls`` has no counterpart here: the package
 switches TF32 off once at import (``__init__.py``), so every product is
@@ -32,10 +35,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.admm_kernel import admm_device_loop
+
 __all__ = [
     "ADMMSettings",
+    "DensePrep",
     "QPSolution",
     "admm_solve",
+    "admm_solve_batch",
+    "prepare_dense",
     "ruiz_equilibrate",
 ]
 
@@ -92,7 +100,8 @@ class ADMMSettings:
     #              shared-factorization batched path that is
     #              ops/shared_kernel.py (condensed only, full adaptive rho +
     #              certificates via chunked re-entry).  On the per-scenario
-    #              dense path it is not ported yet (ROADMAP Queue B5).
+    #              dense path (condensed only) it is ops/admm_kernel.py, one
+    #              kernel entry per adaptive-rho round.
     backend: str = "xla"
     # Matmul precision for solver-internal linear algebra.  Only "highest"
     # (true f32 everywhere) is ported; the JAX package's lower settings map
@@ -160,8 +169,8 @@ class QPSolution(NamedTuple):
     # OSQP-style infeasibility certificates.  When ``prim_inf`` is True the
     # problem is primal infeasible and delta-y (not returned; its direction
     # is ``y``'s divergence ray) certifies it; ``dual_inf`` marks an
-    # unbounded (dual-infeasible) problem.  Both False for the Pallas
-    # backend and for solvers that predate the check.
+    # unbounded (dual-infeasible) problem.  Both False when
+    # ``check_infeasibility`` is off.
     prim_inf: torch.Tensor = False  # noqa: RUF009 - NamedTuple default
     dual_inf: torch.Tensor = False
 
@@ -182,42 +191,55 @@ def require_highest_precision(st: ADMMSettings) -> None:
         )
 
 
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M @ v`` over any leading batch dims: ``M (..., r, c)``, ``v (..., c)``."""
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
 def ruiz_equilibrate(P, q, A, iters: int):
     """Modified Ruiz equilibration of [[P, A^T], [A, 0]] with cost scaling.
 
     Returns (Pb, qb, Ab, D, E, c) such that Pb = c*D@P@D, qb = c*D*q,
     Ab = E*A*D (diagonal scalings as vectors).  Mirrors OSQP ``scale.c``.
+    Any leading batch dims scale each problem on its own (``c`` then has
+    the batch shape), with the single problem's operation order.
     """
-    n = P.shape[0]
-    m = A.shape[0]
-    D = torch.ones((n,), dtype=P.dtype, device=P.device)
-    E = torch.ones((m,), dtype=P.dtype, device=P.device)
-    c = torch.ones((), dtype=P.dtype, device=P.device)
+    n = P.shape[-1]
+    m = A.shape[-2]
+    batch = P.shape[:-2]
+    D = torch.ones(batch + (n,), dtype=P.dtype, device=P.device)
+    E = torch.ones(batch + (m,), dtype=P.dtype, device=P.device)
+    c = torch.ones(batch, dtype=P.dtype, device=P.device)
+
+    def scaled_P(D, c):
+        return c[..., None, None] * (D[..., :, None] * P * D[..., None, :])
+
     for _ in range(iters):
-        Pb = c * (D[:, None] * P * D[None, :])
-        Ab = E[:, None] * A * D[None, :]
+        Pb = scaled_P(D, c)
+        Ab = E[..., :, None] * A * D[..., None, :]
         # column inf-norms of [Pb; Ab] -> x-block scaling
-        norm_x = Pb.abs().amax(dim=0)
+        norm_x = Pb.abs().amax(dim=-2)
         if m:
-            norm_x = torch.maximum(norm_x, Ab.abs().amax(dim=0))
+            norm_x = torch.maximum(norm_x, Ab.abs().amax(dim=-2))
         D = D * (1.0 / torch.sqrt(_limit_scaling(norm_x)))
         if m:
             # row inf-norms of Ab -> constraint-block scaling
-            E = E * (1.0 / torch.sqrt(_limit_scaling(Ab.abs().amax(dim=1))))
+            E = E * (1.0 / torch.sqrt(_limit_scaling(Ab.abs().amax(dim=-1))))
         # cost scaling: gamma = 1/max(mean col-norm of Pb, ||qb||_inf)
-        Pb = c * (D[:, None] * P * D[None, :])
-        qb = c * D * q
-        mean_pcol = Pb.abs().amax(dim=0).mean()
-        c = c * (1.0 / _limit_scaling(torch.maximum(mean_pcol, qb.abs().max())))
-    Pb = c * (D[:, None] * P * D[None, :])
-    qb = c * D * q
-    Ab = E[:, None] * A * D[None, :]
+        Pb = scaled_P(D, c)
+        qb = c[..., None] * D * q
+        mean_pcol = Pb.abs().amax(dim=-2).mean(dim=-1)
+        c = c * (1.0 / _limit_scaling(torch.maximum(mean_pcol, qb.abs().amax(dim=-1))))
+    Pb = scaled_P(D, c)
+    qb = c[..., None] * D * q
+    Ab = E[..., :, None] * A * D[..., None, :]
     return Pb, qb, Ab, D, E, c
 
 
 def _rho_vec(l, u, rho):
     """Per-row rho: loose bounds -> RHO_MIN, equalities -> rho * 1e3 (OSQP).
-    ``rho`` is a 0-dim tensor of the working dtype."""
+    ``rho`` is a 0-dim tensor of the working dtype; ``l``/``u`` may carry
+    leading batch dims."""
     inf = float("inf")
     loose = (l <= -inf) & (u >= inf)
     eq = (u - l) < _RHO_TOL
@@ -227,21 +249,52 @@ def _rho_vec(l, u, rho):
 
 
 def _factor(Pb, Ab, rho_v, sigma, method: str):
-    """Precompute the per-iteration solve operator as an explicit inverse."""
-    n = Pb.shape[0]
-    m = Ab.shape[0]
+    """Precompute the per-iteration solve operator as an explicit inverse
+    (of each problem, over any leading batch dims)."""
+    n = Pb.shape[-1]
+    m = Ab.shape[-2]
     eye = torch.eye(n, dtype=Pb.dtype, device=Pb.device)
+    AbT = Ab.transpose(-1, -2)
     if method == "condensed":
-        M = Pb + sigma * eye + (Ab.T * rho_v[None, :]) @ Ab
+        M = Pb + sigma * eye + (AbT * rho_v[..., None, :]) @ Ab
         return torch.linalg.inv(M)
     # Quasi-definite KKT matrix [[P + sigma I, A^T], [A, -diag(1/rho)]]:
     # always invertible, tolerates indefinite P.
-    K = torch.zeros((n + m, n + m), dtype=Pb.dtype, device=Pb.device)
-    K[:n, :n] = Pb + sigma * eye
-    K[:n, n:] = Ab.T
-    K[n:, :n] = Ab
-    K[n:, n:] = torch.diag(-1.0 / rho_v)
+    K = torch.zeros(Pb.shape[:-2] + (n + m, n + m), dtype=Pb.dtype, device=Pb.device)
+    K[..., :n, :n] = Pb + sigma * eye
+    K[..., :n, n:] = AbT
+    K[..., n:, :n] = Ab
+    K[..., n:, n:] = torch.diag_embed(-1.0 / rho_v)
     return torch.linalg.inv(K)
+
+
+class DensePrep(NamedTuple):
+    """A batch of dense QPs after the prepare stage (batch-leading): the
+    scaled problem, its Ruiz scalings, per-row rho and the operator."""
+
+    Pb: torch.Tensor  # (B, n, n) c D P D
+    qb: torch.Tensor  # (B, n) c D q
+    Ab: torch.Tensor  # (B, m, n) E A D
+    lb: torch.Tensor  # (B, m) E l
+    ub: torch.Tensor  # (B, m) E u
+    D: torch.Tensor  # (B, n)
+    E: torch.Tensor  # (B, m)
+    c: torch.Tensor  # (B,)
+    rho_v: torch.Tensor  # (B, m)
+    OP: torch.Tensor  # (B, n, n) condensed or (B, n+m, n+m) KKT inverse
+
+
+def prepare_dense(P, q, A, l, u, settings: ADMMSettings) -> DensePrep:
+    """Equilibrate, choose per-row rho and factor each problem of a batch
+    (``l <= u`` already)."""
+    st = settings
+    dtype, dev = P.dtype, P.device
+    Pb, qb, Ab, D, E, c = ruiz_equilibrate(P, q, A, st.scaling_iters)
+    lb = E * l
+    ub = E * u
+    rho_v = _rho_vec(lb, ub, torch.as_tensor(st.rho, dtype=dtype, device=dev))
+    OP = _factor(Pb, Ab, rho_v, torch.as_tensor(st.sigma, dtype=dtype, device=dev), st.method)
+    return DensePrep(Pb, qb, Ab, lb, ub, D, E, c, rho_v, OP)
 
 
 def admm_solve(
@@ -256,70 +309,85 @@ def admm_solve(
 ) -> QPSolution:
     """Solve one QP on the device of ``P``.  All arrays dense; use IEEE
     +-inf for absent bounds.  ``x0``/``y0`` warm-start the iteration (OSQP
-    ``warm_start``)."""
+    ``warm_start``).  A batch of one through :func:`admm_solve_batch`
+    (with ``backend="pallas"``, one scenario in the device-loop kernel)."""
+    one = lambda a: None if a is None else a[None]  # noqa: E731
+    sol = admm_solve_batch(P[None], q[None], A[None], l[None], u[None], settings,
+                           one(x0), one(y0))
+    return QPSolution(*(f[0] for f in sol))
+
+
+def admm_solve_batch(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    A: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    settings: ADMMSettings = ADMMSettings(),
+    x0: Optional[torch.Tensor] = None,
+    y0: Optional[torch.Tensor] = None,
+) -> QPSolution:
+    """Solve B independent QPs, ``P (B, n, n)``, ``q (B, n)``, ``A (B, m, n)``,
+    ``l``/``u (B, m)``, warm starts ``x0 (B, n)``/``y0 (B, m)``: the port's
+    ``jax.vmap(admm_solve)``.  Returns a :class:`QPSolution` with leading
+    batch dims (``iters (B,)`` int32).
+
+    Each scenario follows its own unbatched solve: its own iteration count,
+    flags, residuals, adaptive rho (only the scenarios whose rule triggers
+    are refactored) and polish; a scenario that has stopped keeps its
+    iterates while the loop runs until every scenario has stopped.  The
+    loop conditions are read on the host once per check block
+    (``backend="xla"``) or kernel entry (``"pallas"``).
+    """
     st = settings
     require_highest_precision(st)
-    if st.backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' on the per-problem dense path is the device-loop "
-            "kernel, which is not ported yet (ROADMAP Queue B5)"
-        )
-    dtype, dev = P.dtype, P.device
-    n = P.shape[0]
-    m = A.shape[0]
+    if st.backend == "pallas" and st.method != "condensed":
+        raise ValueError("backend='pallas' requires method='condensed'")
+    dtype = P.dtype
     q, A, u = q.to(dtype), A.to(dtype), u.to(dtype)
     # Guard against inverted bounds from float noise.
     l = torch.minimum(l.to(dtype), u)
+    prep = prepare_dense(P, q, A, l, u, st)
+    return _iterate_dense(prep, P, q, A, l, u, st, x0, y0)
+
+
+def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> QPSolution:
+    """The iteration loops of :func:`admm_solve_batch` on prepared problems;
+    ``P, q, A, l, u`` are the unscaled problems, for the certificates."""
+    Pb, qb, Ab, lb, ub, D, E, c, rho_v, OP = prep
+    dtype, dev = Pb.dtype, Pb.device
+    B, n = qb.shape
+    m = Ab.shape[-2]
+    inf = float("inf")
 
     def scalar(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
 
     sigma = scalar(st.sigma)
     alpha = scalar(st.alpha)
-    inf = scalar(float("inf"))
-
-    Pb, qb, Ab, D, E, c = ruiz_equilibrate(P, q, A, st.scaling_iters)
-    lb = E * l
-    ub = E * u
-    rho_v = _rho_vec(lb, ub, scalar(st.rho))
-    OP = _factor(Pb, Ab, rho_v, sigma, st.method)
-
-    x = torch.zeros((n,), dtype=dtype, device=dev) if x0 is None else x0.to(dtype) / D
-    y = torch.zeros((m,), dtype=dtype, device=dev) if y0 is None else c * y0.to(dtype) / E
-    z = torch.minimum(torch.maximum(Ab @ x, lb), ub)
+    AbT = Ab.transpose(-1, -2)
     Einv = 1.0 / E
     Dinv = 1.0 / D
     cinv = 1.0 / c
 
-    def one_iter(x, z, y, rho_v, OP):
-        if st.method == "condensed":
-            rhs = sigma * x - qb + Ab.T @ (rho_v * z - y)
-            xt = OP @ rhs
-            zt = Ab @ xt
-        else:
-            rhs = torch.cat([sigma * x - qb, z - y / rho_v])
-            sol = OP @ rhs
-            xt = sol[:n]
-            zt = z + (sol[n:] - y) / rho_v
-        x_new = alpha * xt + (1 - alpha) * x
-        z_relaxed = alpha * zt + (1 - alpha) * z
-        z_new = torch.minimum(torch.maximum(z_relaxed + y / rho_v, lb), ub)
-        y_new = y + rho_v * (z_relaxed - z_new)
-        return x_new, z_new, y_new
+    x = torch.zeros((B, n), dtype=dtype, device=dev) if x0 is None else x0.to(dtype) / D
+    y = (torch.zeros((B, m), dtype=dtype, device=dev) if y0 is None
+         else c[:, None] * y0.to(dtype) / E)
+    z = torch.minimum(torch.maximum(_mv(Ab, x), lb), ub)
 
     def amax(v):
-        return v.abs().max()
+        return v.abs().amax(dim=-1)
 
     def residuals(x, z, y):
-        Ax = Ab @ x
-        Px = Pb @ x
-        Aty = Ab.T @ y
-        zero = scalar(0.0)
+        Ax = _mv(Ab, x)
+        Px = _mv(Pb, x)
+        Aty = _mv(AbT, y)
+        zero = torch.zeros((B,), dtype=dtype, device=dev)
         r_prim = amax((Ax - z) * Einv) if m else zero
         r_dual = cinv * amax((Px + qb + Aty) * Dinv)
         max_prim = torch.maximum(amax(Ax * Einv), amax(z * Einv)) if m else zero
         max_dual = cinv * torch.maximum(
-            torch.maximum(amax(Aty * Dinv) if m else zero, amax(Px * Dinv)), amax(qb * Dinv)
+            torch.maximum(amax(Aty * Dinv), amax(Px * Dinv)), amax(qb * Dinv)
         )
         eps_pri = st.eps_abs + st.eps_rel * max_prim
         eps_dua = st.eps_abs + st.eps_rel * max_dual
@@ -339,85 +407,179 @@ def admm_solve(
             # blocks certification.
             t_u = torch.where(dy_p > 0, u * dy_p, torch.zeros_like(u))
             t_l = torch.where(dy_m < 0, l * dy_m, torch.zeros_like(l))
-            support = torch.sum(t_u + t_l)
-            n_Atdy = amax(A.T @ dy_u)
-            prim_inf = bool(
+            support = torch.sum(t_u + t_l, dim=-1)
+            n_Atdy = amax(_mv(A.transpose(-1, -2), dy_u))
+            prim_inf = (
                 (ndy > tiny)
                 & (support < -st.eps_prim_inf * ndy)
                 & (n_Atdy < st.eps_prim_inf * ndy)
             )
         else:
-            prim_inf = False
+            prim_inf = torch.zeros((B,), dtype=torch.bool, device=dev)
         ndx = amax(dx_u)
         thr = st.eps_dual_inf * ndx
-        cond = (ndx > tiny) & ((q @ dx_u) < -thr) & (amax(P @ dx_u) < thr)
+        dual_inf = (
+            (ndx > tiny)
+            & (torch.sum(q * dx_u, dim=-1) < -thr)
+            & (amax(_mv(P, dx_u)) < thr)
+        )
         if m:
-            Adx = A @ dx_u
-            cond = cond & torch.all((u >= inf) | (Adx < thr)) & torch.all((l <= -inf) | (Adx > -thr))
-        return prim_inf, bool(cond)
+            Adx = _mv(A, dx_u)
+            t = thr[:, None]
+            dual_inf = (dual_inf & torch.all((u >= inf) | (Adx < t), dim=-1)
+                        & torch.all((l <= -inf) | (Adx > -t), dim=-1))
+        return prim_inf, dual_inf
 
-    # Round-based iteration: rho (and the factorization) are constant for
-    # one adaptation interval, adaptation happens BETWEEN rounds.
+    def certify(x, y, x_old, y_old, done):
+        if not st.check_infeasibility:
+            return None
+        pinf, dinf = infeasibility_certificates(
+            D * (x - x_old), E * (y - y_old) / c[:, None]
+        )
+        return pinf & ~done, dinf & ~done
+
     adaptive = st.adaptive_rho and m > 0
+
+    def adapt_rho(rho_v, OP, r_prim, r_dual, max_prim, max_dual, may):
+        """OSQP adaptive rho per scenario: rescale by sqrt(relative residual
+        ratio) and refactor the scenarios whose change crosses the
+        tolerance (``may``: still running and not converged)."""
+        num = r_prim / torch.clamp(max_prim, min=1e-10)
+        den = r_dual / torch.clamp(max_dual, min=1e-10)
+        scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-10)), 1e-3, 1e3)
+        trigger = may & (
+            (scale > st.adaptive_rho_tolerance) | (scale < 1.0 / st.adaptive_rho_tolerance)
+        )
+        if bool(trigger.any()):
+            idx = trigger.nonzero().squeeze(1)
+            new_rho = torch.clamp(rho_v[idx] * scale[idx, None], _RHO_MIN, _RHO_MAX)
+            rho_v = rho_v.index_put((idx,), new_rho)
+            OP = OP.index_put((idx,), _factor(Pb[idx], Ab[idx], new_rho, sigma, st.method))
+        return rho_v, OP
+
+    # Rho (and the factorization) are constant for one adaptation
+    # interval; adaptation happens BETWEEN rounds.
+    ce = st.check_every
     if adaptive:
-        interval = max(st.adaptive_rho_interval, st.check_every)
-        interval = -(-interval // st.check_every) * st.check_every
+        interval = max(st.adaptive_rho_interval, ce)
+        interval = -(-interval // ce) * ce
     else:
         interval = st.max_iter
 
-    it = 0
-    done = pinf = dinf = False
-    r_prim = r_dual = inf
-    while it < st.max_iter and not (done or pinf or dinf):
-        k = 0
-        max_prim = max_dual = inf
-        while k < interval and it + k < st.max_iter and not (done or pinf or dinf):
-            x_old, y_old = x, y
-            for _ in range(st.check_every):
-                x, z, y = one_iter(x, z, y, rho_v, OP)
-            r_prim, r_dual, eps_pri, eps_dua, max_prim, max_dual = residuals(x, z, y)
-            done = bool((r_prim <= eps_pri) & (r_dual <= eps_dua))
-            if st.check_infeasibility:
-                pinf, dinf = infeasibility_certificates(D * (x - x_old), E * (y - y_old) / c)
-                pinf = pinf and not done
-                dinf = dinf and not done
-            k += st.check_every
-        it += k
-        if adaptive:
-            # OSQP adaptive rho: rescale by sqrt(relative residual ratio)
-            # and refactor when the change crosses the tolerance.
-            num = r_prim / torch.clamp(max_prim, min=1e-10)
-            den = r_dual / torch.clamp(max_dual, min=1e-10)
-            scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-10)), 1e-3, 1e3)
-            trigger = bool(
-                (scale > st.adaptive_rho_tolerance) | (scale < 1.0 / st.adaptive_rho_tolerance)
+    def pick(mask, new, old):
+        return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
+
+    it = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    pinf = torch.zeros_like(done)
+    dinf = torch.zeros_like(done)
+    r_prim = torch.full((B,), inf, dtype=dtype, device=dev)
+    r_dual = r_prim.clone()
+
+    if st.backend == "pallas":
+        # One kernel entry per round (the whole budget without adaptive
+        # rho); residuals, certificates and adaptive rho in torch between
+        # entries.  The round condition is tested between entries only: a
+        # scenario the kernel stopped on its own test that the residuals
+        # here find not done gets a fresh interval.
+        while True:
+            act = (it < st.max_iter) & ~(done | pinf | dinf)
+            if not bool(act.any()):
+                break
+            # The kernel takes row-major arrays (torch.linalg.inv returns
+            # column-major ones); contiguous() is free for the others.
+            ops = [t.contiguous() for t in (OP, Ab, Pb, qb, lb, ub, rho_v, Dinv, Einv, cinv)]
+            xs, ys, zs, kit = admm_device_loop(
+                *ops, st.sigma, st.alpha, st.eps_abs, st.eps_rel,
+                x.contiguous(), y.contiguous(), max_iter=interval, check_every=ce,
             )
-            if trigger and not done:
-                rho_v = torch.clamp(rho_v * scale, _RHO_MIN, _RHO_MAX)
-                OP = _factor(Pb, Ab, rho_v, sigma, st.method)
+            _iterate_dense.entries += 1
+            rp, rd, eps_pri, eps_dua, mp, md = residuals(xs, zs, ys)
+            done_n = (rp <= eps_pri) & (rd <= eps_dua)
+            certs = certify(xs, ys, x, y, done_n)
+            if certs is not None:
+                pinf, dinf = pick(act, certs[0], pinf), pick(act, certs[1], dinf)
+            if adaptive:
+                rho_v, OP = adapt_rho(rho_v, OP, rp, rd, mp, md, act & ~done_n)
+            x, y, z = pick(act, xs, x), pick(act, ys, y), pick(act, zs, z)
+            done = pick(act, done_n, done)
+            r_prim, r_dual = pick(act, rp, r_prim), pick(act, rd, r_dual)
+            it = it + torch.where(act, kit, torch.zeros_like(kit))
+    else:
+        def one_iter(x, z, y, rho_v, OP):
+            if st.method == "condensed":
+                rhs = sigma * x - qb + _mv(AbT, rho_v * z - y)
+                xt = _mv(OP, rhs)
+                zt = _mv(Ab, xt)
+            else:
+                rhs = torch.cat([sigma * x - qb, z - y / rho_v], dim=-1)
+                sol = _mv(OP, rhs)
+                xt = sol[:, :n]
+                zt = z + (sol[:, n:] - y) / rho_v
+            x_new = alpha * xt + (1 - alpha) * x
+            z_relaxed = alpha * zt + (1 - alpha) * z
+            z_new = torch.minimum(torch.maximum(z_relaxed + y / rho_v, lb), ub)
+            y_new = y + rho_v * (z_relaxed - z_new)
+            return x_new, z_new, y_new
+
+        while True:
+            outer = (it < st.max_iter) & ~(done | pinf | dinf)
+            if not bool(outer.any()):
+                break
+            # One round per scenario: whole check blocks while k < interval,
+            # it + k < max_iter and the scenario has not stopped.
+            k = torch.zeros_like(it)
+            rp = torch.full((B,), inf, dtype=dtype, device=dev)
+            rd, mp, md = rp.clone(), rp.clone(), rp.clone()
+            while True:
+                inner = outer & (k < interval) & (it + k < st.max_iter) & ~(done | pinf | dinf)
+                if not bool(inner.any()):
+                    break
+                xs, zs, ys = x, z, y
+                for _ in range(ce):
+                    xs, zs, ys = one_iter(xs, zs, ys, rho_v, OP)
+                rp_n, rd_n, eps_pri, eps_dua, mp_n, md_n = residuals(xs, zs, ys)
+                done_n = (rp_n <= eps_pri) & (rd_n <= eps_dua)
+                certs = certify(xs, ys, x, y, done_n)
+                if certs is not None:
+                    pinf, dinf = pick(inner, certs[0], pinf), pick(inner, certs[1], dinf)
+                x, z, y = pick(inner, xs, x), pick(inner, zs, z), pick(inner, ys, y)
+                done = pick(inner, done_n, done)
+                rp, rd = pick(inner, rp_n, rp), pick(inner, rd_n, rd)
+                mp, md = pick(inner, mp_n, mp), pick(inner, md_n, md)
+                k = k + ce * inner.to(k.dtype)
+            it = it + k
+            r_prim, r_dual = pick(outer, rp, r_prim), pick(outer, rd, r_dual)
+            if adaptive:
+                rho_v, OP = adapt_rho(rho_v, OP, rp, rd, mp, md, outer & ~done)
 
     if st.polish and m:
         x, y, z, r_prim, r_dual = _polish(
             Pb, qb, Ab, lb, ub, x, y, z, r_prim, r_dual, residuals, st
         )
 
-    flag = lambda b: torch.as_tensor(b, dtype=torch.bool, device=dev)  # noqa: E731
     # Unscale: x = D xbar, y = E ybar / c, z = zbar / E.
     return QPSolution(
         x=D * x,
-        y=E * y / c,
+        y=E * y / c[:, None],
         z=z / E,
-        iters=torch.as_tensor(it, dtype=torch.int32, device=dev),
-        converged=flag(done),
+        iters=it,
+        converged=done,
         r_prim=r_prim,
         r_dual=r_dual,
-        prim_inf=flag(pinf),
-        dual_inf=flag(dinf),
+        prim_inf=pinf,
+        dual_inf=dinf,
     )
 
 
+# Kernel entries the "pallas" loop has made (each one device-loop launch
+# on the card).
+_iterate_dense.entries = 0
+
+
 def _polish(Pb, qb, Ab, lb, ub, x, y, z, r_prim, r_dual, residuals, st):
-    """OSQP solution polishing (masked active-set KKT re-solve).
+    """OSQP solution polishing (masked active-set KKT re-solve), for each
+    problem of a batch.
 
     Active rows are those where the ADMM iterate sits on a bound with the
     matching dual sign (OSQP ``polish.c`` semantics).  The KKT system is
@@ -429,8 +591,8 @@ def _polish(Pb, qb, Ab, lb, ub, x, y, z, r_prim, r_dual, residuals, st):
     One iterative-refinement step against the unregularized system follows;
     the polished point is accepted only if it improves both residuals.
     """
-    n = Pb.shape[0]
-    m = Ab.shape[0]
+    n = Pb.shape[-1]
+    m = Ab.shape[-2]
     dtype, dev = Pb.dtype, Pb.device
     delta = st.polish_delta
     lower_active = y < 0.0
@@ -439,23 +601,26 @@ def _polish(Pb, qb, Ab, lb, ub, x, y, z, r_prim, r_dual, residuals, st):
     b_act = torch.where(upper_active, ub, torch.where(lower_active, lb, torch.zeros_like(lb)))
     S = active.to(dtype)
 
-    SA = S[:, None] * Ab
-    K = torch.zeros((n + m, n + m), dtype=dtype, device=dev)
-    K[:n, :n] = Pb + delta * torch.eye(n, dtype=dtype, device=dev)
-    K[:n, n:] = SA.T
-    K[n:, :n] = SA
-    K[n:, n:] = torch.diag(S - 1.0 - delta)
-    rhs = torch.cat([-qb, S * b_act])
+    SA = S[..., :, None] * Ab
+    K = torch.zeros(Pb.shape[:-2] + (n + m, n + m), dtype=dtype, device=dev)
+    K[..., :n, :n] = Pb + delta * torch.eye(n, dtype=dtype, device=dev)
+    K[..., :n, n:] = SA.transpose(-1, -2)
+    K[..., n:, :n] = SA
+    K[..., n:, n:] = torch.diag_embed(S - 1.0 - delta)
+    rhs = torch.cat([-qb, S * b_act], dim=-1)
     Kinv = torch.linalg.inv(K)
-    sol = Kinv @ rhs
+    sol = _mv(Kinv, rhs)
     # One iterative-refinement step vs the unregularized KKT operator.
     K0 = K - delta * torch.eye(n + m, dtype=dtype, device=dev)
-    sol = sol + Kinv @ (rhs - K0 @ sol)
+    sol = sol + _mv(Kinv, rhs - _mv(K0, sol))
 
-    x_p = sol[:n]
-    y_p = torch.where(active, sol[n:], torch.zeros_like(y))
-    z_p = torch.minimum(torch.maximum(Ab @ x_p, lb), ub)
+    x_p = sol[..., :n]
+    y_p = torch.where(active, sol[..., n:], torch.zeros_like(y))
+    z_p = torch.minimum(torch.maximum(_mv(Ab, x_p), lb), ub)
     rp_p, rd_p, _, _, _, _ = residuals(x_p, z_p, y_p)
-    if bool((rp_p <= r_prim) & (rd_p <= r_dual)):
-        return x_p, y_p, z_p, rp_p, rd_p
-    return x, y, z, r_prim, r_dual
+    better = (rp_p <= r_prim) & (rd_p <= r_dual)
+    b1 = better[..., None]
+    return (
+        torch.where(b1, x_p, x), torch.where(b1, y_p, y), torch.where(b1, z_p, z),
+        torch.where(better, rp_p, r_prim), torch.where(better, rd_p, r_dual),
+    )

@@ -8,7 +8,7 @@ across calls from the persisted iterate (the incoming ``x0`` is ignored,
 as in the reference); the optional ``||alpha*dx|| < tol`` early exit that
 freezes the iterate.
 
-Three QP paths, all on the reduced formulation, each a Python step loop
+Four QP paths, all on the reduced formulation, each a Python step loop
 that enqueues device work:
 
 * **banded** (``method="banded"``, stage-structured problems): per step the
@@ -22,14 +22,18 @@ that enqueues device work:
   probing whether ``(H, A)`` depend on the point): ``solve_batch_fn``
   factors one operator for the whole batch and all steps
   (``admm_batched.py``) and maps only the per-scenario vectors with
-  ``torch.func.vmap``.
+  ``torch.func.vmap``;
+* **dense, per scenario** (the same methods on any other problem without a
+  stage structure): ``solve_batch_dense_fn``, the port of
+  ``jax.vmap(solve_fn)``, maps the dense assembly with ``torch.func.vmap``
+  and solves the batch of local QPs with ``admm_solve_batch`` (with
+  ``backend="pallas"``, one launch of the device-loop kernel per step).
 
 Not ported yet (``ROADMAP.md`` Queue A), each raising
 ``NotImplementedError``: the augmented formulation and the ``parity``
 preset (A8d), the merit line search (A6), dense methods on stage-wise
-local-system parts (A8b) and ``Sym`` expression costs (A5).  A batch of a
-problem that is neither stage-structured nor shared-system has no batch
-function here (the per-scenario dense batch path, A8b / kernel B5).
+local-system parts (A8b: their dense ``(H, A)`` assembly) and ``Sym``
+expression costs (A5).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..sym import Sym
-from .admm import ADMMSettings, admm_solve
+from .admm import ADMMSettings, admm_solve, admm_solve_batch
 
 __all__ = [
     "SQPOptions",
@@ -233,8 +237,9 @@ class SQPOptimizationSolver:
     """Stateful solver with the reference-parity API.
 
     The functional cores: ``solve_fn`` (one scenario), and for a batch
-    (batch-leading arguments) ``solve_batch_fn`` (shared-system problems)
-    or ``solve_batch_banded_fn`` (``method="banded"``); ``BatchedSolver``
+    (batch-leading arguments) ``solve_batch_fn`` (shared-system problems),
+    ``solve_batch_banded_fn`` (``method="banded"``) or
+    ``solve_batch_dense_fn`` (every other problem); ``BatchedSolver``
     drives the batch ones.
     """
 
@@ -313,6 +318,10 @@ class SQPOptimizationSolver:
         # Batch-native banded path: the whole scenario batch iterates inside
         # the fused batch-last chunk kernel (admm_banded_batch.py).
         self.solve_batch_banded_fn = self._build_solve_banded_batch_fn() if banded else None
+        # Per-scenario dense batch path: each scenario's own local QP.
+        self.solve_batch_dense_fn = (
+            None if banded or self.shared_system else self._build_solve_dense_batch_fn()
+        )
         self.last_result = None
         self.reset()
 
@@ -483,6 +492,65 @@ class SQPOptimizationSolver:
                 hist.append((f_b(x, p), qp_it, step_norm, sol.converged, sol.prim_inf,
                              sol.dual_inf, took))
             return _result(x, qpx, qpy, hist)
+
+        return solve_batch
+
+    def _build_solve_dense_batch_fn(self):
+        """Batched solve on each scenario's own dense local QP: the port of
+        ``jax.vmap(solve_fn)``.
+
+        Signature: ``(x (B,nx), p (B,np), lbx (B,nx), ubx, lbg (B,ng), ubg,
+        qp_x (B,qn), qp_y (B,qm)) -> SQPResult`` shaped as JAX's vmapped
+        result, batch-leading (``f_history``, ``qp_iters``, ``step_norms``
+        and the status flags ``(B, step_num)``, ``steps_taken (B,)``).  Per
+        step: ``torch.func.vmap`` of the dense assembly, then
+        :func:`.admm.admm_solve_batch`.
+        """
+        opt = self.options
+        dtype = opt.dtype
+        matrices, _, vectors, stack_bounds = self._parts
+        matrices_b = torch.func.vmap(matrices)
+        vectors_b = torch.func.vmap(vectors)
+        f_b = torch.func.vmap(self.f_fn)
+        step = self._make_step_rule()
+        early, tol = self._early_exit()
+
+        def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
+            x = x_init.to(dtype)
+            p = p.to(dtype)
+            lower, upper = stack_bounds(p, lbx, ubx, lbg, ubg)
+            qpx, qpy = qp_x0, qp_y0
+            stop = torch.zeros((x.shape[0],), dtype=torch.bool, device=x.device)
+            hist = []
+            for _ in range(opt.max_iter):
+                H, A = matrices_b(x, p)
+                grad, cval = vectors_b(x, p)
+                sol = admm_solve_batch(
+                    H, grad, A, lower - cval, upper - cval, opt.admm,
+                    x0=qpx if opt.qp_warm_start else None,
+                    y0=qpy if opt.qp_warm_start else None,
+                )
+                x_new, step_norm = step(x, sol.x)
+                qp_it = sol.iters
+                if early:
+                    # Per-scenario freeze after ||alpha*dx|| < tol.
+                    x_new = torch.where(stop[:, None], x, x_new)
+                    qpx = torch.where(stop[:, None], qpx, sol.x)
+                    qpy = torch.where(stop[:, None], qpy, sol.y)
+                    qp_it = torch.where(stop, torch.zeros_like(qp_it), qp_it)
+                    step_norm = torch.where(stop, torch.zeros_like(step_norm), step_norm)
+                    took = ~stop
+                    stop = stop | (step_norm < tol)
+                else:
+                    qpx, qpy = sol.x, sol.y
+                    took = torch.ones_like(stop)
+                x = x_new
+                hist.append((f_b(x, p), qp_it, step_norm, sol.converged, sol.prim_inf,
+                             sol.dual_inf, took))
+            res = _result(x, qpx, qpy, hist)
+            per_step = ("f_history", "qp_iters", "step_norms", "qp_converged",
+                        "qp_prim_inf", "qp_dual_inf")
+            return res._replace(**{k: getattr(res, k).T for k in per_step})
 
         return solve_batch
 

@@ -223,9 +223,14 @@ def test_infeasibility_certificates_match_jax(name):
 
 
 def test_unported_variants_raise():
+    """backend="pallas" now solves (the device loop with a batch of one;
+    iterates as the "xla" loop's to 2e-3, as in tests/test_pallas_admm.py);
+    the precision variants still raise."""
     qp = [t32(a) for a in random_qp(0)]
-    with pytest.raises(NotImplementedError, match="B5"):
-        tadmm.admm_solve(*qp, TSET.replace(backend="pallas", method="condensed"))
+    ker = tadmm.admm_solve(*qp, TSET.replace(backend="pallas", method="condensed"))
+    ref = tadmm.admm_solve(*qp, TSET.replace(method="condensed"))
+    assert bool(ker.converged) and ker.x.shape == (8,) and ker.iters.shape == ()
+    np.testing.assert_allclose(ker.x.numpy(), ref.x.numpy(), atol=2e-3)
     with pytest.raises(NotImplementedError, match="A8c"):
         tadmm.admm_solve(*qp, TSET.replace(precision="high"))
     with pytest.raises(NotImplementedError, match="A8c"):

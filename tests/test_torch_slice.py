@@ -18,6 +18,14 @@ package rules.
   1e-3) are held to 0.1: the termination test sits on a knife edge there
   (JAX's own two backends stop at different counts and end 3.3e-2 apart on
   an acceleration; ROADMAP Queue C).
+* Batched cart-pole h6 ticks without a stage structure (the per-scenario
+  dense batch path, JAX: ``jax.vmap`` of ``solve_fn``; B=3, step_num 3,
+  the ``cartpole_h20_pallas`` bench settings) in both packages and on both
+  backends (``"pallas"``: JAX's device-loop kernel in interpret mode
+  against the port's plain device loop): trajectories within 5e-3, equal
+  flags, equal per-scenario ``qp_iters`` under a forced budget and at the
+  warm tick; ``compute_optimal_trajectory`` on ``"pallas"`` gives the
+  batched tick's scenario 0.
 * The entry points run on the GPU unless told ``device="cpu"``, and raise
   when there is none.
 * No module of the port, and no line of ``chip_smoke.py``, imports JAX or
@@ -248,20 +256,86 @@ def test_shared_system_detection_and_batch_routing():
     """(H, A) of the double integrator do not depend on the point: the
     solver builds the shared-factorization batch function and
     ``BatchedSolver`` takes it.  Cart-pole's dense NLP functions do depend
-    on it: no batch function, and a batch raises instead of looping."""
+    on it: ``BatchedSolver`` takes the per-scenario dense batch function."""
     di = tdi.build(di_config(tdi, "xla", H=5, step_num=1), device="cpu")
     assert di.solver.shared_system is True
     assert di.solver.solve_batch_fn is not None and di.solver.solve_batch_banded_fn is None
+    assert di.solver.solve_batch_dense_fn is None
     assert BatchedSolver(di, device="cpu")._solve_batch is di.solver.solve_batch_fn
     assert jdi.build(di_config(jdi, "xla", H=5, step_num=1)).solver.shared_system is True
     cp = tcp.build(tcp.make_config(horizon=4, step_num=1, formulation="reduced"),
                    stagewise=False, device="cpu")
     assert cp.solver.shared_system is False and cp.solver.solve_batch_fn is None
-    with pytest.raises(NotImplementedError, match="B5"):
-        BatchedSolver(cp, device="cpu")
+    assert cp.solver.solve_batch_banded_fn is None
+    assert BatchedSolver(cp, device="cpu")._solve_batch is cp.solver.solve_batch_dense_fn
     banded = tcp.build(config(tcp, H=4, step_num=1), stagewise=True, device="cpu")
-    assert banded.solver.shared_system is False
+    assert banded.solver.shared_system is False and banded.solver.solve_batch_dense_fn is None
     assert BatchedSolver(banded, device="cpu")._solve_batch is banded.solver.solve_batch_banded_fn
+
+
+# The JAX bench's cartpole_h20_pallas settings (bench_models.py:257-283);
+# the backend is added per case.
+DENSE_ADMM = {"method": "condensed", "max_iter": 500, "adaptive_rho": False, "rho": 0.05}
+
+
+def dense_config(module, backend, H=6, step_num=3, **admm):
+    return module.make_config(horizon=H, dt=0.02, alpha=0.3, step_num=step_num,
+                              formulation="reduced",
+                              ADMM_settings={**DENSE_ADMM, "backend": backend, **admm})
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("forced", [False, True], ids=["bench", "forced"])
+def test_cartpole_dense_tick_matches_jax(backend, forced):
+    """The per-scenario dense batch path (cart-pole without a stage
+    structure; JAX: ``jax.vmap`` of ``solve_fn``), H=6, B=3, step_num 3,
+    two ticks from the same state in both packages: trajectories within
+    5e-3, objectives to rtol 1e-3, equal flags.  Under a forced budget
+    (eps 0, max_iter 60: every QP runs whole check blocks to 75) the
+    per-scenario ``qp_iters`` are equal; at the bench's eps 1e-3 they are
+    compared at the warm tick, where every QP stops at its first check."""
+    B = 3
+    frames, refs = frames_refs(B)
+    kw = dict(eps_abs=0.0, eps_rel=0.0, max_iter=60, check_infeasibility=False) if forced else {}
+    jb = JBatchedSolver(jcp.build(dense_config(jcp, backend, **kw)))
+    tb = BatchedSolver(tcp.build(dense_config(tcp, backend, **kw), device="cpu"), device="cpu")
+    jst = jb.init_state(B)
+    tst = batch_state_from_numpy(jst._asdict(), device="cpu")
+    assert tst.qp_x.shape == (B, 30) and tst.qp_y.shape == (B, 30 + 26)
+    for _ in range(2):
+        jx, jf, jst = jb.solve(frames, refs, jst)
+        tx, tf, tst = tb.solve(frames, refs, tst)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=5e-3)
+        np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-3)
+        tres, jres = tb.last_result, jb.last_result
+        for name in ("qp_converged", "qp_prim_inf", "qp_dual_inf"):
+            np.testing.assert_array_equal(getattr(tres, name).numpy(),
+                                          np.asarray(getattr(jres, name)), err_msg=name)
+    assert np.isfinite(tx.numpy()).all()
+    assert tres.f_history.shape == tres.qp_iters.shape == (B, 3)
+    assert tres.steps_taken.tolist() == [3] * B
+    np.testing.assert_array_equal(tres.qp_iters.numpy(), np.asarray(jres.qp_iters))
+    if forced:
+        assert (tres.qp_iters == 75).all() and not bool(tres.qp_converged.any())
+    else:
+        assert bool(tres.qp_converged.all()) and (tres.qp_iters == 25).all()
+
+
+def test_cartpole_dense_per_problem_pallas_matches_batched():
+    """compute_optimal_trajectory on the "pallas" backend (the device loop
+    with a batch of one) gives the batched tick's scenario 0, and the
+    batch went through the device loop once per SQP step."""
+    from optimal_control_problem_tpu_torch.solvers import admm as tadmm
+
+    frames, refs = frames_refs(2, seed=3)
+    ocp = tcp.build(dense_config(tcp, "pallas"), device="cpu")
+    ocp.compute_optimal_trajectory(frames[0], refs[0])
+    one = ocp.get_optimal_trajectory().numpy()
+    b = BatchedSolver(tcp.build(dense_config(tcp, "pallas"), device="cpu"), device="cpu")
+    before = tadmm._iterate_dense.entries
+    tx, _, _ = b.solve(frames, refs, b.init_state(2))
+    assert tadmm._iterate_dense.entries - before == 3
+    np.testing.assert_allclose(one, tx[0].numpy(), atol=5e-3)
 
 
 # The JAX bench's double-integrator settings (bench.py:109-124).
