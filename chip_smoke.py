@@ -24,7 +24,11 @@ Phases:
      dense tick's own inputs (a forced budget of 60 with check_every 25,
      the first SQP step of a cold tick, a later step whose scenarios stop
      at different counts, one scenario alone) and on a QP with +-inf
-     bounds and equality rows;
+     bounds and equality rows; the cyclic-reduction chunk at quadrotor
+     shapes (N=100, w=16, r=12, r2=1) at B=64 (a forced budget of 41 with
+     check_every 2, entry counts near it and every fifth scenario frozen
+     at entry; converging), at cart-pole shapes (B=1024), at the odd
+     horizons N=7 and N=25 and at N=2 (w=16);
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
      B=1024 through ``BatchedSolver`` (2 warm-up + 5 timed ticks), checking
      the launch counts, finite trajectories, and that each warm tick lowers
@@ -41,15 +45,23 @@ Phases:
      B=256, with backend="pallas" (the dense device-loop kernel) and the
      same checks, then the same ticks with backend="xla" (the torch.matmul
      loop), tick by tick from the same state;
+  4e. the cyclic-reduction banded path: the quadrotor h100 tick with
+     ``banded_solver: "cr"`` at B=64 and B=8 (the cyclic-reduction chunk
+     kernel) with the same checks, then the same ticks with
+     ``banded_solver: "thomas"`` (the rolled chunk), tick by tick from the
+     same state: both medians and the largest trajectory gap (findings,
+     not gates);
   5. the cart-pole tick at B=64 on the card and on the CPU (plain chunk)
      agree; 5b. the quadrotor h100 tick at B=8 likewise; 5c. the double
      integrator tick at B=64 likewise; 5d. the dense cart-pole tick at B=4
-     over 3 ticks likewise;
+     over 3 ticks likewise; 5e. the quadrotor h100 CR tick at B=8 over 2
+     ticks likewise;
   6. time each kernel at its main path's own inputs beside its plain
      version and its bound (the rolled one also without its CR level, the
      shared one and the dense device loop also beside a loop of
      torch.matmul products; the device loop on a cold and on a
-     steady-state tick).
+     steady-state tick; the CR chunk at a steady B=64 and a B=8 tick beside
+     the rolled chunk on the very same inputs).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -80,6 +92,8 @@ SHARED_REPLACES = "optimal_control_problem_tpu/ops/shared_kernel.py:233"
 SHARED_SOURCE = "optimal_control_problem_tpu_torch/csrc/shared_chunk.cu"
 DEVLOOP_REPLACES = "optimal_control_problem_tpu/ops/admm_kernel.py:149"
 DEVLOOP_SOURCE = "optimal_control_problem_tpu_torch/csrc/admm_device_loop.cu"
+CR_REPLACES = "optimal_control_problem_tpu/ops/banded_cr_kernel.py:682"
+CR_SOURCE = "optimal_control_problem_tpu_torch/csrc/banded_cr_chunk.cu"
 
 MAIN_ADMM = {
     "method": "banded",
@@ -98,6 +112,10 @@ QUAD_ADMM = {
     "check_every": 2,
     "scaling_refresh": "tick",
 }
+
+
+# The same with the opt-in cyclic-reduction solver (phase 4e).
+QUAD_CR_ADMM = {**QUAD_ADMM, "banded_solver": "cr"}
 
 
 # The JAX bench's double-integrator settings (bench.py:109-124); the backend
@@ -216,6 +234,40 @@ def rolled_chunk_flops(N, w, r, r2, iters, checks, cr1):
     return assemble + factor + iters * per_iter + checks * per_check
 
 
+def cr_chunk_flops(N, w, r, r2, iters, checks):
+    """Arithmetic operations of one cyclic-reduction chunk launch for one
+    scenario (multiply and add each one), from ``cr_level_plan``: the
+    assembly and iteration terms of :func:`chunk_flops`; per level the
+    ``half`` odd-pivot inverses and the block products the elimination
+    needs (G_lo and G_lo LT_lo for the survivors above the first,
+    LT_odd dinv_odd and its product with L_odd for every survivor, and
+    when a level follows, G_lo^T and the two next-level couplings for the
+    survivors above the first) with the two subtractions per survivor; the
+    root inverse; per solve, down each level ``3 half - 1`` block-vector
+    products and the fold's subtractions, the root's, and up each level
+    the same again."""
+    from optimal_control_problem_tpu_torch.ops.banded_cr_kernel import cr_level_plan
+
+    n, nd = N * w, N - 1
+    m = n + nd * r + N * r2
+    gj = gj_flops(w)
+    mm = 2 * w**3
+    mv = 2 * w * w
+    levels, _, _ = cr_level_plan(N)
+    factor = gj
+    solve = mv
+    for _, _, half, _, _ in levels:
+        factor += half * gj + (2 * (half - 1) + 2 * half) * mm + 2 * half * w * w
+        if half > 1:
+            factor += 3 * (half - 1) * mm
+        solve += 2 * ((3 * half - 1) * mv + 2 * half * w)
+    a_x = 4 * nd * r * w + 2 * N * r2 * w
+    at_y = 4 * nd * r * w + 2 * N * r2 * w
+    per_iter = 5 * n + 2 * (m - n) + at_y + solve + a_x + 10 * m + 3 * n
+    per_check = a_x + 2 * N * w * w + at_y + 12 * m
+    return assemble_flops(N, w, r, r2) + factor + iters * per_iter + checks * per_check
+
+
 def shared_chunk_flops(n, m, iters, checks):
     """Arithmetic operations of one shared-operator chunk for one scenario
     (multiply and add each one): per iteration the three panel products
@@ -276,6 +328,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     from optimal_control_problem_tpu_torch.models import cartpole, double_integrator, quadrotor
     from optimal_control_problem_tpu_torch.ops import admm_kernel as ak
+    from optimal_control_problem_tpu_torch.ops import banded_cr_kernel as bck
     from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
     from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
     from optimal_control_problem_tpu_torch.ops import build
@@ -288,6 +341,7 @@ def main(argv) -> int:
     from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
     from optimal_control_problem_tpu_torch.solvers.admm_banded import BandedQP
 
+    t_start = time.perf_counter()
     profile = "--profile" in argv
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -407,10 +461,55 @@ def main(argv) -> int:
     log(f"phase 3: largest gap kernel vs plain: one-way {max_abs_err:.3g}, "
         f"rolled {rolled_err:.3g}")
 
+    # -- 3 (continued). the cyclic-reduction chunk vs its plain version ---
+    cr_err = 0.0
+
+    def check_cr(out_k, out_p, errs, label):
+        """Equal done/it_inc and every iterate within 1e-5 (both sum each
+        product as the same ascending chain without FMA contraction)."""
+        nonlocal cr_err
+        if not (torch.equal(out_k[7], out_p[7]) and torch.equal(out_k[8], out_p[8])):
+            raise SystemExit(f"phase 3 [{label}]: done/it_inc differ between kernel and plain")
+        gap = max(errs[k] for k in names[:7])
+        log(f"phase 3 [{label}]: it_inc {sorted(set(out_k[8].tolist()))[:10]}, converged "
+            f"{float((out_k[7] == 1).float().mean()):.4f}, largest iterate gap {gap:.3g} "
+            "(limit 1e-5)")
+        if not gap <= 1e-5:
+            raise SystemExit(f"phase 3 [{label}]: kernel and plain version disagree")
+        cr_err = max(cr_err, gap)
+
+    # A forced budget that is no multiple of check_every: one check block
+    # of 2 runs while it0 + kb < 41.
+    st_cforced = ADMMSettings(method="banded", eps_abs=0.0, eps_rel=0.0, max_iter=41,
+                              adaptive_rho=False, check_infeasibility=False, check_every=2)
+    Bc = 64
+    it0 = np.array([0, 10, 30, 36, 38, 39, 40, 41])[np.arange(Bc) % 8]
+    done0 = (np.arange(Bc) % 5 == 0).astype(np.int32)
+    label = "cr N=100 w=16 r=12 B=64"
+    out_k, out_p, errs = compare(bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
+                                 (100, 16, 12, 1, Bc), st_cforced,
+                                 f"{label}, forced budget 41, it0 up to 41, done0 every 5th",
+                                 None, it0, done0)
+    check_cr(out_k, out_p, errs, f"{label}, frozen")
+    blocks = (np.clip(41 - it0, 0, None) + 1) // 2
+    if not torch.equal(out_k[8].cpu(), torch.as_tensor(
+            np.where(done0 == 1, 0, 2 * blocks).astype(np.int32))):
+        raise SystemExit(f"phase 3 [{label}]: iteration counts do not follow it0/done0")
+    out_k, out_p, errs = compare(bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
+                                 (100, 16, 12, 1, Bc), st_rconv, f"{label}, converging, eps 1e-3")
+    check_cr(out_k, out_p, errs, f"{label}, converging")
+    for shapes in ((20, 5, 4, 1, 1024), (7, 16, 12, 1, Bc), (25, 16, 12, 1, Bc),
+                   (2, 16, 12, 1, Bc)):
+        label = "cr N={} w={} r={} r2={} B={}".format(*shapes)
+        out_k, out_p, errs = compare(bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
+                                     shapes, st_cforced, f"{label}, forced budget 41")
+        check_cr(out_k, out_p, errs, label)
+    log(f"phase 3: largest gap kernel vs plain, cyclic-reduction chunk: {cr_err:.3g}")
+
     # Recording wrappers: each driver looks its kernels up on its own
     # module at every call, so these see whichever was dispatched.
     homes = {"banded_admm_chunk": abb, "banded_admm_chunk_rolled": abb, "shared_admm_chunk": tab,
-             "admm_device_loop": tadmm}
+             "admm_device_loop": tadmm, "banded_admm_chunk_cr": abb}
     captured = {k: [] for k in homes}
     real = {k: getattr(mod, k) for k, mod in homes.items()}
 
@@ -436,10 +535,12 @@ def main(argv) -> int:
         tab._admm_iterate_fused.chunks = 0
         ak.admm_device_loop.launches = 0
         tadmm._iterate_dense.entries = 0
+        bck.banded_admm_chunk_cr.launches = 0
 
     def counts():
         return (bk.banded_admm_chunk.launches, brk.banded_admm_chunk_rolled.launches,
-                sk.shared_admm_chunk.launches, ak.admm_device_loop.launches)
+                sk.shared_admm_chunk.launches, ak.admm_device_loop.launches,
+                bck.banded_admm_chunk_cr.launches)
 
     # -- 3 (continued). the shared-operator chunk vs its plain version ----
     H_di, dt_di, B_di = 20, 0.005, 4096
@@ -639,9 +740,9 @@ def main(argv) -> int:
     def drive(solver, frames, refs, ticks, label, expect_launches, pinned=False):
         """Run ``ticks`` ticks of one main path with the launch counts
         reset just before and read just after; check and report.
-        ``expect_launches``: the (one-way, rolled, shared, device-loop)
-        launch counts, or a function of the counted four that says whether
-        they are right.
+        ``expect_launches``: the (one-way, rolled, shared, device-loop,
+        cyclic-reduction) launch counts, or a function of the counted five
+        that says whether they are right.
 
         The frames are the same every tick, so each tick warm-starts the
         SQP from the last.  The plan's objective alone need not fall: as
@@ -682,13 +783,14 @@ def main(argv) -> int:
             defect.append(float(viol.mean()))  # mean l1 violation
         n = counts()
         log(f"{label}: {ticks} ticks: one-way launches {n[0]}, rolled launches {n[1]}, "
-            f"shared launches {n[2]}, device-loop launches {n[3]}, mean f by tick "
+            f"shared launches {n[2]}, device-loop launches {n[3]}, cyclic-reduction launches "
+            f"{n[4]}, mean f by tick "
             + ", ".join(f"{v:.4f}" for v in f_mean)
             + "; mean l1 constraint violation by tick " + ", ".join(f"{v:.3e}" for v in defect))
         ok = expect_launches(n) if callable(expect_launches) else n == tuple(expect_launches)
         if not ok:
             raise SystemExit(f"{label}: unexpected launch counts (one-way, rolled, shared, "
-                             f"device loop) {n}")
+                             f"device loop, cyclic reduction) {n}")
         if pinned:
             if not abs(f_mean[-1] - f_mean[-2]) < abs(f_mean[1] - f_mean[0]):
                 raise SystemExit(f"{label}: the objective did not settle")
@@ -724,7 +826,7 @@ def main(argv) -> int:
     frames[:, 2] = rng.uniform(-0.5, 0.5, Bm).astype(np.float32)
     refs = np.full((Bm, 1), np.pi, np.float32)
     state, launches = drive(solver, frames, refs, ticks, f"phase 4 cart-pole h20 B={Bm}",
-                            (step_num * ticks, 0, 0, 0))
+                            (step_num * ticks, 0, 0, 0, 0))
     # One more tick records the chunk inputs the main path produces.
     record(lambda: solver.solve(frames, refs, state))
     sync()
@@ -759,13 +861,13 @@ def main(argv) -> int:
     # -- 4b. the long-horizon main path: quadrotor h100 -------------------
     q_steps, q_ticks = 5, 7
 
-    def quad_case(Bq, H=100):
+    def quad_case(Bq, H=100, admm=QUAD_ADMM):
         rq = np.random.default_rng(0)
         fr = np.tile(quadrotor.initial_state()[None, :], (Bq, 1)).astype(np.float32)
         fr[:, 0:2] += rq.uniform(-0.5, 0.5, (Bq, 2)).astype(np.float32)
         rf = np.tile(quadrotor.reference_hover(H)[None, :], (Bq, 1)).astype(np.float32)
         qcfg = quadrotor.make_config(horizon=H, dt=0.02, alpha=0.3, step_num=q_steps,
-                                     formulation="reduced", ADMM_settings=dict(QUAD_ADMM))
+                                     formulation="reduced", ADMM_settings=dict(admm))
         return qcfg, fr, rf
 
     rolled_launches = 0
@@ -773,7 +875,7 @@ def main(argv) -> int:
         qcfg, qfr, qrf = quad_case(Bq)
         qsolver = BatchedSolver(quadrotor.build(qcfg, stagewise=True, device="cuda"))
         qstate, n = drive(qsolver, qfr, qrf, q_ticks, f"phase 4b quadrotor h100 B={Bq}",
-                          (0, q_steps * q_ticks, 0, 0))
+                          (0, q_steps * q_ticks, 0, 0, 0))
         rolled_launches += n
         if Bq == 64:
             record(lambda: qsolver.solve(qfr, qrf, qstate))
@@ -789,8 +891,8 @@ def main(argv) -> int:
         # Adaptive rho makes the chunk count depend on the data: every SQP
         # step enters the kernel at least once, each driver chunk is one
         # launch, and the banded kernels stay out of this path.
-        return (n[0], n[1], n[3]) == (0, 0, 0) and n[2] == tab._admm_iterate_fused.chunks and (
-            n[2] >= di_steps * ticks)
+        return (n[0], n[1], n[3], n[4]) == (0, 0, 0, 0) and (
+            n[2] == tab._admm_iterate_fused.chunks >= di_steps * ticks)
 
     di_xla = di_solver("xla")
     shared_launches = 0
@@ -830,7 +932,8 @@ def main(argv) -> int:
             d = (tp - tx).abs().reshape(Bd, H_di, double_integrator.FRAME)
             gap_pv = max(gap_pv, float(d[..., 0:4].max()))
             gap_acc = max(gap_acc, float(d[..., 4:6].max()))
-        if counts()[2] != tab._admm_iterate_fused.chunks or counts()[:2] != (0, 0) or counts()[3]:
+        if counts()[2] != tab._admm_iterate_fused.chunks or counts()[:2] != (0, 0) or any(
+                counts()[3:]):
             raise SystemExit(f"{label}: the xla backend launched a chunk kernel")
         # The kernel sums each product as an ascending chain, cuBLAS in
         # its own order, so a scenario whose residual sits within an ulp
@@ -871,7 +974,7 @@ def main(argv) -> int:
         # Adaptive rho is off: one kernel entry per SQP step, unless the
         # kernel stops a scenario on its own test that the driver's torch
         # residuals find not done (the knife edge), which re-enters.
-        return n[:3] == (0, 0, 0) and n[3] == tadmm._iterate_dense.entries and (
+        return n[:3] == (0, 0, 0) and n[4] == 0 and n[3] == tadmm._iterate_dense.entries and (
             n[3] >= steps_cd * ticks)
 
     cd_state, n_cd = drive(cd_pallas, cd_frames, cd_refs, ticks, f"{label} backend=pallas",
@@ -903,7 +1006,7 @@ def main(argv) -> int:
         iters_x.append(rx_.qp_iters.cpu())
         same_conv &= torch.equal(rp_.qp_converged, rx_.qp_converged)
         gap = max(gap, float((tp - tx).abs().max()))
-    if counts()[3] != tadmm._iterate_dense.entries or counts()[:3] != (0, 0, 0):
+    if counts()[3] != tadmm._iterate_dense.entries or counts()[:3] != (0, 0, 0) or counts()[4]:
         raise SystemExit(f"{label}: the launch counts do not follow the dense driver's entries")
     # Per scenario and step (B x steps per tick); the differing ones listed.
     for t_, (p_, x_) in enumerate(zip(iters_p, iters_x)):
@@ -934,6 +1037,52 @@ def main(argv) -> int:
         raise SystemExit("phase 4d: the recorded tick did not go through the device loop")
     if profile:
         profile_tick(cd_pallas, cd_frames, cd_refs, cd_state, "cartpole_dense")
+
+    # -- 4e. the cyclic-reduction banded path: quadrotor h100, "cr" -------
+    cr_launches = 0
+    cr_calls = {}
+    for Bq in (64, 8):
+        label = f"phase 4e quadrotor h100 banded_solver=cr B={Bq}"
+        qcfg, qfr, qrf = quad_case(Bq, admm=QUAD_CR_ADMM)
+        crs = BatchedSolver(quadrotor.build(qcfg, stagewise=True, device="cuda"))
+        cr_state, n = drive(crs, qfr, qrf, q_ticks, label, (0, 0, 0, 0, q_steps * q_ticks))
+        cr_launches += n
+        # One more tick records the chunk inputs of a steady-state tick.
+        record(lambda: crs.solve(qfr, qrf, cr_state))
+        sync()
+        cr_calls[Bq] = list(captured["banded_admm_chunk_cr"])
+        captured["banded_admm_chunk_cr"].clear()
+        if len(cr_calls[Bq]) != q_steps:
+            raise SystemExit(f"{label}: the recorded tick did not go through the CR chunk")
+        # The same ticks with banded_solver "thomas" (the rolled chunk), each
+        # from the state the CR tick started from: different eliminations,
+        # same fixed point.  Findings, not gates.
+        tcfg, _, _ = quad_case(Bq)
+        ths = BatchedSolver(quadrotor.build(tcfg, stagewise=True, device="cuda"))
+        st_c = crs.init_state(Bq)
+        cr_ms, th_ms, gap = [], [], 0.0
+        reset_counts()
+        for _ in range(q_ticks):
+            st_in = BatchState(*(a.clone() for a in st_c))
+            sync()
+            t0 = time.perf_counter()
+            tc, _, st_c = crs.solve(qfr, qrf, st_c)
+            sync()
+            cr_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            tt, _, _ = ths.solve(qfr, qrf, st_in)
+            sync()
+            th_ms.append((time.perf_counter() - t0) * 1e3)
+            gap = max(gap, float((tc - tt).abs().max()))
+        n = counts()
+        log(f"{label}: interleaved with banded_solver=thomas from the same states: cr ms/tick "
+            f"{', '.join(f'{t:.2f}' for t in cr_ms)} (median of timed "
+            f"{statistics.median(cr_ms[warm:]):.3f}), thomas "
+            f"{', '.join(f'{t:.2f}' for t in th_ms)} (median of timed "
+            f"{statistics.median(th_ms[warm:]):.3f}); launches cr {n[4]}, rolled {n[1]}; "
+            f"max |cr - thomas| trajectory {gap:.3g}")
+        if n != (0, q_steps * q_ticks, 0, 0, q_steps * q_ticks):
+            raise SystemExit(f"{label}: unexpected launch counts in the interleaved ticks {n}")
 
     # -- 5. card vs CPU ---------------------------------------------------
     def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None, n_ticks=2):
@@ -978,10 +1127,13 @@ def main(argv) -> int:
                 "phase 5c double integrator h20", acc_limit=0.1)
     card_vs_cpu(lambda d: cd_build("pallas", d), cd_frames[:4], cd_refs[:4],
                 "phase 5d cart-pole h20 dense", n_ticks=3)
+    qcfg, qfr, qrf = quad_case(8, admm=QUAD_CR_ADMM)
+    card_vs_cpu(lambda d: quadrotor.build(qcfg, stagewise=True, device=d), qfr, qrf,
+                "phase 5e quadrotor h100 banded_solver=cr")
 
     # -- 6. kernel timing at the main paths' inputs ------------------------
-    def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces):
-        calls = captured[name]
+    def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces, calls=None):
+        calls = captured[name] if calls is None else calls
         n_calls = len(calls)
 
         def run_all(fn):
@@ -1014,7 +1166,8 @@ def main(argv) -> int:
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         log(f"phase 6: {name} at its main path's inputs ({n_calls} launches of one tick, "
-            f"(N, w, r, r2) = {launch_shapes(calls[0][0])}): {ms:.4f} ms/launch, plain "
+            f"(N, w, r, r2) = {launch_shapes(calls[0][0])}, B={calls[0][0][6].shape[-1]}): "
+            f"{ms:.4f} ms/launch, plain "
             f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}; bytes "
             f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us); of which the "
             f"prologue (interval 0: assembly + factorization) {prologue_ms:.4f} ms; mean "
@@ -1210,7 +1363,29 @@ def main(argv) -> int:
         "cold_matmul_loop_ms": loop_rows["cold"]["mm_ms"],
     }
 
-    print(json.dumps({"kernels": [row1, row2, row3, row4]}), flush=True)
+    # The cyclic-reduction chunk on the recorded launches of one steady
+    # B=64 and one B=8 quadrotor tick, and the rolled chunk (with the CR
+    # level where the driver's rule puts it) on the very same inputs.
+    cr_rows = {}
+    for Bq, calls in cr_calls.items():
+        row = kernel_row(
+            "banded_admm_chunk_cr", bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
+            lambda sh, kw, it, ch: cr_chunk_flops(*sh, it, ch), cr_launches, CR_SOURCE,
+            CR_REPLACES, calls)
+        cr1 = abb.use_cr1(100, Bq)
+        row["rolled_same_inputs_ms"] = time_ms(lambda: [
+            brk.banded_admm_chunk_rolled(*a, **k, cr1=cr1) for a, k in calls], 7, sync) / len(calls)
+        log(f"phase 6: banded_admm_chunk_rolled (cr1={cr1}) on the same B={Bq} inputs: "
+            f"{row['rolled_same_inputs_ms']:.4f} ms/launch (banded_admm_chunk_cr "
+            f"{row['ms']:.4f})")
+        cr_rows[Bq] = row
+    row5 = dict(cr_rows[64])
+    row5["max_abs_err"] = cr_err
+    row5.update({f"b8_{k}": cr_rows[8][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "rolled_same_inputs_ms")})
+
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [row1, row2, row3, row4, row5]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

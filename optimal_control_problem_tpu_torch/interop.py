@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .ops.block_tridiag import CRFactor
 from .parallel.batch import BatchState
 from .solvers.admm import ADMMSettings, DensePrep
 from .solvers.admm_banded import BandedQP
@@ -24,6 +25,7 @@ from .solvers.sqp import SQPOptions
 __all__ = [
     "banded_qp_from_numpy",
     "batch_state_from_numpy",
+    "cr_factor_from_numpy",
     "dense_prep_from_numpy",
     "settings_from_jax_dict",
     "shared_factor_from_numpy",
@@ -58,6 +60,20 @@ def shared_factor_from_numpy(fac_np: Any, device=None, dtype=None) -> SharedQPFa
     dev = resolve_device(device)
     return SharedQPFactor(
         *(_tensor(a, dev, dtype) for a in _fields(fac_np, SharedQPFactor._fields))
+    )
+
+
+def cr_factor_from_numpy(fac_np: Any, device=None, dtype=None) -> CRFactor:
+    """A JAX ``CRFactor`` (its ``levels`` of six blocks each, ``root_dinv``
+    and ``n_orig``, as attributes or a mapping; arrays as numpy) -> the
+    port's :class:`~.ops.block_tridiag.CRFactor` on ``device``, so both
+    packages' ``cr_solve`` run on one factor."""
+    dev = resolve_device(device)
+    levels, root_dinv, n_orig = _fields(fac_np, ("levels", "root_dinv", "n_orig"))
+    return CRFactor(
+        levels=tuple(tuple(_tensor(a, dev, dtype) for a in lv) for lv in levels),
+        root_dinv=_tensor(root_dinv, dev, dtype),
+        n_orig=int(n_orig),
     )
 
 

@@ -10,8 +10,12 @@ inside the CUDA chunk kernels (``ops/banded_kernel.py``, one-way, and
 ``ops/banded_rolled_kernel.py``, two-way).
 
 Every block product is an explicit add chain in the JAX module's order, so
-the two packages agree to f32 roundoff.  The cyclic-reduction variants
-(``cr_factor``/``cr_solve``) are not ported yet (ROADMAP Queue A).
+the two packages agree to f32 roundoff.  The cyclic-reduction pair
+(``cr_factor``/``cr_solve``, log-depth, behind ``banded_solver="cr"`` of the
+per-scenario solver) pads the horizon to a power of two with identity
+blocks; the batched CR chunk kernel (``ops/banded_cr_kernel.py``) pads each
+level to even instead.  ``btd_solve_mat`` (block right-hand sides) is not
+ported: only the multi-device paths use it (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ import torch
 
 __all__ = [
     "BTDFactor",
+    "CRFactor",
     "btd_factor",
     "btd_solve",
     "btd_matvec",
+    "cr_factor",
+    "cr_solve",
     "dense_to_blocks",
     "small_spd_inv",
 ]
@@ -77,25 +84,25 @@ class BTDFactor(NamedTuple):
 
 
 def _mm(a, b):
-    """(w, w) block product as a sequential j-chain (kernel op order)."""
+    """(..., w, w) block products as a sequential j-chain (kernel op order)."""
     w = a.shape[-1]
     if w > 8:
         return a @ b
     acc = None
     for j in range(w):
-        t = a[:, j : j + 1] * b[j : j + 1, :]
+        t = a[..., :, j : j + 1] * b[..., j : j + 1, :]
         acc = t if acc is None else acc + t
     return acc
 
 
 def _mm_t(a, b):
-    """``a @ b.T`` as a sequential j-chain."""
+    """``a @ b^T`` over leading dims as a sequential j-chain."""
     w = a.shape[-1]
     if w > 8:
-        return a @ b.T
+        return a @ b.transpose(-1, -2)
     acc = None
     for j in range(w):
-        t = a[:, j : j + 1] * b[:, j : j + 1].reshape(1, w)
+        t = a[..., :, j : j + 1] * b[..., :, j : j + 1].transpose(-1, -2)
         acc = t if acc is None else acc + t
     return acc
 
@@ -156,3 +163,122 @@ def dense_to_blocks(M: torch.Tensor, N: int, w: int):
     diag = torch.stack([Mb[k, :, k, :] for k in range(N)])
     lower = torch.stack([Mb[k + 1, :, k, :] for k in range(N - 1)])
     return diag, lower
+
+
+# ----------------------------------------------------------------------
+# Cyclic reduction: log-depth block-tridiagonal solve.  Odd-even cyclic
+# reduction eliminates all odd stages of a level at once, so the sequential
+# depth is ~2 log2(N) whole levels instead of block-Thomas' ~2N steps.
+
+
+class CRFactor(NamedTuple):
+    """Per-level elimination operators of :func:`cr_factor`.
+
+    ``levels``: tuple over levels of ``(G_lo, G_hi, dinv_odd, L_odd, L_lo,
+    L_up)``: for each even survivor j, ``G_lo = L_j D_{j-1}^{-1}`` (its
+    coupling to the lower odd neighbour), ``G_hi = L_{j+1}^T D_{j+1}^{-1}``
+    (upper odd neighbour), the inverses of the eliminated odd pivots, and
+    the level's subdiagonal blocks (odd rows, even rows, the rows coupling
+    each odd stage to the even stage below it); ``root_dinv``: the inverse
+    of the final one-block system; ``n_orig``: the stage count before
+    padding.
+    """
+
+    levels: tuple
+    root_dinv: torch.Tensor
+    n_orig: int
+
+
+def _pad_pow2(diag: torch.Tensor, lower: torch.Tensor):
+    """Pad ``(N, w, w)`` diagonal and ``(N-1, w, w)`` subdiagonal blocks to
+    a power-of-two horizon with identity diagonals and zero couplings."""
+    N, w, _ = diag.shape
+    N2 = 1 << max(1, (N - 1).bit_length())
+    if N2 == N:
+        return diag, lower
+    eye = torch.eye(w, dtype=diag.dtype, device=diag.device).expand(N2 - N, w, w)
+    diag = torch.cat([diag, eye], dim=0)
+    zeros = lower.new_zeros((N2 - 1 - lower.shape[0], w, w))
+    return diag, torch.cat([lower, zeros], dim=0)
+
+
+def cr_factor(diag: torch.Tensor, lower: torch.Tensor) -> CRFactor:
+    """Precompute the cyclic-reduction elimination operators of an SPD
+    block-tridiagonal matrix.
+
+    ``diag``: (N, w, w); ``lower``: (N-1, w, w).  N is padded to a power of
+    two with identity blocks.  The block products are :func:`_mm` /
+    :func:`_mm_t` chains, the pivot inverses :func:`small_spd_inv`.
+    """
+    n_orig = diag.shape[0]
+    diag, lower = _pad_pow2(diag, lower)
+    N, w, _ = diag.shape
+    zero = diag.new_zeros((1, w, w))
+    # Uniform representation: L[k] couples stage k to k-1, L[0] = 0.
+    L = torch.cat([zero, lower], dim=0)
+
+    levels = []
+    while N > 1:
+        dinv_odd = small_spd_inv(diag[1::2])  # pivots to eliminate
+        even_d = diag[0::2]
+        # Even survivor 2i: lower odd neighbour 2i-1, upper odd 2i+1.
+        L_lo = L[0::2]  # couples 2i -> 2i-1
+        L_up = L[1::2]  # couples 2i+1 -> 2i (used transposed upward)
+        dinv_lo = torch.cat([zero, dinv_odd[:-1]], dim=0)
+        G_lo = _mm(L_lo, dinv_lo)
+        G_hi = _mm(L_up.transpose(-1, -2), dinv_odd)
+        new_diag = even_d - _mm_t(G_lo, L_lo) - _mm(G_hi, L_up)
+        # Survivor 2i couples to 2i-2 through odd 2i-1:
+        # L'_i = -G_lo[i] L[2i-1] (L[odd] couples 2i-1 -> 2i-2).
+        L_odd = L[1::2]
+        new_L = torch.cat([zero, -_mm(G_lo[1:], L_odd[:-1])], dim=0)
+        levels.append((G_lo, G_hi, dinv_odd, L_odd, L_lo, L_up))
+        diag, L = new_diag, new_L
+        N //= 2
+
+    return CRFactor(levels=tuple(levels), root_dinv=small_spd_inv(diag[0]), n_orig=n_orig)
+
+
+def _bmv(a, v):
+    """(k, w, w) @ (k, w) -> (k, w)."""
+    return torch.sum(a * v[:, None, :], dim=-1)
+
+
+def _bmv_t(a, v):
+    """(k, w, w)^T @ (k, w) -> (k, w)."""
+    return torch.sum(a * v[:, :, None], dim=-2)
+
+
+def cr_solve(fac: CRFactor, b: torch.Tensor) -> torch.Tensor:
+    """Solve M x = b with precomputed cyclic-reduction factors.  ``b``: (N, w)."""
+    n_orig = fac.n_orig
+    w = b.shape[1]
+    N2 = 1 << max(1, (n_orig - 1).bit_length())
+    if N2 != n_orig:
+        b = torch.cat([b, b.new_zeros((N2 - n_orig, w))], dim=0)
+    zero_v = b.new_zeros((1, w))
+
+    # Down-sweep: fold the odd right-hand sides into the even survivors.
+    rhs_stack = []
+    for G_lo, G_hi, _dinv_odd, _L_odd, _L_lo, _L_up in fac.levels:
+        b_even, b_odd = b[0::2], b[1::2]
+        b_odd_lo = torch.cat([zero_v, b_odd[:-1]], dim=0)
+        rhs_stack.append(b_odd)
+        b = b_even - _bmv(G_lo, b_odd_lo) - _bmv(G_hi, b_odd)
+
+    x = torch.sum(fac.root_dinv * b[0][None, :], dim=1)[None, :]
+
+    # Up-sweep: recover the odd unknowns of each level.  Odd stage 2i+1
+    # couples to its even neighbours 2i and 2i+2:
+    # L[2i+1] x_{2i} + D x + L[2i+2]^T x_{2i+2} = b_odd.
+    zero_b = b.new_zeros((1, w, w))
+    for (_G_lo, _G_hi, dinv_odd, L_odd, L_lo, _L_up), b_odd in zip(
+        reversed(fac.levels), reversed(rhs_stack)
+    ):
+        x_hi = torch.cat([x[1:], zero_v], dim=0)
+        L_next = torch.cat([L_lo[1:], zero_b], dim=0)
+        rhs = b_odd - _bmv(L_odd, x) - _bmv_t(L_next, x_hi)
+        x_odd = _bmv(dinv_odd, rhs)
+        x = torch.stack([x, x_odd], dim=1).reshape(-1, w)
+
+    return x[:n_orig]

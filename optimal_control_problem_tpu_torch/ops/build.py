@@ -29,6 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "ocp_torch_kernels"
 SOURCES: Dict[str, Path] = {
     "banded_chunk": _PKG / "csrc" / "banded_chunk.cu",
     "banded_rolled_chunk": _PKG / "csrc" / "banded_rolled_chunk.cu",
+    "banded_cr_chunk": _PKG / "csrc" / "banded_cr_chunk.cu",
     "shared_chunk": _PKG / "csrc" / "shared_chunk.cu",
     "admm_device_loop": _PKG / "csrc" / "admm_device_loop.cu",
 }

@@ -20,7 +20,9 @@ Contractions are explicit add chains / sums in the JAX module's op order.
 Semantics: OSQP iteration with modified Ruiz equilibration computed
 structurally on the stage blocks, per-row rho, over-relaxation, adaptive
 rho, infeasibility certificates and the optional active-set polish.
-``banded_solver="cr"`` (cyclic reduction) is not ported yet.
+``banded_solver`` picks the factorization of the per-scenario solver:
+``"thomas"`` (block-Thomas, ``btd_factor``/``btd_solve``) or ``"cr"``
+(cyclic reduction, ``cr_factor``/``cr_solve``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.block_tridiag import btd_factor, btd_solve
+from ..ops.block_tridiag import btd_factor, btd_solve, cr_factor, cr_solve
 from .admm import (
     ADMMSettings,
     QPSolution,
@@ -504,11 +506,6 @@ def admm_solve_banded(
     Loop conditions are read on the host.
     """
     st = settings
-    if st.banded_solver != "thomas":
-        raise NotImplementedError(
-            f"banded_solver={st.banded_solver!r} is not ported yet "
-            "(ROADMAP Queue A: cyclic reduction)"
-        )
     dtype, dev = qp.Hb.dtype, qp.Hb.device
     N, w = qp.Hb.shape[0], qp.Hb.shape[1]
     n = N * w
@@ -524,8 +521,15 @@ def admm_solve_banded(
     l, u, q = qp.l, qp.u, qp.q
     Dinv, Einv, cinv = 1.0 / D, 1.0 / E, 1.0 / c
 
+    if st.banded_solver == "cr":
+        factor, solve = cr_factor, cr_solve
+    elif st.banded_solver == "thomas":
+        factor, solve = btd_factor, btd_solve
+    else:
+        raise ValueError(f"unknown banded_solver: {st.banded_solver!r}")
+
     rho_v = _rho_vec(l, u, st.rho, dtype)
-    fac = btd_factor(*_build_M_blocks(qp, rho_v, sigma))
+    fac = factor(*_build_M_blocks(qp, rho_v, sigma))
 
     x = torch.zeros((n,), dtype=dtype, device=dev) if x0 is None else x0.to(dtype) * Dinv
     y = torch.zeros((m,), dtype=dtype, device=dev) if y0 is None else c * y0.to(dtype) * Einv
@@ -533,7 +537,7 @@ def admm_solve_banded(
 
     def one_iter(x, z, y):
         rhs = sigma * x - q + _apply_AT(qp, rho_v * z - y).reshape(-1)
-        xt = btd_solve(fac, rhs.reshape(N, w)).reshape(-1)
+        xt = solve(fac, rhs.reshape(N, w)).reshape(-1)
         zt = _apply_A(qp, xt.reshape(N, w))
         x_new = alpha * xt + (1 - alpha) * x
         z_rel = alpha * zt + (1 - alpha) * z
@@ -582,11 +586,11 @@ def admm_solve_banded(
             )
             if trigger and not bool(done):
                 rho_v = torch.clamp(rho_v * scale, _RHO_MIN, _RHO_MAX)
-                fac = btd_factor(*_build_M_blocks(qp, rho_v, sigma))
+                fac = factor(*_build_M_blocks(qp, rho_v, sigma))
 
     if st.polish:
         x, y, z, r_prim, r_dual = banded_polish(
-            qp, st, btd_factor, btd_solve, x, y, z, r_prim, r_dual,
+            qp, st, factor, solve, x, y, z, r_prim, r_dual,
             Einv, Dinv, cinv,
         )
 

@@ -10,12 +10,15 @@ axis):
 * iterate (one chunk kernel launch per rho-constant chunk): M assembly,
   block factorization and up to ``interval`` iterations with per-scenario
   termination — the CUDA kernel for tensors on the card, its plain version
-  on the CPU.  Two chunk kernels share the contract (:func:`chunk_kernel`
+  on the CPU.  Three chunk kernels share the contract (:func:`chunk_kernel`
   picks): ``ops/banded_kernel.banded_admm_chunk`` (one-way block-Thomas,
-  one thread per scenario, ``w`` in ``KERNEL_WIDTHS``) and
+  one thread per scenario, ``w`` in ``KERNEL_WIDTHS``),
   ``ops/banded_rolled_kernel.banded_admm_chunk_rolled`` (two-way
   factorization with an optional depth-1 cyclic-reduction level, one
-  thread per block row, any ``w`` up to 16).  The rule is the same on both
+  thread per block row, any ``w`` up to 16) and, for
+  ``banded_solver="cr"``, ``ops/banded_cr_kernel.banded_admm_chunk_cr``
+  (cyclic reduction over whole levels, one thread block per scenario, any
+  ``w`` up to 16).  The rule is the same on both
   devices, so the CPU runs the plain version of the kernel the card would
   run;
 * between chunks (PyTorch): infeasibility certificates on the chunk deltas
@@ -42,6 +45,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import resolve_device
+from ..ops.banded_cr_kernel import banded_admm_chunk_cr
 from ..ops.banded_kernel import KERNEL_WIDTHS, banded_admm_chunk
 from ..ops.banded_rolled_kernel import banded_admm_chunk_rolled
 from ..ops.block_tridiag import btd_factor, btd_solve
@@ -332,14 +336,20 @@ def use_cr1(N: int, B: int) -> bool:
     return N % 2 == 0 and N >= 16 and B < 128
 
 
-def chunk_kernel(N: int, w: int, B: int, rolled: Optional[bool] = None):
+def chunk_kernel(
+    N: int, w: int, B: int, rolled: Optional[bool] = None, banded_solver: str = "thomas"
+):
     """The chunk kernel for a batch, and its extra keyword arguments.
 
-    ``rolled=True`` forces the rolled two-way kernel, ``False`` the one-way
-    kernel; ``None`` takes the one-way kernel where it is instantiated
-    (``w`` in ``KERNEL_WIDTHS``) and the rolled one otherwise.  The rule
-    does not look at the device: on the CPU the driver runs the plain
-    version of the kernel the card would run."""
+    ``banded_solver="cr"`` takes the cyclic-reduction kernel whatever
+    ``rolled`` says (as the JAX driver does).  Otherwise ``rolled=True``
+    forces the rolled two-way kernel, ``False`` the one-way kernel;
+    ``None`` takes the one-way kernel where it is instantiated (``w`` in
+    ``KERNEL_WIDTHS``) and the rolled one otherwise.  The rule does not
+    look at the device: on the CPU the driver runs the plain version of
+    the kernel the card would run."""
+    if banded_solver == "cr":
+        return banded_admm_chunk_cr, {}
     if rolled is None:
         rolled = w not in KERNEL_WIDTHS
     if rolled:
@@ -350,11 +360,6 @@ def chunk_kernel(N: int, w: int, B: int, rolled: Optional[bool] = None):
 def _solve_banded_batch_T(
     qpT: BandedQP, st: ADMMSettings, x0T, y0T, scalingsT, rolled: Optional[bool] = None
 ):
-    if st.banded_solver != "thomas":
-        raise NotImplementedError(
-            f"banded_solver={st.banded_solver!r} is not ported yet "
-            "(ROADMAP Queue B: the cyclic-reduction chunk kernel)"
-        )
     dtype, dev = qpT.Hb.dtype, qpT.Hb.device
     N, w, B = qpT.Hb.shape[0], qpT.Hb.shape[1], qpT.Hb.shape[-1]
     n = N * w
@@ -363,7 +368,7 @@ def _solve_banded_batch_T(
     r, r2 = scaled.J0.shape[1], scaled.Jc.shape[1]
     nd = N - 1
 
-    chunk_fn, chunk_kw = chunk_kernel(N, w, B, rolled)
+    chunk_fn, chunk_kw = chunk_kernel(N, w, B, rolled, banded_solver=st.banded_solver)
     it_b = torch.zeros((B,), dtype=torch.int32, device=dev)
     x, y, z, rho = prob.x, prob.y, prob.z, prob.rho
     false_b = torch.zeros((B,), dtype=torch.bool, device=dev)

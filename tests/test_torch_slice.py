@@ -7,7 +7,8 @@ package rules.
   rtol 1e-3.  The same for the quadrotor at h16 (B=2, step_num=2, the
   quadrotor bench's settings): there JAX runs its one-way kernel and the
   port its rolled two-way kernel with the depth-1 CR level, so the test
-  also holds the two elimination orders together.
+  also holds the two elimination orders together; and with
+  ``banded_solver: "cr"`` against JAX's tick on its CR kernel.
 * Batched double-integrator h20 ticks (the LTI, shared-factorization path)
   through ``BatchedSolver`` in both packages and on both backends
   (``"xla"``: the matmul loop; ``"pallas"``: JAX's fused kernel in interpret
@@ -54,6 +55,7 @@ from optimal_control_problem_tpu_torch.interop import (
 from optimal_control_problem_tpu_torch.models import cartpole as tcp
 from optimal_control_problem_tpu_torch.models import double_integrator as tdi
 from optimal_control_problem_tpu_torch.models import quadrotor as tqr
+from optimal_control_problem_tpu_torch.ops import banded_cr_kernel as bck
 from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
 from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
 from optimal_control_problem_tpu_torch.parallel import BatchedSolver
@@ -160,8 +162,8 @@ def test_quadrotor_batched_tick_matches_jax(monkeypatch):
     kernels = []
     real = abb.chunk_kernel
 
-    def spy(N, w, B_, rolled=None):
-        fn, kw = real(N, w, B_, rolled)
+    def spy(*args, **kwargs):
+        fn, kw = real(*args, **kwargs)
         kernels.append((fn, kw))
         return fn, kw
 
@@ -176,6 +178,38 @@ def test_quadrotor_batched_tick_matches_jax(monkeypatch):
     assert kernels and all(
         fn is brk.banded_admm_chunk_rolled and kw == {"cr1": True} for fn, kw in kernels
     )
+
+
+def test_quadrotor_cr_tick_matches_jax(monkeypatch):
+    """``banded_solver: "cr"`` on the quadrotor h16 tick (B=2, step_num 2):
+    the port's tick goes through the cyclic-reduction chunk and is held at
+    5e-3 to JAX's tick on JAX's CR kernel (in interpret mode)."""
+    B, H, ticks = 2, 16, 2
+
+    def cfg(module):
+        return module.make_config(
+            horizon=H, dt=0.02, alpha=0.3, step_num=2, formulation="reduced",
+            ADMM_settings={**QUAD_ADMM, "banded_solver": "cr"})
+
+    frames, refs = quad_frames_refs(B, H)
+    ref, jst = _jax_quad_ticks(cfg(jqr), frames, refs, ticks)
+    tb = BatchedSolver(tqr.build(cfg(tqr), stagewise=True, device="cpu"), device="cpu")
+    tst = batch_state_from_numpy(jst._asdict(), device="cpu")
+    kernels = []
+    real = abb.chunk_kernel
+
+    def spy(*args, **kwargs):
+        fn, kw = real(*args, **kwargs)
+        kernels.append(fn)
+        return fn, kw
+
+    monkeypatch.setattr(abb, "chunk_kernel", spy)
+    for jx, jf in ref:
+        tx, tf, tst = tb.solve(frames, refs, tst)
+        np.testing.assert_allclose(tx.numpy(), jx, atol=5e-3)
+        np.testing.assert_allclose(tf.numpy(), jf, rtol=1e-3)
+    assert np.isfinite(tx.numpy()).all()
+    assert len(kernels) == 2 * ticks and all(fn is bck.banded_admm_chunk_cr for fn in kernels)
 
 
 def test_quadrotor_without_stage_structure_raises():
