@@ -11,24 +11,32 @@ Phases:
   2. build every CUDA kernel of the main paths from the sources in this
      checkout (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card, on the
-     same inputs: random stage-QP batches scaled and padded by the port's
-     own driver prepare -- the one-way chunk at cart-pole shapes (N=20, w=5,
-     r=4, r2=1, B=1024), the rolled two-way chunk at quadrotor shapes
-     (N=100, w=16, r=12, r2=1) at B=64 (CR level on, also with entry
-     counts near max_iter and scenarios frozen at entry) and B=128 (off);
-     the shared-operator chunk at B=4096, n=120, m=196 on the double
+     same inputs, bitwise (gap 0, equal done/it_inc): random stage-QP
+     batches scaled and padded by the port's own driver prepare -- the
+     one-way chunk at cart-pole shapes (N=20, w=5, r=4, r2=1, B=1024;
+     forced budget, converging, entry counts near max_iter with every
+     fifth scenario frozen), at w=4 and w=3 (forced and converging) and at
+     N=2; the rolled two-way chunk at quadrotor shapes (N=100, w=16, r=12,
+     r2=1) at B=64 (CR level on, also with entry counts near max_iter and
+     scenarios frozen at entry) and B=128 (off), at the odd horizon N=25,
+     at N=2, and at w=5 as the driver's rolled=True picks it; the
+     shared-operator chunk at B=4096, n=120, m=196 on the double
      integrator's own first chunk of a cold tick and on a random shared QP
      batch (forced budget that is no multiple of check_every, converging,
-     all done at entry, four termination groups with one done at entry);
-     the dense device loop at B=256, n=100, m=196 on the cart-pole h20
-     dense tick's own inputs (a forced budget of 60 with check_every 25,
-     the first SQP step of a cold tick, a later step whose scenarios stop
-     at different counts, one scenario alone) and on a QP with +-inf
-     bounds and equality rows; the cyclic-reduction chunk at quadrotor
-     shapes (N=100, w=16, r=12, r2=1) at B=64 (a forced budget of 41 with
-     check_every 2, entry counts near it and every fifth scenario frozen
-     at entry; converging), at cart-pole shapes (B=1024), at the odd
-     horizons N=7 and N=25 and at N=2 (w=16);
+     all done at entry, four termination groups with one done at entry),
+     and the first chunk of random shared solves at B=6144 (one group
+     beyond the grid the card holds resident) and B=8192 (two of JAX's
+     tiles of 6536); the dense device loop at B=256, n=100, m=196 on the
+     cart-pole h20 dense tick's own inputs (a forced budget of 60 with
+     check_every 25, the first SQP step of a cold tick, a later step whose
+     scenarios stop at different counts, one scenario alone), on a QP with
+     +-inf bounds and equality rows, and -- in its global-memory variant
+     -- on the first entry of random dense solves at n=120, m=236 and
+     n=200, m=392; the cyclic-reduction chunk at quadrotor shapes (N=100,
+     w=16, r=12, r2=1) at B=64 (a forced budget of 41 with check_every 2,
+     entry counts near it and every fifth scenario frozen at entry;
+     converging), at cart-pole shapes (B=1024), at the odd horizons N=7
+     and N=25 and at N=2 (w=16);
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
      B=1024 through ``BatchedSolver`` (2 warm-up + 5 timed ticks), checking
      the launch counts, finite trajectories, and that each warm tick lowers
@@ -39,7 +47,9 @@ Phases:
      bench's settings (shared factorization, condensed, adaptive rho),
      B=4096 and B=64, with backend="pallas" (the shared-operator chunk
      kernel) and the same checks, then the same ticks with backend="xla"
-     (the torch.matmul loop), tick by tick from the same state;
+     (the torch.matmul loop), tick by tick from the same state; then two
+     backend="pallas" ticks at B=6144 and B=8192 (termination groups
+     beyond the grid the card holds resident at once);
   4d. the per-scenario dense main path: the batched cart-pole h20 tick
      without a stage structure (the JAX bench's ``cartpole_h20_pallas``),
      B=256, with backend="pallas" (the dense device-loop kernel) and the
@@ -57,11 +67,14 @@ Phases:
      over 3 ticks likewise; 5e. the quadrotor h100 CR tick at B=8 over 2
      ticks likewise;
   6. time each kernel at its main path's own inputs beside its plain
-     version and its bound (the rolled one also without its CR level, the
-     shared one and the dense device loop also beside a loop of
-     torch.matmul products; the device loop on a cold and on a
-     steady-state tick; the CR chunk at a steady B=64 and a B=8 tick beside
-     the rolled chunk on the very same inputs).
+     version and its bound, the banded ones with their prologue and the
+     mean and largest iteration count per launch (the rolled one also
+     without its CR level, the shared one and the dense device loop also
+     beside a loop of torch.matmul products; the shared one also on one
+     group of 6144; the device loop on a cold and on a steady-state tick
+     and in its global-memory variant at n=120, m=236; the CR chunk at a
+     steady B=64 and a B=8 tick beside the rolled chunk on the very same
+     inputs).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -300,6 +313,20 @@ def random_shared_qp(seed, B, n, m):
     return [np.ascontiguousarray(a, np.float32) for a in (P, A, qs, ls, us)]
 
 
+def random_dense_qp(seed, B, n, m):
+    """B random dense QPs of their own, each ``P (n, n)`` SPD, ``A (m, n)``
+    and a box around a feasible point (the shape of tests' ``random_qp``)."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(B, n, n))
+    P = L @ np.swapaxes(L, 1, 2) + 0.5 * np.eye(n)
+    A = rng.normal(size=(B, m, n))
+    c = np.einsum("bmn,bn->bm", A, rng.normal(size=(B, n)))
+    q = rng.normal(size=(B, n))
+    lo = c - rng.uniform(0.2, 1.5, size=(B, m))
+    hi = c + rng.uniform(0.2, 1.5, size=(B, m))
+    return [np.ascontiguousarray(a, np.float32) for a in (P, q, A, lo, hi)]
+
+
 def launch_shapes(args):
     """(N, w, r, r2) of one recorded chunk launch."""
     N, w = args[6].shape[0], args[6].shape[1]
@@ -394,70 +421,98 @@ def main(argv) -> int:
             f"{k}={v:.3g}" for k, v in errs.items()))
         return out_k, out_p, errs
 
-    def check_forced(out_k, out_p, errs, label):
+    def check_exact(out_k, out_p, errs, label):
+        """Equal done/it_inc and every output bitwise equal (gap 0): both
+        sum each product as the same ascending chain without FMA
+        contraction.  Returns the largest iterate gap (0)."""
         if not (torch.equal(out_k[7], out_p[7]) and torch.equal(out_k[8], out_p[8])):
             raise SystemExit(f"phase 3 [{label}]: done/it_inc differ between kernel and plain")
-        for i in range(7):
-            torch.testing.assert_close(out_k[i], out_p[i], atol=1e-4, rtol=1e-3)
+        for nm, a, b in zip(names, out_k, out_p):
+            if not torch.equal(torch.isfinite(a), torch.isfinite(b)) or errs[nm] != 0.0:
+                raise SystemExit(f"phase 3 [{label}]: {nm} differs between kernel and plain "
+                                 f"(gap {errs[nm]:.3g}, limit 0)")
+        log(f"phase 3 [{label}]: it_inc {sorted(set(out_k[8].tolist()))[:10]}, converged "
+            f"{float((out_k[7] == 1).float().mean()):.4f}, gap 0 (limit 0)")
         return max(errs[k] for k in names[:7])
 
-    def check_converging(out_k, out_p, label):
-        same_it = float((out_k[8] == out_p[8]).float().mean())
-        conv_k = float((out_k[7] == 1).float().mean())
-        conv_p = float((out_p[7] == 1).float().mean())
-        log(f"phase 3 [{label}]: converged kernel {conv_k:.4f} plain {conv_p:.4f}, "
-            f"equal iteration counts {same_it:.4f}")
-        if same_it < 0.98 or abs(conv_k - conv_p) > 0.01:
-            raise SystemExit(f"phase 3 [{label}]: converging chunk disagrees with the plain version")
-        for i in range(7):
-            torch.testing.assert_close(out_k[i], out_p[i], atol=5e-3, rtol=1e-2)
+    # Entry counts near max_iter (some scenarios get one or two check
+    # blocks, some none) and every fifth scenario frozen at entry, as the
+    # adaptive-rho driver's later chunks see them.
+    def near_budget(B_):
+        it0_ = np.array([0, 10, 30, 36, 38, 39, 40, 41])[np.arange(B_) % 8]
+        return it0_, (np.arange(B_) % 5 == 0).astype(np.int32)
+
+    def check_counts(out_k, it0_, done0_, max_iter, label):
+        # One check block of 2 runs while it0 + kb < max_iter.
+        blocks = (np.clip(max_iter - it0_, 0, None) + 1) // 2
+        if not torch.equal(out_k[8].cpu(), torch.as_tensor(
+                np.where(done0_ == 1, 0, 2 * blocks).astype(np.int32))):
+            raise SystemExit(f"phase 3 [{label}]: iteration counts do not follow it0/done0")
 
     cart_shapes = (20, 5, 4, 1, 1024)
     st_forced = ADMMSettings(method="banded", eps_abs=0.0, eps_rel=0.0, max_iter=100,
                              adaptive_rho=False, check_infeasibility=False, check_every=25)
-    out_k, out_p, errs = compare(bk.banded_admm_chunk, bk.banded_admm_chunk_plain,
-                                 cart_shapes, st_forced, "forced budget, 100 iterations")
-    max_abs_err = check_forced(out_k, out_p, errs, "one-way")
     st_conv = ADMMSettings(method="banded", eps_abs=1e-4, eps_rel=1e-4, max_iter=500,
                            adaptive_rho=False, check_infeasibility=False, check_every=2)
-    out_k, out_p, _ = compare(bk.banded_admm_chunk, bk.banded_admm_chunk_plain,
-                              cart_shapes, st_conv, "converging, eps 1e-4")
-    check_converging(out_k, out_p, "converging")
-
-    rolled_err = 0.0
     st_rforced = ADMMSettings(method="banded", eps_abs=0.0, eps_rel=0.0, max_iter=40,
                               adaptive_rho=False, check_infeasibility=False, check_every=2)
     st_rconv = ADMMSettings(method="banded", eps_abs=1e-3, eps_rel=1e-3, max_iter=250,
                             adaptive_rho=False, check_infeasibility=False, check_every=2)
-    for Bq in (64, 128):
-        shapes = (100, 16, 12, 1, Bq)
-        extra = {"cr1": abb.use_cr1(100, Bq)}
-        label = f"rolled N=100 w=16 r=12 B={Bq} cr1={extra['cr1']}"
+    max_abs_err = 0.0
+    one_way_cases = [
+        (cart_shapes, st_forced, "forced budget, 100 iterations"),
+        (cart_shapes, st_conv, "converging, eps 1e-4"),
+        ((20, 4, 3, 1, 1024), st_rforced, "w=4, forced budget, 40 iterations"),
+        ((20, 4, 3, 1, 1024), st_conv, "w=4, converging, eps 1e-4"),
+        ((20, 3, 2, 1, 1024), st_rforced, "w=3, forced budget, 40 iterations"),
+        ((20, 3, 2, 1, 1024), st_conv, "w=3, converging, eps 1e-4"),
+        ((2, 5, 4, 1, 64), st_rforced, "N=2, forced budget, 40 iterations"),
+    ]
+    for shapes, st_, what in one_way_cases:
+        label = "one-way N={} w={} r={} r2={} B={}".format(*shapes) + f", {what}"
+        out_k, out_p, errs = compare(bk.banded_admm_chunk, bk.banded_admm_chunk_plain,
+                                     shapes, st_, label)
+        max_abs_err = max(max_abs_err, check_exact(out_k, out_p, errs, label))
+    it0, done0 = near_budget(1024)
+    label = "one-way N=20 w=5 B=1024, forced budget, it0 up to 41, done0 every 5th"
+    out_k, out_p, errs = compare(bk.banded_admm_chunk, bk.banded_admm_chunk_plain, cart_shapes,
+                                 st_rforced, label, None, it0, done0)
+    max_abs_err = max(max_abs_err, check_exact(out_k, out_p, errs, label))
+    check_counts(out_k, it0, done0, 40, label)
+
+    rolled_err = 0.0
+    rolled_cases = [
+        ((100, 16, 12, 1, 64), abb.use_cr1(100, 64)),
+        ((100, 16, 12, 1, 128), abb.use_cr1(100, 128)),
+        ((25, 16, 12, 1, 64), False),  # odd horizon
+        ((2, 16, 12, 1, 64), False),
+    ]
+    # w=5 through rolled=True: the driver's choice of kernel and CR level.
+    fn5, kw5 = abb.chunk_kernel(20, 5, 64, rolled=True)
+    if fn5 is not brk.banded_admm_chunk_rolled:
+        raise SystemExit("phase 3: rolled=True did not pick the rolled chunk at w=5")
+    rolled_cases.append(((20, 5, 4, 1, 64), kw5["cr1"]))
+    for shapes, cr1 in rolled_cases:
+        extra = {"cr1": cr1}
+        Bq = shapes[-1]
+        label = "rolled N={} w={} r={} r2={} B={}".format(*shapes) + f" cr1={cr1}"
         out_k, out_p, errs = compare(brk.banded_admm_chunk_rolled,
                                      brk.banded_admm_chunk_rolled_plain, shapes, st_rforced,
                                      f"{label}, forced budget, 40 iterations", extra)
-        rolled_err = max(rolled_err, check_forced(out_k, out_p, errs, label))
-        if Bq == 64:
-            # The kernel's freezing: entry counts near max_iter (some
-            # scenarios get one or two check blocks, some none) and every
-            # fifth scenario frozen at entry, as the adaptive-rho driver's
-            # later chunks see them.
-            it0 = np.array([0, 10, 30, 36, 38, 39, 40, 41])[np.arange(Bq) % 8]
-            done0 = (np.arange(Bq) % 5 == 0).astype(np.int32)
+        rolled_err = max(rolled_err, check_exact(out_k, out_p, errs, label))
+        if shapes[0] == 100 and Bq == 64:
+            it0, done0 = near_budget(Bq)
             out_k, out_p, errs = compare(brk.banded_admm_chunk_rolled,
                                          brk.banded_admm_chunk_rolled_plain, shapes, st_rforced,
                                          f"{label}, forced budget, it0 up to 41, done0 every 5th",
                                          extra, it0, done0)
-            rolled_err = max(rolled_err, check_forced(out_k, out_p, errs, f"{label}, frozen"))
-            # One check block of 2 runs while it0 + kb < max_iter = 40.
-            blocks = (np.clip(40 - it0, 0, None) + 1) // 2
-            if not torch.equal(out_k[8].cpu(), torch.as_tensor(
-                    np.where(done0 == 1, 0, 2 * blocks).astype(np.int32))):
-                raise SystemExit(f"phase 3 [{label}]: iteration counts do not follow it0/done0")
-        out_k, out_p, _ = compare(brk.banded_admm_chunk_rolled,
-                                  brk.banded_admm_chunk_rolled_plain, shapes, st_rconv,
-                                  f"{label}, converging, eps 1e-3", extra)
-        check_converging(out_k, out_p, f"{label}, converging")
+            rolled_err = max(rolled_err, check_exact(out_k, out_p, errs, f"{label}, frozen"))
+            check_counts(out_k, it0, done0, 40, label)
+        if shapes[0] == 100:
+            out_k, out_p, errs = compare(brk.banded_admm_chunk_rolled,
+                                         brk.banded_admm_chunk_rolled_plain, shapes, st_rconv,
+                                         f"{label}, converging, eps 1e-3", extra)
+            check_exact(out_k, out_p, errs, f"{label}, converging")
     log(f"phase 3: largest gap kernel vs plain: one-way {max_abs_err:.3g}, "
         f"rolled {rolled_err:.3g}")
 
@@ -644,6 +699,33 @@ def main(argv) -> int:
     r_args, r_kw = captured["shared_admm_chunk"][0]
     captured["shared_admm_chunk"].clear()
     shared_cases(r_args, r_kw, "shared chunk, random shared QP")
+    # Groups beyond the ~4,200 scenarios the card holds resident at once at
+    # n=120, m=196: one group of 6,144, and 8,192 scenarios in two of the
+    # JAX package's tiles of 6,536 (the driver pads the batch to 13,072
+    # with replicas).  The driver's
+    # first chunk of each solve, kernel against plain.
+    big_calls = {}
+    for Bb in (6144, 8192):
+        P_b, A_b, q_b, l_b, u_b = (torch.as_tensor(a, device=dev)
+                                   for a in random_shared_qp(1, Bb, 120, 196))
+        fac_b = tab.prepare_shared(P_b, A_b, l_b, u_b, q_b, st_r)
+        sol_b = record(lambda: tab.admm_iterate_prepared(fac_b, q_b, l_b, u_b, st_r))
+        sync()
+        big_calls[Bb] = list(captured["shared_admm_chunk"])
+        captured["shared_admm_chunk"].clear()
+        b_args, b_kw = big_calls[Bb][0]
+        tile = sk.pick_shared_tile(Bb, 120, 196)
+        groups = b_args[12].shape[0] // b_kw["batch_tile"]
+        if b_kw["batch_tile"] != tile or groups != -(-Bb // tile):
+            raise SystemExit(f"phase 3: the B={Bb} solve did not vote in JAX's groups of {tile}")
+        log(f"phase 3: backend=pallas random shared QP B={Bb}: {groups} group(s) of {tile}, "
+            f"{len(big_calls[Bb])} chunks, {int(sol_b.iters)} iterations, converged "
+            f"{float(sol_b.converged.float().mean()):.4f}, finite "
+            f"{bool(torch.isfinite(sol_b.x).all())}")
+        if not bool(torch.isfinite(sol_b.x).all()):
+            raise SystemExit(f"phase 3: the B={Bb} shared solve is not finite")
+        compare_shared(b_args, b_kw, f"shared chunk, random shared QP B={Bb}, {groups} group(s)",
+                       lambda o: expect(bool((o[4] % 25 == 0).all()), f"B={Bb}"))
     log(f"phase 3: largest gap kernel vs plain, shared chunk: {shared_err:.3g}")
 
     # -- 3 (continued). the dense device loop vs its plain version --------
@@ -735,6 +817,33 @@ def main(argv) -> int:
     compare_loop(args_e, {"max_iter": 1000, "check_every": 25},
                  "device loop, +-inf bounds and equality rows, eps 1e-4",
                  lambda it: bool((it > 0).all()))
+    # QPs whose operators exceed a thread block's shared memory take the
+    # kernel's global-memory variant: random batches at n=120, m=236 and
+    # n=200, m=392 solved by the dense "pallas" path (the JAX package's
+    # guard admits both), and the kernel's first entry of each against
+    # its plain version.
+    dense_global = {}
+    for (n_g, m_g, B_g) in ((120, 236, 64), (200, 392, 32)):
+        if ak.kernel_variant(n_g, m_g) != "global":
+            raise SystemExit(f"phase 3: n={n_g}, m={m_g} did not take the global variant")
+        P_g, q_g, A_g, l_g, u_g = (torch.as_tensor(a, device=dev)
+                                   for a in random_dense_qp(2, B_g, n_g, m_g))
+        st_g = ADMMSettings(method="condensed", eps_abs=1e-3, eps_rel=1e-3, max_iter=500,
+                            adaptive_rho=False, backend="pallas")
+        sol_g = record(lambda: tadmm.admm_solve_batch(P_g, q_g, A_g, l_g, u_g, st_g))
+        sync()
+        calls_g = list(captured["admm_device_loop"])
+        captured["admm_device_loop"].clear()
+        log(f"phase 3: backend=pallas dense QPs B={B_g} n={n_g} m={m_g} (global variant): "
+            f"{len(calls_g)} kernel entries, converged {float(sol_g.converged.float().mean()):.4f}, "
+            f"iterations {sorted(set(sol_g.iters.tolist()))[:8]}, finite "
+            f"{bool(torch.isfinite(sol_g.x).all())}")
+        if not bool(torch.isfinite(sol_g.x).all()):
+            raise SystemExit(f"phase 3: the n={n_g}, m={m_g} dense solve is not finite")
+        g_args, g_kw = calls_g[0]
+        compare_loop(g_args, g_kw, f"device loop, global variant, B={B_g} n={n_g} m={m_g}",
+                     lambda it: bool((it % 25 == 0).all()))
+        dense_global[(n_g, m_g)] = calls_g
     log(f"phase 3: largest gap kernel vs plain, dense device loop: {loop_err:.3g}")
 
     def drive(solver, frames, refs, ticks, label, expect_launches, pinned=False):
@@ -961,6 +1070,32 @@ def main(argv) -> int:
             raise SystemExit(f"{label}: the two backends disagree on qp_iters or qp_converged")
         if not (gap_pv <= 5e-3 and gap_acc <= 0.1):
             raise SystemExit(f"{label}: the two backends' trajectories disagree")
+    # The same model at batches whose termination group is larger than the
+    # grid the card holds resident at once (~4,200 at n=120, m=196): one
+    # group of 6,144 and two JAX tiles at 8,192; two ticks each.
+    for Bd in (6144, 8192):
+        rng_b = np.random.default_rng(0)
+        fr_b = np.zeros((Bd, double_integrator.FRAME), np.float32)
+        fr_b[:, 0:2] = rng_b.uniform(-1, 1, size=(Bd, 2)).astype(np.float32)
+        rf_b = np.tile(di_refs[:1], (Bd, 1))
+        st_b = di_pallas.init_state(Bd)
+        reset_counts()
+        ms_b = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            tr_b, f_b, st_b = di_pallas.solve(fr_b, rf_b, st_b)
+            sync()
+            ms_b.append((time.perf_counter() - t0) * 1e3)
+        n = counts()
+        ok_b = bool(torch.isfinite(tr_b).all()) and n[2] > 0 and n[:2] == (0, 0)
+        log(f"phase 4c double integrator h20 B={Bd} backend=pallas (termination groups of "
+            f"{sk.pick_shared_tile(Bd, 120, 196)}): ms/tick "
+            f"{', '.join(f'{t:.2f}' for t in ms_b)}, shared launches {n[2]}, mean f "
+            f"{float(f_b.mean()):.4f}, converged share {float(di_pallas.last_result.qp_converged.float().mean()):.4f}, "
+            f"finite {bool(torch.isfinite(tr_b).all())}")
+        if not ok_b:
+            raise SystemExit(f"phase 4c: the double integrator at B={Bd} failed on the card")
     # One more B=4096 tick records the chunk inputs of a steady-state tick.
     record(lambda: di_pallas.solve(di_frames, di_refs, di_state))
     sync()
@@ -1147,10 +1282,11 @@ def main(argv) -> int:
         prologue_ms = time_ms(lambda: [
             kernel(*args, **{**kw, "interval": 0}) for args, kw in calls], 7, sync) / n_calls
         nbytes = flops = 0
-        iters = []
+        iters, largest = [], []
         for args, kw in calls:
             outs = plain(*args, **kw)
             iters.append(float(outs[8].double().mean()))
+            largest.append(int(outs[8].max()))
             tensors = [a for a in args if torch.is_tensor(a)]
             tensors += [v for a in args if isinstance(a, dict) for v in a.values()]
             nbytes += sum(t.numel() * t.element_size() for t in tensors)
@@ -1171,11 +1307,12 @@ def main(argv) -> int:
             f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.3f} us ({bound_by}; bytes "
             f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us); of which the "
             f"prologue (interval 0: assembly + factorization) {prologue_ms:.4f} ms; mean "
-            f"iterations per scenario and launch {mean_it:.2f}")
+            f"iterations per scenario and launch {mean_it:.2f}, largest by launch {largest}")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches_, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "prologue_ms": prologue_ms, "mean_it_inc": mean_it, "max_it_inc": max(largest),
         }
 
     row1 = kernel_row(
@@ -1232,16 +1369,25 @@ def main(argv) -> int:
                 r_dual <= kw["eps_abs"] + kw["eps_rel"] * max_dual)
         return x, z, y
 
-    s_bytes = s_flops = 0
-    s_iters = []
-    for args, kw in scalls:
-        outs = sk.shared_admm_chunk_plain(*args, **kw)
-        it = int(outs[4].max())
-        s_iters.append(it)
-        tensors = [a for a in args if torch.is_tensor(a)]
-        s_bytes += sum(t_.numel() * t_.element_size() for t_ in tensors)
-        s_bytes += sum(t_.numel() * t_.element_size() for t_ in outs)
-        s_flops += args[12].shape[0] * shared_chunk_flops(n_, m_, it, it // kw["check_every"])
+    def shared_stats(calls):
+        """Per launch: the largest iteration count (from the plain version,
+        equal to the kernel's, phase 3), bytes read and written once, and
+        operations from each scenario's own iterations and checks."""
+        nbytes = flops = 0
+        its = []
+        for args, kw in calls:
+            outs = sk.shared_admm_chunk_plain(*args, **kw)
+            its.append(int(outs[4].max()))
+            tensors = [a for a in args if torch.is_tensor(a)]
+            nbytes += sum(t_.numel() * t_.element_size() for t_ in tensors)
+            nbytes += sum(t_.numel() * t_.element_size() for t_ in outs)
+            n_c, m_c = args[12].shape[1], args[13].shape[1]
+            flops += sum(shared_chunk_flops(n_c, m_c, it, it // kw["check_every"])
+                         for it in outs[4].tolist())
+        nc = len(calls)
+        return its, nbytes / nc / PEAK_BYTES_PER_S * 1e3, flops / nc / PEAK_F32_FLOPS * 1e3
+
+    s_iters, s_bytes_ms, s_ops_ms = shared_stats(scalls)
     s_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in scalls], 7, sync) / n_s
     s_plain_ms = time_ms(
         lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in scalls], 3, sync) / n_s
@@ -1252,8 +1398,6 @@ def main(argv) -> int:
         rows: time_ms(lambda: [sk.shared_admm_chunk(*a, **k, rows_per_block=rows)
                                for a, k in scalls], 7, sync) / n_s
         for rows in sk.ROWS_PER_BLOCK}
-    s_bytes_ms = s_bytes / n_s / PEAK_BYTES_PER_S * 1e3
-    s_ops_ms = s_flops / n_s / PEAK_F32_FLOPS * 1e3
     log(f"phase 6: shared_admm_chunk at its main path's inputs ({n_s} launches of one "
         f"steady-state tick, B={scalls[0][0][12].shape[0]}, n={n_}, m={m_}, iterations per "
         f"launch {s_iters}): {s_ms:.4f} ms/launch, plain {s_plain_ms:.3f} ms, the same "
@@ -1270,6 +1414,18 @@ def main(argv) -> int:
         # torch.matmul products above is reported beside it.
         "library_ms": None, "matmul_loop_ms": s_mm_ms,
     }
+    # One group of 6,144 scenarios (beyond the grid the card holds resident
+    # at once): the random shared QP solve's chunks of phase 3.
+    bcalls = big_calls[6144]
+    b_iters, b_bytes_ms, b_ops_ms = shared_stats(bcalls)
+    b_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in bcalls], 5,
+                   sync) / len(bcalls)
+    log(f"phase 6: shared_admm_chunk, one group of 6144 ({len(bcalls)} launches of a random "
+        f"shared QP solve, n=120, m=196, iterations per launch {b_iters}): {b_ms:.4f} "
+        f"ms/launch, bound {max(b_bytes_ms, b_ops_ms) * 1e3:.3f} us (bytes "
+        f"{b_bytes_ms * 1e3:.3f} us, operations {b_ops_ms * 1e3:.3f} us)")
+    row3.update({"b6144_ms": b_ms, "b6144_bound_ms": max(b_bytes_ms, b_ops_ms),
+                 "b6144_bound_by": "bytes" if b_bytes_ms >= b_ops_ms else "operations"})
 
     # The dense device loop on the recorded launches of one cold and one
     # steady-state B=256 tick of the cart-pole dense path.
@@ -1350,6 +1506,18 @@ def main(argv) -> int:
             + f", the same iterations and checks as batched torch.matmul products "
             f"{mm_ms:.4f} ms, bound {max(bytes_ms, ops_ms) * 1e3:.3f} us (bytes "
             f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us)")
+    # The global-memory variant: the n=120, m=236 random dense solve's
+    # kernel entries of phase 3.
+    gcalls = dense_global[(120, 236)]
+    g_iters, g_bytes_ms, g_ops_ms = loop_stats(gcalls)
+    g_ms = time_ms(lambda: [ak.admm_device_loop(*a, **k) for a, k in gcalls], 5,
+                   sync) / len(gcalls)
+    log(f"phase 6: admm_device_loop, global variant ({len(gcalls)} launches of a random "
+        f"dense solve, B={gcalls[0][0][0].shape[0]}, n=120, m=236; iterations per scenario "
+        f"and launch: mean {statistics.fmean(float(it.float().mean()) for it in g_iters):.2f}, "
+        f"largest {max(int(it.max()) for it in g_iters)}): {g_ms:.4f} ms/launch, bound "
+        f"{max(g_bytes_ms, g_ops_ms) * 1e3:.3f} us (bytes {g_bytes_ms * 1e3:.3f} us, "
+        f"operations {g_ops_ms * 1e3:.3f} us)")
     st_row = loop_rows["steady"]
     row4 = {
         "name": "admm_device_loop", "route": "cuda", "source": DEVLOOP_SOURCE,
@@ -1361,6 +1529,7 @@ def main(argv) -> int:
         "library_ms": None, "matmul_loop_ms": st_row["mm_ms"],
         "cold_ms": loop_rows["cold"]["ms"], "cold_bound_ms": loop_rows["cold"]["bound_ms"],
         "cold_matmul_loop_ms": loop_rows["cold"]["mm_ms"],
+        "global_n120_m236_ms": g_ms, "global_n120_m236_bound_ms": max(g_bytes_ms, g_ops_ms),
     }
 
     # The cyclic-reduction chunk on the recorded launches of one steady

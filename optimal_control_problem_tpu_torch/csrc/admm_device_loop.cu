@@ -11,17 +11,26 @@
 //
 // Work split.  One thread block per scenario (grid = B): termination is per
 // scenario, so no vote crosses blocks and a plain launch suffices.  The TPU
-// kernel pins the operators in VMEM; here the block copies OP, Ab and Pb
-// into dynamic shared memory once (4 (2 n^2 + m n) bytes: 158,400 at the
-// cart-pole h20 QP, n = 100, m = 196) and runs the whole loop from there.
-// Ab is stored with an odd row stride, so that both of its orientations
-// (t @ Ab: a thread per column, and x @ Ab^T: a thread per row) read without
-// bank conflicts.  A thread owns output elements tid, tid + 256, ...; each
-// is one accumulator that runs the contraction index upwards from zero with
-// one multiply and one add per term (build with -fmad=false), the plain
-// version's order, so the two agree bitwise.  The elementwise relaxation,
-// projection and dual update run in the products' epilogues; a check's
-// seven maxima are a block-wide reduction (max is exact in any order).
+// kernel pins the operators in VMEM; here, where they fit (the kShared
+// variant), the block copies OP, Ab and Pb into dynamic shared memory once
+// (4 (2 n^2 + m n) bytes: 158,400 at the cart-pole h20 QP, n = 100,
+// m = 196) and runs the whole loop from there.  Ab is stored with an odd
+// row stride, so that both of its orientations (t @ Ab: a thread per
+// column, and x @ Ab^T: a thread per row) read without bank conflicts.  A
+// QP whose operators exceed the 232,448 bytes a block may opt into (from
+// n=120, m=236) takes the global variant (kShared = false): the same code
+// reads OP, Ab and Pb where the caller holds them, through L1 from L2 (the
+// operators of 132 resident scenarios at n=200, m=392 are 66 MB, so the
+// later ones come from device memory), and keeps its vectors in a global
+// scratch slab per scenario (so no n or m is refused below the JAX
+// package's 40 MiB guard); only the reduction rows stay in shared memory.
+// A thread owns output elements tid, tid + 256, ...; each is one
+// accumulator that runs the contraction index upwards from zero with one
+// multiply and one add per term (build with -fmad=false), the plain
+// version's order, so both variants agree with it bitwise.  The
+// elementwise relaxation, projection and dual update run in the products'
+// epilogues; a check's seven maxima are a block-wide reduction (max is
+// exact in any order).
 //
 // Bound on this card.  An iteration costs 2 (2 m n + n^2) = 98,400
 // operations per scenario at n = 100, m = 196, and so does a check, against
@@ -34,7 +43,10 @@
 // memory.  The design keeps every operand on chip so that no step waits on
 // device memory, and loads kStage terms of a chain ahead of their adds.
 // Fewer, wider loads (four columns per thread, 16-byte loads), wgmma/TF32,
-// clusters and several scenarios per block are later work.
+// clusters and several scenarios per block are later work.  The global
+// variant re-reads its operators at every product, 8 (n^2 + m n) bytes an
+// iteration (341 KB at n = 120, m = 236), so there the bytes of its L2
+// and device-memory traffic, not shared-memory loads, set the pace.
 
 #include <cuda_runtime.h>
 #include <string.h>
@@ -43,7 +55,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kNumPtrs = 16;
+constexpr int kNumPtrs = 17;
 constexpr int kRed = 8;  // reduction slots per warp (7 used)
 constexpr int kStage = 4;  // terms of a chain whose operands load ahead of its adds
 
@@ -64,16 +76,22 @@ struct Args {
   float* y;           // (B, m)
   float* z;           // (B, m)
   int* it;            // (B,)
+  float* vec;         // (B, vec_floats): the vectors of the global variant
 };
 
 struct Dims {
-  int n, m, ld, max_iter, check_every;
+  int n, m, ld, max_iter, check_every;  // ld: Ab's row stride (n | 1 in shared memory)
   float sigma, alpha, one_m_alpha, eps_abs, eps_rel;
 };
 
-// Shared floats of one block; ops/admm_kernel.py::smem_bytes mirrors it.
+// Floats of one scenario's vectors: x, rhs, xt, qb, 1/D (n each) and z, y,
+// rho z - y, lb, ub, rho, 1/E (m each).
+__host__ __device__ inline size_t vec_floats(int n, int m) { return 5 * n + 7 * m; }
+
+// Shared floats of one block of the kShared variant (operators, vectors,
+// reduction rows); ops/admm_kernel.py::smem_bytes mirrors it.
 __host__ __device__ inline size_t smem_floats(int n, int m, int ld) {
-  return 2 * static_cast<size_t>(n) * n + static_cast<size_t>(m) * ld + 5 * n + 7 * m +
+  return 2 * static_cast<size_t>(n) * n + static_cast<size_t>(m) * ld + vec_floats(n, m) +
          kRed * kWarps;
 }
 
@@ -102,13 +120,22 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads) admm_device_loop_kernel(Args a, Dims d) {
   extern __shared__ float smem[];
   const int n = d.n, m = d.m, ld = d.ld;
-  float* sOP = smem;             // (n, n)
-  float* sPb = sOP + n * n;      // (n, n)
-  float* sAb = sPb + n * n;      // (m, ld)
-  float* sx = sAb + m * ld;      // x
+  const size_t b = blockIdx.x;
+  const float* gOP = a.OP + b * n * n;
+  const float* gPb = a.Pb + b * n * n;
+  const float* gAb = a.Ab + b * m * n;
+  // kShared: operators, vectors and reduction rows in shared memory; else
+  // the operators where the caller holds them (ld = n), the vectors in this
+  // scenario's scratch slab and the reduction rows in shared memory.
+  float* const vbase = kShared ? smem + 2 * n * n + m * ld : a.vec + b * vec_floats(n, m);
+  const float* sOP = kShared ? smem : gOP;               // (n, n)
+  const float* sPb = kShared ? smem + n * n : gPb;       // (n, n)
+  const float* sAb = kShared ? smem + 2 * n * n : gAb;   // (m, ld)
+  float* sx = vbase;             // x
   float* srhs = sx + n;          // rhs
   float* sxt = srhs + n;         // xt
   float* sq = sxt + n;           // qb
@@ -120,22 +147,23 @@ __global__ void __launch_bounds__(kThreads) admm_device_loop_kernel(Args a, Dims
   float* sub = slb + m;
   float* srho = sub + m;
   float* seinv = srho + m;       // 1/E
-  float* sred = seinv + m;       // (kWarps, kRed)
+  float* sred = kShared ? seinv + m : smem;  // (kWarps, kRed)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const float* gOP = a.OP + b * n * n;
-  const float* gPb = a.Pb + b * n * n;
-  const float* gAb = a.Ab + b * m * n;
-  for (int idx = tid; idx < n * n; idx += kThreads) {
-    sOP[idx] = gOP[idx];
-    sPb[idx] = gPb[idx];
-  }
-  for (int idx = tid; idx < m * n; idx += kThreads) {
-    const int r = idx / n;
-    sAb[r * ld + (idx - r * n)] = gAb[idx];
+  if (kShared) {
+    float* const wOP = smem;
+    float* const wPb = wOP + n * n;
+    float* const wAb = wPb + n * n;
+    for (int idx = tid; idx < n * n; idx += kThreads) {
+      wOP[idx] = gOP[idx];
+      wPb[idx] = gPb[idx];
+    }
+    for (int idx = tid; idx < m * n; idx += kThreads) {
+      const int r = idx / n;
+      wAb[r * ld + (idx - r * n)] = gAb[idx];
+    }
   }
   for (int j = tid; j < n; j += kThreads) {
     sx[j] = a.x0[b * n + j];
@@ -243,13 +271,16 @@ __global__ void __launch_bounds__(kThreads) admm_device_loop_kernel(Args a, Dims
 
 extern "C" {
 
-// ptrs: the kNumPtrs device pointers in Args order.  Returns the
-// cudaError_t of the launch (0 on success; cudaErrorInvalidValue when one
-// scenario's operators exceed the shared memory a block may opt into); the
-// kernel runs on `stream` and is not synchronised.
+// ptrs: the kNumPtrs device pointers in Args order (`vec`, the global
+// variant's (B, 5 n + 7 m) vector slab, may be any pointer for the shared
+// one).  `shared` picks the variant (the wrapper's rule,
+// ops/admm_kernel.py::kernel_variant).  Returns the cudaError_t of the
+// launch (0 on success; cudaErrorInvalidValue when the shared variant's
+// operators exceed the shared memory a block may opt into); the kernel
+// runs on `stream` and is not synchronised.
 int ocp_admm_device_loop_f32(const void* const* ptrs, int nptrs, int B, int n, int m,
-                             int max_iter, int check_every, double sigma, double alpha,
-                             double eps_abs, double eps_rel, void* stream) {
+                             int max_iter, int check_every, int shared, double sigma,
+                             double alpha, double eps_abs, double eps_rel, void* stream) {
   if (nptrs != kNumPtrs || B < 1 || n < 1 || m < 1 || check_every < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   static_assert(sizeof(Args) == kNumPtrs * sizeof(void*), "Args layout");
@@ -258,7 +289,7 @@ int ocp_admm_device_loop_f32(const void* const* ptrs, int nptrs, int B, int n, i
   Dims d;
   d.n = n;
   d.m = m;
-  d.ld = n | 1;
+  d.ld = shared ? (n | 1) : n;
   d.max_iter = max_iter;
   d.check_every = check_every;
   d.sigma = static_cast<float>(sigma);
@@ -266,17 +297,23 @@ int ocp_admm_device_loop_f32(const void* const* ptrs, int nptrs, int B, int n, i
   d.one_m_alpha = static_cast<float>(1.0 - alpha);
   d.eps_abs = static_cast<float>(eps_abs);
   d.eps_rel = static_cast<float>(eps_rel);
-  const size_t smem = smem_floats(n, m, d.ld) * sizeof(float);
+  const size_t smem =
+      (shared ? smem_floats(n, m, d.ld) : static_cast<size_t>(kRed * kWarps)) * sizeof(float);
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
-  e = cudaFuncSetAttribute(admm_device_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  admm_device_loop_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, d);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shared) {
+    e = cudaFuncSetAttribute(admm_device_loop_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    admm_device_loop_kernel<true><<<B, kThreads, smem, st>>>(a, d);
+  } else {
+    admm_device_loop_kernel<false><<<B, kThreads, smem, st>>>(a, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

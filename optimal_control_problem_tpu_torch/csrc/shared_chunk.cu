@@ -25,12 +25,24 @@
 // Termination group.  `tile` consecutive scenarios vote together: the
 // group runs whole check blocks while k < bound and not all of its
 // scenarios have converged; nobody freezes.  A group spans several thread
-// blocks, so each check block ends in a vote through global memory
-// (`votes`, zeroed by the wrapper: per group and check, the number of
-// blocks that still hold an unconverged scenario and the number that have
-// voted).  A block spins until its whole group has voted, so all blocks
-// must be resident at once: the launcher uses a cooperative launch, which
-// guarantees that or refuses the launch.
+// blocks (up to JAX's tile, 6,536 scenarios at n=120, m=196: 205 blocks of
+// 32), so its vote crosses them.  Each launch runs ONE check block for
+// every group that is still open, and the launcher enqueues one launch per
+// check block of the chunk's budget: a block of launch c reads its group's
+// vote of check c - 1 from global memory (`votes`, zeroed by the wrapper:
+// per group and check, the number of its thread blocks that still hold an
+// unconverged scenario) and either runs the check block or returns at
+// once.  The stream orders the launches, so no block waits on another and
+// any grid size runs, however many scenarios the card holds resident at
+// once (~4,200 at n=120, m=196).  Why launches and not one persistent
+// cooperative grid that walks several panels per block between grid-wide
+// votes: that grid must also park the panels it is not running in global
+// memory, and adds a spin per check and the residency bookkeeping; here a
+// block's iterates wait in the output panels between launches (~65 KB for
+// 32 scenarios at n=120, m=196, against ~25 iterations of work), and a
+// closed group's launches cost one vote read per block.  The per-scenario
+// arithmetic is that of one launch per chunk, so the kernel stays bitwise
+// equal to the plain version.  Nothing is read on the host.
 //
 // Bound on this card: operations.  At n=120, m=196 an iteration is 122,880
 // float operations per scenario against ~3 KB of panel traffic per chunk.
@@ -71,7 +83,7 @@ struct Args {
   float* rd;
   float* rpr;
   float* rdr;
-  int* votes;  // (2, groups, n_checks): [0] unconverged blocks, [1] arrivals
+  int* votes;  // (groups, n_checks): the group's blocks that held an unconverged scenario
 };
 
 struct Dims {
@@ -130,7 +142,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 template <int TR>
-__global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d) {
+__global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, int chk) {
   constexpr int R = kWarps * TR;
   extern __shared__ float smem[];
   const int n = d.n, m = d.m;
@@ -142,7 +154,6 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d) 
   float* sxt = srhs + R * n;  // (R, n) xt
   __shared__ int s_conv[R];
   __shared__ float s_rp[R], s_rd[R], s_rpr[R], s_rdr[R];
-  __shared__ int s_all;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -155,35 +166,59 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d) 
   // vote) and are never written back.
   auto grow = [&](int r) { return row_base + min(r, nrows - 1); };
 
-  // The group skips the chunk when all of its scenarios enter done.
-  int undone = 0;
-  for (int i = tid; i < d.tile; i += kThreads) undone |= (a.done0[g * d.tile + i] != 1);
-  const bool skip = __syncthreads_or(undone) == 0;
+  // Is the group open at this check?  At the first, unless all of its
+  // scenarios enter done (then it returns its inputs); later, if some
+  // block of the group held an unconverged scenario at the last check.
+  bool open;
+  if (chk == 0) {
+    int undone = 0;
+    for (int i = tid; i < d.tile; i += kThreads) undone |= (a.done0[g * d.tile + i] != 1);
+    open = __syncthreads_or(undone) != 0 && d.bound > 0;
+  } else {
+    open = *(a.votes + g * d.n_checks + chk - 1) > 0;
+  }
+  if (!open) {
+    if (chk == 0) {
+      for (int idx = tid; idx < nrows * n; idx += kThreads) {
+        const size_t o = static_cast<size_t>(row_base) * n + idx;
+        a.x[o] = a.x0[o];
+      }
+      for (int idx = tid; idx < nrows * m; idx += kThreads) {
+        const size_t o = static_cast<size_t>(row_base) * m + idx;
+        a.z[o] = a.z0[o];
+        a.y[o] = a.y0[o];
+      }
+      if (tid < nrows) {
+        const int o = row_base + tid;
+        a.conv[o] = a.done0[o];
+        a.it_inc[o] = 0;
+        a.rp[o] = a.rd[o] = a.rpr[o] = a.rdr[o] = CUDART_INF_F;
+      }
+    }
+    return;  // uniform across the block
+  }
 
+  // The iterates: the inputs at the first check, the last check's after.
+  const float* const xin = chk == 0 ? a.x0 : a.x;
+  const float* const zin = chk == 0 ? a.z0 : a.z;
+  const float* const yin = chk == 0 ? a.y0 : a.y;
   for (int idx = tid; idx < R * n; idx += kThreads) {
     const int r = idx / n, j = idx - r * n;
-    sx[idx] = a.x0[static_cast<size_t>(grow(r)) * n + j];
+    sx[idx] = xin[static_cast<size_t>(grow(r)) * n + j];
   }
   for (int idx = tid; idx < R * m; idx += kThreads) {
     const int r = idx / m, j = idx - r * m;
     const size_t src = static_cast<size_t>(grow(r)) * m + j;
-    const float zv = a.z0[src], yv = a.y0[src];
+    const float zv = zin[src], yv = yin[src];
     sz[idx] = zv;
     sy[idx] = yv;
     sw[idx] = __ldg(a.rho + j) * zv - yv;
-  }
-  if (tid < R) {
-    s_conv[tid] = a.done0[grow(tid)];
-    s_rp[tid] = s_rd[tid] = s_rpr[tid] = s_rdr[tid] = CUDART_INF_F;
   }
   __syncthreads();
 
   const float sigma = d.sigma, alpha = d.alpha, oma = d.one_m_alpha;
   const float ci = __ldg(a.cinv);
-  int k = 0;
-  int chk = 0;
-  bool all_conv = skip;
-  while (k < d.bound && !all_conv) {
+  {
     for (int t = 0; t < d.check_every; ++t) {
       // rhs = sigma x - qb + (rho z - y) @ Ab
       panel_product<TR>(sw, a.Ab, m, n, [&](int, int r, int j, float v) {
@@ -260,29 +295,10 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d) 
         s_rdr[r] = r_dual / fmaxf(max_dual, 1e-12f);
       }
     }
-    // Also the barrier between this check's reads and the next
-    // iteration's writes of the shared panels.
+    // The block's vote: every scenario of it converged or not.  (Also the
+    // barrier between this check's reads and the write-back below.)
     const int block_all = __syncthreads_and(mine);
-    if (d.bpg == 1) {
-      all_conv = block_all != 0;
-    } else {
-      if (tid == 0) {
-        int* open_blocks = a.votes + g * d.n_checks + chk;
-        int* arrived = open_blocks + d.groups * d.n_checks;
-        if (!block_all) atomicAdd(open_blocks, 1);
-        __threadfence();
-        atomicAdd(arrived, 1);
-        while (*reinterpret_cast<volatile int*>(arrived) < d.bpg) {
-        }
-        __threadfence();
-        s_all = *reinterpret_cast<volatile int*>(open_blocks) == 0;
-      }
-      __syncthreads();
-      all_conv = s_all != 0;
-      __syncthreads();  // s_all is rewritten at the next check
-    }
-    k += d.check_every;
-    ++chk;
+    if (tid == 0 && !block_all) atomicAdd(a.votes + g * d.n_checks + chk, 1);
   }
 
   for (int idx = tid; idx < nrows * n; idx += kThreads) {
@@ -298,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d) 
   if (tid < nrows) {
     const int o = row_base + tid;
     a.conv[o] = s_conv[tid];
-    a.it_inc[o] = k;
+    a.it_inc[o] = (chk + 1) * d.check_every;
     a.rp[o] = s_rp[tid];
     a.rd[o] = s_rd[tid];
     a.rpr[o] = s_rpr[tid];
@@ -307,25 +323,51 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d) 
 }
 
 template <int TR>
-cudaError_t launch(Args& a, Dims& d, cudaStream_t stream) {
+size_t smem_bytes(const Dims& d) {
+  return static_cast<size_t>(kWarps * TR) * (3 * d.n + 3 * d.m) * sizeof(float);
+}
+
+// Waves of a grid of `rows`-scenario blocks over the card (0 when the
+// panels of `rows` scenarios do not fit in shared memory).
+template <int TR>
+cudaError_t waves(const Dims& d, int* out) {
   constexpr int R = kWarps * TR;
-  const size_t smem = static_cast<size_t>(R) * (3 * d.n + 3 * d.m) * sizeof(float);
+  *out = 0;
   auto kern = shared_chunk_kernel<TR>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;  // the panels of R scenarios exceed shared memory
+  const size_t smem = smem_bytes<TR>(d);
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess) {
+    cudaGetLastError();  // a refused size leaves no sticky error behind
+    return cudaSuccess;
+  }
   int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) !=
       cudaSuccess)
     return e;
-  const int grid = d.groups * d.bpg;
-  if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&a, &d};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid), dim3(kThreads),
-                                     params, smem, stream);
+  if (per_sm < 1) return cudaSuccess;
+  const long long grid = static_cast<long long>(d.groups) * ((d.tile + R - 1) / R);
+  const long long slots = static_cast<long long>(per_sm) * sms;
+  *out = static_cast<int>((grid + slots - 1) / slots);
+  return cudaSuccess;
+}
+
+// One launch per check block of the chunk's budget, on `stream`.
+template <int TR>
+cudaError_t launch_checks(const Args& a, Dims d, cudaStream_t stream) {
+  constexpr int R = kWarps * TR;
+  d.bpg = (d.tile + R - 1) / R;
+  const dim3 grid(d.groups * d.bpg);
+  const size_t smem = smem_bytes<TR>(d);
+  for (int c = 0; c < d.n_checks; ++c) {
+    shared_chunk_kernel<TR><<<grid, kThreads, smem, stream>>>(a, d, c);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -333,19 +375,22 @@ cudaError_t launch(Args& a, Dims& d, cudaStream_t stream) {
 extern "C" {
 
 // ptrs: the kNumPtrs device pointers in Args order.  `rows` scenarios per
-// thread block: 8, 16 or 32, or 0 for the most whose panels fit in shared
-// memory and whose grid can be resident at once (measured on an H100 at
+// thread block: 8, 16 or 32, or 0 for the candidate whose grid runs in the
+// fewest waves over the card, then the most rows (measured on an H100 at
 // n=120, m=196: the more rows, the faster, at B=64 as at B=4096, since a
 // block's time is set by its chain of operator loads, whatever their
-// reuse).  Returns the cudaError_t of the launch (0 on success;
-// cudaErrorCooperativeLaunchTooLarge when no grid fits); the kernel runs
-// on `stream` and is not synchronised.
+// reuse).  Enqueues n_checks launches.  Returns the cudaError_t of the
+// launches (0 on success; cudaErrorInvalidValue when no candidate's
+// panels fit in shared memory); the kernels run on `stream` and are not
+// synchronised.
 int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, int m, int tile,
                               int rows, int bound, int check_every, int n_checks, double sigma,
                               double alpha, double eps_abs, double eps_rel, void* stream) {
   if (nptrs != kNumPtrs || B < 1 || n < 1 || m < 1 || tile < 1 || B % tile != 0 ||
       check_every < 1 || n_checks < 1 ||
       static_cast<long long>(n_checks) * check_every < bound)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows != 0 && rows != 8 && rows != 16 && rows != 32)
     return static_cast<int>(cudaErrorInvalidValue);
   static_assert(sizeof(Args) == kNumPtrs * sizeof(void*), "Args layout");
   Args a;
@@ -359,22 +404,26 @@ int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, 
   d.check_every = check_every;
   d.n_checks = n_checks;
   d.groups = B / tile;
+  d.bpg = 0;
   d.sigma = static_cast<float>(sigma);
   d.alpha = static_cast<float>(alpha);
   d.one_m_alpha = static_cast<float>(1.0 - alpha);
   d.eps_abs = static_cast<float>(eps_abs);
   d.eps_rel = static_cast<float>(eps_rel);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows != 0 && rows != 8 && rows != 16 && rows != 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaErrorInvalidValue;
-  for (int r = 32; r >= 8; r /= 2) {
-    if (rows != 0 && rows != r) continue;
-    d.bpg = (tile + r - 1) / r;
-    e = r == 32 ? launch<4>(a, d, s) : r == 16 ? launch<2>(a, d, s) : launch<1>(a, d, s);
-    if (e == cudaSuccess) break;
-    cudaGetLastError();  // a refused configuration leaves no sticky error behind
+  int wv[3];  // rows 32, 16, 8
+  cudaError_t e;
+  if ((e = waves<4>(d, &wv[0])) != cudaSuccess || (e = waves<2>(d, &wv[1])) != cudaSuccess ||
+      (e = waves<1>(d, &wv[2])) != cudaSuccess)
+    return static_cast<int>(e);
+  int best = -1;
+  for (int i = 0; i < 3; ++i) {
+    if (wv[i] == 0 || (rows != 0 && rows != (32 >> i))) continue;
+    if (best < 0 || wv[i] < wv[best]) best = i;
   }
+  if (best < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = best == 0 ? launch_checks<4>(a, d, s) : best == 1 ? launch_checks<2>(a, d, s)
+                                                         : launch_checks<1>(a, d, s);
   return static_cast<int>(e);
 }
 

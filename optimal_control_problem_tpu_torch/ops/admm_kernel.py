@@ -25,13 +25,16 @@ kernel's, not the ``"xla"`` loop's: an f32 inverse (and a Hessian from
 
 :func:`admm_device_loop` is the wrapper: for CUDA tensors it launches the
 hand-written kernel ``csrc/admm_device_loop.cu`` (built by ``nvcc`` at
-first use; one thread block per scenario with its operators resident in
-shared memory) and counts the launch in ``admm_device_loop.launches``; a
-problem whose operators do not fit in one block's shared memory is
-refused (:func:`check_fits`), the card's counterpart of the JAX driver's
-VMEM guard.  For CPU tensors it runs :func:`admm_device_loop_plain`, the
-plain PyTorch version of the same contract that the CPU tests hold
-against the Pallas kernel.  There is no fallback from one to the other.
+first use; one thread block per scenario) and counts the launch in
+``admm_device_loop.launches``.  :func:`kernel_variant` picks where the
+kernel keeps a scenario's operators: in shared memory where they fit
+(``"shared"``), else where the caller holds them, read through L2
+(``"global"``, vectors in a scratch slab); both variants run the same op
+order.  The only size limit is the JAX driver's own guard, which the dense
+``"pallas"`` path (``solvers/admm.py``) copies.  For CPU tensors it runs
+:func:`admm_device_loop_plain`, the plain PyTorch version of the same
+contract that the CPU tests hold against the Pallas kernel.  There is no
+fallback from one to the other.
 
 Both versions form every product as an ascending chain over the
 contraction index, one multiply and one add per term (the CUDA build has
@@ -48,8 +51,9 @@ __all__ = [
     "admm_device_loop",
     "admm_device_loop_plain",
     "chain_bmm",
-    "check_fits",
+    "kernel_variant",
     "smem_bytes",
+    "vector_floats",
     "SMEM_LIMIT",
 ]
 
@@ -60,25 +64,27 @@ SMEM_LIMIT = 232_448
 _THREADS = 256
 
 
+def vector_floats(n: int, m: int) -> int:
+    """Floats of one scenario's vectors in the kernel: five n-vectors (x,
+    rhs, xt, qb, 1/D) and seven m-vectors (z, y, rho z - y, lb, ub, rho,
+    1/E)."""
+    return 5 * n + 7 * m
+
+
 def smem_bytes(n: int, m: int) -> int:
-    """Shared memory of one thread block of ``csrc/admm_device_loop.cu``:
-    ``OP`` and ``Pb`` (n x n), ``Ab`` with its rows padded to an odd stride
-    (``n | 1``, so both of its orientations read without bank conflicts),
-    five n-vectors (x, rhs, xt, qb, 1/D), seven m-vectors (z, y, rho z - y,
-    lb, ub, rho, 1/E) and the reduction scratch."""
-    return 4 * (2 * n * n + m * (n | 1) + 5 * n + 7 * m + 8 * (_THREADS // 32))
+    """Shared memory of one thread block of ``csrc/admm_device_loop.cu``'s
+    ``"shared"`` variant: ``OP`` and ``Pb`` (n x n), ``Ab`` with its rows
+    padded to an odd stride (``n | 1``, so both of its orientations read
+    without bank conflicts), the vectors and the reduction scratch."""
+    return 4 * (2 * n * n + m * (n | 1) + vector_floats(n, m) + 8 * (_THREADS // 32))
 
 
-def check_fits(n: int, m: int) -> None:
-    """Raise if one scenario's operators do not fit in a thread block's
-    shared memory (there is no other kernel for such a problem)."""
-    need = smem_bytes(n, m)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"admm_device_loop: n={n}, m={m} needs {need} bytes of shared memory "
-            f"per thread block, above the card's {SMEM_LIMIT}; use backend='xla' "
-            "or method='banded'"
-        )
+def kernel_variant(n: int, m: int) -> str:
+    """``"shared"`` where one scenario's operators and vectors fit in a
+    thread block's shared memory (166,928 bytes at n=100, m=196), else
+    ``"global"`` (from 238,688 bytes at n=120, m=236): the kernel then reads
+    the operators through L2 and keeps its vectors in a scratch slab."""
+    return "shared" if smem_bytes(n, m) <= SMEM_LIMIT else "global"
 
 
 def chain_bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -190,8 +196,8 @@ def admm_device_loop(
 
     CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
     launch ``csrc/admm_device_loop.cu`` on the current stream, one thread
-    block per scenario, or raise: a shape whose operators do not fit in
-    shared memory (:func:`check_fits`), or a refused launch.
+    block per scenario, in the variant :func:`kernel_variant` picks, or
+    raise if the launch is refused.
     """
     B, n, m = _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
     kw = dict(max_iter=max_iter, check_every=check_every)
@@ -201,7 +207,7 @@ def admm_device_loop(
             OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv,
             sigma, alpha, eps_abs, eps_rel, x0, y0, **kw,
         )
-    check_fits(n, m)
+    shared = kernel_variant(n, m) == "shared"
     outs = (
         torch.empty((B, n), dtype=torch.float32, device=dev),
         torch.empty((B, m), dtype=torch.float32, device=dev),
@@ -210,10 +216,12 @@ def admm_device_loop(
     )
     if B == 0:
         return outs
+    vec = torch.empty((1 if shared else B * vector_floats(n, m),), dtype=torch.float32,
+                      device=dev)
     launch_chunk(
         "admm_device_loop", "admm_device_loop", "ocp_admm_device_loop_f32",
-        [OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, *outs],
-        (B, n, m, max_iter, check_every),
+        [OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, *outs, vec],
+        (B, n, m, max_iter, check_every, int(shared)),
         (sigma, alpha, eps_abs, eps_rel), dev,
     )
     admm_device_loop.launches += 1

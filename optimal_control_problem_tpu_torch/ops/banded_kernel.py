@@ -11,12 +11,12 @@ granularity.  Every array is batch-last::
     blocks  (N, w, w, B)    vectors  (N, w, B)    per-scenario  (B,)
 
 :func:`banded_admm_chunk` is the wrapper: for CUDA tensors it launches the
-hand-written kernel ``csrc/banded_chunk.cu`` (one thread per scenario,
-built by ``nvcc`` at first use) and counts the launch in
-``banded_admm_chunk.launches``; for CPU tensors it runs
-:func:`banded_admm_chunk_plain`, the straightforward PyTorch transcription
-of the same contract that the CPU tests hold against the Pallas kernel.
-There is no fallback from one to the other.
+hand-written kernel ``csrc/banded_chunk.cu`` (one warp per scenario, its
+factors, state and operators in a slab of shared memory; built by ``nvcc``
+at first use) and counts the launch in ``banded_admm_chunk.launches``; for
+CPU tensors it runs :func:`banded_admm_chunk_plain`, the straightforward
+PyTorch transcription of the same contract that the CPU tests hold against
+the Pallas kernel.  There is no fallback from one to the other.
 
 The iteration loop (:func:`admm_chunk_iterate_plain`), the ascending-chain
 block algebra (:func:`mv`, :func:`mm`, ...) and the wrapper's contract
@@ -40,7 +40,10 @@ __all__ = [
     "admm_chunk_iterate_plain",
     "chunk_contract",
     "launch_chunk",
+    "slab_floats",
+    "slab_in_shared_memory",
     "KERNEL_WIDTHS",
+    "SMEM_LIMIT",
 ]
 
 
@@ -58,6 +61,28 @@ def csum(t, dim):
 KERNEL_WIDTHS = (3, 4, 5)
 _BOUNDS = ("lx", "ux", "rx", "ld", "ud", "rd", "lc", "uc", "rc")
 _SCALES = ("ds", "ex", "ed", "ec", "ci")
+# Dynamic shared memory one thread block may opt into on sm_90 (H100/H200).
+SMEM_LIMIT = 232_448
+
+
+def slab_floats(N: int, w: int, r: int, r2: int) -> int:
+    """Floats of one scenario's slab in ``csrc/banded_chunk.cu`` (its
+    ``slab_floats``): the factors ``dinv`` and ``g`` ((2N-1) w^2), the
+    sweep and solution vectors and x, zx, yx (5 N w), zd, yd (2 (N-1) r),
+    zc, yc (2 N r2), the factorization's product and Gauss-Jordan
+    ping-pong pair (5 w^2), then the scenario's copy of its operators (Hb,
+    J0, J1, Jc and the bound and scaling rows)."""
+    nd = N - 1
+    state = (2 * N - 1) * w * w + 5 * N * w + 2 * nd * r + 2 * N * r2 + 5 * w * w
+    ops = N * w * w + 2 * nd * r * w + N * r2 * w + 6 * N * w + 4 * nd * r + 4 * N * r2
+    return state + ops
+
+
+def slab_in_shared_memory(N: int, w: int, r: int, r2: int) -> bool:
+    """Whether one scenario's slab fits in its thread block's shared
+    memory (16,544 bytes at cart-pole h20); otherwise the kernel keeps the
+    slabs in global scratch (same code, L2-resident)."""
+    return slab_floats(N, w, r, r2) * 4 <= SMEM_LIMIT
 
 
 def outer_r(rho_s, ja, jb):
@@ -505,16 +530,13 @@ def banded_admm_chunk(
     outs = chunk_outputs(dims, dev)
     if B == 0:
         return outs
-    f32 = torch.float32
-    scratch = (  # s dinv g
-        torch.empty((N, w, B), dtype=f32, device=dev),
-        torch.empty((N, w, w, B), dtype=f32, device=dev),
-        torch.empty((N - 1, w, w, B), dtype=f32, device=dev),
-    )
+    per = slab_floats(N, w, r, r2)
+    in_smem = slab_in_shared_memory(N, w, r, r2)
+    slab = torch.empty((1 if in_smem else B * per,), dtype=torch.float32, device=dev)
     launch_chunk(
         "banded_admm_chunk", "banded_chunk", "ocp_banded_admm_chunk_f32",
-        [*inputs, *outs, *scratch],
-        (N, w, r, r2, B, interval, check_every, max_iter),
+        [*inputs, *outs, slab],
+        (N, w, r, r2, B, interval, check_every, max_iter, per, int(in_smem)),
         (sigma, alpha, eps_abs, eps_rel), dev,
     )
     banded_admm_chunk.launches += 1

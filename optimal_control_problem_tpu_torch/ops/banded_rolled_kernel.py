@@ -53,11 +53,33 @@ from .banded_kernel import (
     outer_r,
 )
 
-__all__ = ["banded_admm_chunk_rolled", "banded_admm_chunk_rolled_plain", "MAX_ROLLED_WIDTH"]
+__all__ = [
+    "banded_admm_chunk_rolled",
+    "banded_admm_chunk_rolled_plain",
+    "rolled_slab_floats",
+    "MAX_ROLLED_WIDTH",
+]
 
-# Widest block the CUDA kernel takes (one thread per block row, 8
-# scenarios per thread block, row buffers in shared memory).
+# Widest block the CUDA kernel takes (two blocks' elements, one thread
+# each, fill its 512-thread thread block).
 MAX_ROLLED_WIDTH = 16
+
+
+def rolled_slab_floats(N: int, w: int, r: int, r2: int, cr1: bool) -> int:
+    """Floats of one scenario's global slab in ``csrc/banded_rolled_chunk.cu``
+    (its ``make_layout``): M's diagonal and subdiagonal blocks ((2N-1)
+    w^2); with the CR level the reduced system and the temporaries ``Vb``,
+    ``Ya`` and the workspace of the level's batched inverses ((8H - 2)
+    w^2, H = N // 2); the Gauss-Jordan / Schur workspace of the two chains
+    (10 w^2); the rhs, sweep and u vectors (3 N w); the scenario's copy of
+    its operators (Hb, J0, J1, Jc and the bound and scaling rows) and its
+    carried state.  What fits in shared memory is used from there."""
+    W2, H, nd = w * w, N // 2, N - 1
+    blocks = (2 * N - 1) * W2 + ((8 * H - 2) * W2 if cr1 else 0) + 10 * W2 + 3 * N * w
+    ops = N * W2 + 2 * nd * r * w + N * r2 * w
+    rows = 6 * N * w + 4 * nd * r + 4 * N * r2
+    state = 3 * N * w + 2 * nd * r + 2 * N * r2
+    return blocks + ops + rows + state
 
 
 def two_way_factor(d, low):
@@ -256,24 +278,13 @@ def banded_admm_chunk_rolled(
     outs = chunk_outputs(dims, dev)
     if B == 0:
         return outs
-    n_sys = N // 2 if cr1 else N
-
-    def empty(*shape):
-        return torch.empty(shape + (B,), dtype=torch.float32, device=dev)
-
-    # Scratch: M's diagonal -> pivot inverses (dinv_o in the odd slots
-    # under cr1) and subdiagonal -> multipliers (Lb/La under cr1); the
-    # reduced system's (cr1 only); rhs, sweep and u vectors.
-    scratch = (
-        empty(N, w, w), empty(N - 1, w, w),
-        empty(n_sys if cr1 else 1, w, w), empty(n_sys - 1 if cr1 else 1, w, w),
-        empty(N, w), empty(N, w), empty(N, w),
-    )
+    per = rolled_slab_floats(N, w, r, r2, cr1)
+    slab = torch.empty((B, per), dtype=torch.float32, device=dev)
     launch_chunk(
         "banded_admm_chunk_rolled", "banded_rolled_chunk",
         "ocp_banded_admm_chunk_rolled_f32",
-        [*inputs, *outs, *scratch],
-        (N, w, r, r2, B, interval, check_every, max_iter, int(bool(cr1))),
+        [*inputs, *outs, slab],
+        (N, w, r, r2, B, interval, check_every, max_iter, int(bool(cr1)), per),
         (sigma, alpha, eps_abs, eps_rel), dev,
     )
     banded_admm_chunk_rolled.launches += 1

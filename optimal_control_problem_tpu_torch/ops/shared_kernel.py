@@ -18,9 +18,11 @@ consecutive scenarios: nobody freezes, ``conv`` is re-evaluated for every
 scenario at each check, and the group runs whole check blocks while its
 iteration count is below ``bound`` and not all of its scenarios have
 converged.  A group whose scenarios are all done at entry returns its
-inputs with ``it_inc = 0`` and infinite residuals.  The drivers pass
-``batch_tile = B`` (one batch-wide vote), which is what makes the fused
-path's iteration counts equal the ``"xla"`` loop's.
+inputs with ``it_inc = 0`` and infinite residuals.  The driver's group is
+:func:`pick_shared_tile`'s, as in the JAX package: the whole batch up to
+6,538 scenarios at n=120, m=196 (one batch-wide vote, which is what makes
+the fused path's iteration counts equal the ``"xla"`` loop's), tiles of
+6,536 above.
 
 :func:`shared_admm_chunk` is the wrapper: for CUDA tensors it launches the
 hand-written kernel ``csrc/shared_chunk.cu`` (built by ``nvcc`` at first
@@ -35,9 +37,11 @@ FMA contraction off), so they round alike and can agree bitwise.  A
 ``torch.matmul`` sums in another order: against it (the ``"xla"`` loop)
 iterates agree to f32 roundoff only.
 
-The JAX module's ``pick_shared_tile`` models the TPU's on-chip memory and
-is not ported: on the card one thread block holds 8, 16 or 32 scenarios,
-and the group's vote crosses thread blocks inside the kernel.  The
+On the card one thread block holds 8, 16 or 32 scenarios, and a group's
+vote crosses thread blocks: the kernel runs one check block per launch and
+the wrapper's one call enqueues a launch per check block of the budget,
+each reading its group's last vote from global memory, so a group of any
+size runs (see the note in ``csrc/shared_chunk.cu``).  The
 ``iter_precision`` variants are not ported (``ROADMAP.md`` A8).
 """
 
@@ -49,10 +53,38 @@ import torch
 
 from .banded_kernel import _check, launch_chunk
 
-__all__ = ["shared_admm_chunk", "shared_admm_chunk_plain", "chain_matmul", "ROWS_PER_BLOCK"]
+__all__ = [
+    "shared_admm_chunk",
+    "shared_admm_chunk_plain",
+    "chain_matmul",
+    "pick_shared_tile",
+    "ROWS_PER_BLOCK",
+]
 
 # Scenarios per thread block the CUDA kernel is instantiated for.
 ROWS_PER_BLOCK = (8, 16, 32)
+
+
+def pick_shared_tile(B: int, n: int, m: int) -> Optional[int]:
+    """The termination group of the fused path, or ``None``: the JAX
+    package's ``ops/shared_kernel.py::pick_shared_tile``, copied so that
+    both packages vote over the same scenarios.  It sizes the TPU's VMEM
+    working set (lane dims padded to 128, panels and temporaries modelled
+    at three times the panel rows, a 96 MiB budget less the operators):
+    the whole batch while it fits, else the largest multiple of 8 that
+    does, else ``None`` (the JAX driver then runs its XLA loop, and so
+    does the port's)."""
+    pad = lambda s: -(-s // 128) * 128  # noqa: E731
+    np_, mp = pad(n), pad(m)
+    per_scen = 3 * (2 * np_ + 4 * mp)
+    ops = 2 * n * np_ + m * np_ + 4 * mp + 2 * np_
+    budget = 96 * 1024 * 1024 // 4 - ops
+    if B * per_scen <= budget:
+        return B
+    tile = (budget // per_scen) // 8 * 8
+    if tile >= 8:
+        return min(tile, B)
+    return None
 
 
 def chain_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -187,13 +219,15 @@ def shared_admm_chunk(
     :func:`shared_admm_chunk_plain`.
 
     CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
-    launch ``csrc/shared_chunk.cu`` on the current stream, or raise: the
-    kernel is a cooperative launch (the termination vote of a group
-    crosses thread blocks, so all of them must be resident at once), and a
-    batch or a panel width that does not fit the card is refused by the
-    launch.  ``rows_per_block`` (one of ``ROWS_PER_BLOCK``) forces the
-    scenarios per thread block, for timing; by default the launcher takes
-    the most that fit.  Results do not depend on it.
+    launch ``csrc/shared_chunk.cu`` on the current stream, one launch per
+    check block of ``bound`` (the termination vote of a group crosses
+    thread blocks through global memory between launches), or raise: a
+    panel width whose rows do not fit in shared memory is refused.
+    ``rows_per_block`` (one of ``ROWS_PER_BLOCK``) forces the scenarios per
+    thread block, for timing; by default the launcher takes the one whose
+    grid runs in the fewest waves over the card, then the most rows.
+    Results do not depend on it.  One call counts one launch in
+    ``shared_admm_chunk.launches`` (one chunk of the driver).
     """
     B, n, m, bound, done0, cinv = _contract(
         done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
@@ -223,8 +257,8 @@ def shared_admm_chunk(
         raise ValueError(f"rows_per_block must be one of {ROWS_PER_BLOCK}, got {rows}")
     n_checks = max(1, -(-bound // check_every))
     # Per group and check block: how many of the group's thread blocks
-    # still hold an unconverged scenario, and how many have voted.
-    votes = torch.zeros((2, groups, n_checks), dtype=torch.int32, device=dev)
+    # still held an unconverged scenario (read by the next check's launch).
+    votes = torch.zeros((groups, n_checks), dtype=torch.int32, device=dev)
     launch_chunk(
         "shared_admm_chunk", "shared_chunk", "ocp_shared_admm_chunk_f32",
         [done0, OP, Ab, Ab.T.contiguous(), Pb, rho, lb, ub, qb, Dinv, Einv, cinv,

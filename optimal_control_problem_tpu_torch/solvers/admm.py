@@ -43,6 +43,7 @@ __all__ = [
     "QPSolution",
     "admm_solve",
     "admm_solve_batch",
+    "check_pallas_size",
     "prepare_dense",
     "ruiz_equilibrate",
 ]
@@ -297,6 +298,20 @@ def prepare_dense(P, q, A, l, u, settings: ADMMSettings) -> DensePrep:
     return DensePrep(Pb, qb, Ab, lb, ub, D, E, c, rho_v, OP)
 
 
+def check_pallas_size(n: int, m: int) -> None:
+    """The JAX package's size guard of the dense ``"pallas"`` path
+    (``solvers/admm.py``, its VMEM budget for one QP's operators), copied
+    so that the port raises exactly where JAX's does; the device loop
+    itself takes any size (``ops/admm_kernel.kernel_variant``)."""
+    vmem_bytes = 4 * (2 * n * n + 2 * m * n + 4 * (n + m))
+    if vmem_bytes > 40 * 1024 * 1024:
+        raise ValueError(
+            f"backend='pallas' would need ~{vmem_bytes / 1e6:.1f} MB of VMEM for this "
+            f"problem size (n={n}, m={m}) in the JAX package, whose limit the port "
+            "keeps; use backend='xla' or method='banded'"
+        )
+
+
 def admm_solve(
     P: torch.Tensor,
     q: torch.Tensor,
@@ -341,8 +356,10 @@ def admm_solve_batch(
     """
     st = settings
     require_highest_precision(st)
-    if st.backend == "pallas" and st.method != "condensed":
-        raise ValueError("backend='pallas' requires method='condensed'")
+    if st.backend == "pallas":
+        if st.method != "condensed":
+            raise ValueError("backend='pallas' requires method='condensed'")
+        check_pallas_size(P.shape[-1], A.shape[-2])
     dtype = P.dtype
     q, A, u = q.to(dtype), A.to(dtype), u.to(dtype)
     # Guard against inverted bounds from float noise.

@@ -42,7 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.shared_kernel import shared_admm_chunk
+from ..ops.shared_kernel import pick_shared_tile, shared_admm_chunk
 from .admm import (
     ADMMSettings,
     _RHO_EQ_OVER_RHO_INEQ,
@@ -173,9 +173,11 @@ def admm_iterate_prepared(
     loop runs as rho-constant chunks of the fused kernel
     (:mod:`..ops.shared_kernel`); semantics match the ``"xla"`` loop,
     except that infeasibility certificates are evaluated once per chunk
-    instead of once per check block (as on the banded batch path).  The
-    KKT method and ``m == 0`` have no kernel and take the ``"xla"`` loop,
-    as in the JAX package.
+    instead of once per check block (as on the banded batch path) and
+    that a batch above the JAX package's tile limit votes on termination
+    per tile (``pick_shared_tile``).  The KKT method, ``m == 0`` and a
+    problem whose working set fits at no tile take the ``"xla"`` loop, as
+    in the JAX package.
     """
     require_highest_precision(settings)
     if (
@@ -271,11 +273,14 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
     * between chunks (PyTorch ops): infeasibility certificates on chunk
       deltas and OSQP adaptive rho with a shared re-factorization.
 
-    ``batch_tile`` is the termination group; the default is the whole
-    batch, which makes ``iters`` equal the ``"xla"`` loop's.  A smaller
-    one that does not divide the batch is padded with replicas of the
-    first scenario.  On CUDA tensors the chunk launches its kernel or
-    raises: there is no fallback to the ``"xla"`` loop.
+    ``batch_tile`` is the termination group; the default is the JAX
+    driver's, :func:`..ops.shared_kernel.pick_shared_tile` (the whole
+    batch up to its size limit, which makes ``iters`` equal the ``"xla"``
+    loop's); where that returns ``None`` the solve takes the ``"xla"``
+    loop, as the JAX driver does.  A group that does not divide the batch
+    is padded with replicas of the first scenario.  On CUDA tensors the
+    chunk launches its kernel or raises: there is no other fallback to the
+    ``"xla"`` loop.
     """
     dtype = fac.Pb.dtype
     st = settings
@@ -284,7 +289,10 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
     dev = q.device
     sigma = torch.as_tensor(st.sigma, dtype=dtype, device=dev)
     if batch_tile is None:
-        batch_tile = B
+        batch_tile = pick_shared_tile(B, n, Ab.shape[0])
+    if batch_tile is None:
+        # The JAX driver's working set fits at no tile: its XLA loop.
+        return _admm_iterate_impl(fac, q, l, u, settings, x0, y0)
 
     l, u, q_orig, qb, lb, ub, x, z, y = _scaled_start(fac, q, l, u, x0, y0)
 

@@ -183,11 +183,16 @@ def test_device_loop_contract_and_shared_memory_guard():
         ak.admm_device_loop(*bad, *tail)
     with pytest.raises(ValueError, match="check_every"):
         ak.admm_device_loop(*args, *tail, check_every=0)
-    # The cart-pole h20 QP fits one thread block; twice its width does not.
+    # The cart-pole h20 QP's operators fit in one thread block's shared
+    # memory; from n=120, m=236 the kernel reads them from global memory
+    # instead (its "global" variant), so no size below the JAX package's
+    # own guard is refused.
     assert ak.smem_bytes(100, 196) == 166_928 <= ak.SMEM_LIMIT
-    ak.check_fits(100, 196)
-    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
-        ak.check_fits(200, 392)
+    assert ak.kernel_variant(100, 196) == "shared"
+    assert ak.smem_bytes(120, 236) == 238_688 > ak.SMEM_LIMIT
+    assert ak.kernel_variant(120, 236) == "global"
+    assert ak.kernel_variant(200, 392) == "global"
+    assert ak.vector_floats(120, 236) == 5 * 120 + 7 * 236
 
 
 # -- admm_solve_batch against jax.vmap(admm_solve) --------------------------
@@ -329,3 +334,35 @@ def test_pallas_infeasible_qp_certificate():
                            PALLAS.replace(max_iter=500))
     assert not bool(sol.converged)
     assert bool(sol.prim_inf)
+
+
+# -- the dense "pallas" path's size guard: JAX's, copied --------------------
+
+
+@pytest.mark.parametrize("n,m", [(1619, 1619), (10, 440_000)])
+def test_pallas_size_guard_raises_where_jax_raises(n, m):
+    """Above the JAX package's 40 MiB operator budget both packages refuse
+    backend="pallas" with a ValueError before any work; the "xla" backend is
+    not guarded (not run here: the problems are large)."""
+    P = np.eye(n, dtype=np.float32)
+    q = np.zeros(n, np.float32)
+    A = np.zeros((m, n), np.float32)
+    l = np.full(m, -1.0, np.float32)
+    u = np.full(m, 1.0, np.float32)
+    with pytest.raises(ValueError, match="VMEM"):
+        jadmm.admm_solve(*map(jnp.asarray, (P, q, A, l, u)),
+                         jadmm.ADMMSettings(method="condensed", backend="pallas"))
+    st = ADMMSettings(method="condensed", backend="pallas")
+    with pytest.raises(ValueError, match="VMEM"):
+        tadmm.admm_solve(*map(t, (P, q, A, l, u)), st)
+    with pytest.raises(ValueError, match="VMEM"):
+        tadmm.admm_solve_batch(*(t(a)[None] for a in (P, q, A, l, u)), st)
+
+
+def test_pallas_size_guard_boundary():
+    """The guard's boundary is JAX's formula: 4 (2 n^2 + 2 m n + 4 (n + m))
+    bytes against 40 MiB (n = m = 1618 passes, 1619 does not)."""
+    tadmm.check_pallas_size(1618, 1618)
+    tadmm.check_pallas_size(120, 236)
+    with pytest.raises(ValueError, match=r"n=1619, m=1619"):
+        tadmm.check_pallas_size(1619, 1619)

@@ -220,6 +220,20 @@ def test_chunk_contract_errors():
         sk.shared_admm_chunk(done0, 25, *args, batch_tile=16, **{**KW, "check_every": 0})
 
 
+def test_wrapper_raises_for_rows_the_kernel_does_not_take(monkeypatch):
+    """On the card the wrapper refuses a forced scenarios-per-block count
+    the kernel has no instantiation for (checked on meta tensors past the
+    contract checks, which the CPU tests hold elsewhere)."""
+    prob = problem()
+    jfac, _ = factors(prob)
+    args = [t(a).to("meta") for a in chunk_inputs(jfac, prob)]
+    done0 = torch.zeros(16, dtype=torch.int32, device="meta")
+    cinv = torch.zeros(1, device="meta")
+    monkeypatch.setattr(sk, "_contract", lambda *a: (16, 6, 9, 25, done0, cinv))
+    with pytest.raises(ValueError, match="rows_per_block must be one of"):
+        sk.shared_admm_chunk(done0, 25, *args, batch_tile=16, rows_per_block=12, **KW)
+
+
 def test_chain_matmul_is_the_ascending_chain():
     rng = np.random.default_rng(2)
     a = rng.normal(size=(5, 7)).astype(np.float32)
@@ -341,3 +355,56 @@ def test_one_shot_solve_and_unported_precisions():
     for kw in (dict(precision="high"), dict(iter_precision="high")):
         with pytest.raises(NotImplementedError, match="A8c"):
             tab.admm_solve_shared(*map(t, (P, A, qs, ls, us)), ADMMSettings(**BASE, **kw))
+
+
+# ---- the termination group: JAX's pick_shared_tile -------------------------
+
+
+@pytest.mark.parametrize("n,m", [(120, 196), (6, 9), (1000, 2000), (2600, 5200), (4000, 8000)])
+@pytest.mark.parametrize("B", [1, 8, 64, 4096, 6538, 6539, 8192, 100_000])
+def test_pick_shared_tile_matches_jax(B, n, m):
+    """The port's copy of the group rule equals JAX's, ``None`` included
+    (operators too large for any tile at the widest shapes)."""
+    from optimal_control_problem_tpu.ops.shared_kernel import pick_shared_tile as j_pick
+
+    assert sk.pick_shared_tile(B, n, m) == j_pick(B, n, m)
+
+
+def test_pick_shared_tile_double_integrator_groups():
+    """At the double integrator's n=120, m=196 the whole batch votes up to
+    6,538 scenarios and tiles of 6,536 above; the widest shapes get none."""
+    assert sk.pick_shared_tile(4096, 120, 196) == 4096
+    assert sk.pick_shared_tile(6538, 120, 196) == 6538
+    assert sk.pick_shared_tile(6539, 120, 196) == 6536
+    assert sk.pick_shared_tile(8192, 120, 196) == 6536
+    assert sk.pick_shared_tile(8, 4000, 8000) is None
+
+
+@pytest.mark.parametrize("tile", [8, None])
+def test_default_group_and_xla_fallback_match_jax(monkeypatch, tile):
+    """With the group rule patched to the same tile in both packages, the
+    fused drivers' default group matches JAX's (B=20 in groups of 8: padded
+    to 24, three votes); where the rule returns None both take the "xla"
+    loop and no chunk runs.  Converging at eps 1e-4 (far from the knife
+    edge on this problem): equal iteration counts, flags and iterates."""
+    from optimal_control_problem_tpu.ops import shared_kernel as jsk
+
+    monkeypatch.setattr(jsk, "pick_shared_tile", lambda B, n, m: tile)
+    monkeypatch.setattr(tab, "pick_shared_tile", lambda B, n, m: tile)
+    calls = []
+    real = tab.shared_admm_chunk
+    monkeypatch.setattr(tab, "shared_admm_chunk",
+                        lambda *a, **k: calls.append(k["batch_tile"]) or real(*a, **k))
+    prob = problem(B=20)
+    kw = dict(adaptive_rho=True, backend="pallas")
+    with jax.default_matmul_precision("highest"):
+        jp, tp = solve_both(prob, **kw)
+    assert_solutions_close(tp, jp)
+    assert bool(tp.converged.all())
+    if tile is None:
+        assert not calls
+        _, tx = solve_both(prob, adaptive_rho=True)
+        assert int(tp.iters) == int(tx.iters)
+        assert torch.equal(tp.x, tx.x)
+    else:
+        assert calls and set(calls) == {tile}
