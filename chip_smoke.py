@@ -24,19 +24,22 @@ Phases:
      integrator's own first chunk of a cold tick and on a random shared QP
      batch (forced budget that is no multiple of check_every, converging,
      all done at entry, four termination groups with one done at entry),
-     and the first chunk of random shared solves at B=6144 (one group
-     beyond the grid the card holds resident) and B=8192 (two of JAX's
-     tiles of 6536); the dense device loop at B=256, n=100, m=196 on the
+     with each of 8, 16 and 32 scenarios a block, the first chunk of
+     random shared solves at B=64 and at n=118, m=195 (operators read
+     through L1, no slices), at B=6144 (one group beyond the grid the card
+     holds resident) and B=8192 (two of JAX's tiles of 6536); the dense
+     device loop at B=256, n=100, m=196 on the
      cart-pole h20 dense tick's own inputs (a forced budget of 60 with
      check_every 25, the first SQP step of a cold tick, a later step whose
      scenarios stop at different counts, one scenario alone), on a QP with
      +-inf bounds and equality rows, and -- in its global-memory variant
      -- on the first entry of random dense solves at n=120, m=236 and
      n=200, m=392; the cyclic-reduction chunk at quadrotor shapes (N=100,
-     w=16, r=12, r2=1) at B=64 (a forced budget of 41 with check_every 2,
-     entry counts near it and every fifth scenario frozen at entry;
-     converging), at cart-pole shapes (B=1024), at the odd horizons N=7
-     and N=25 and at N=2 (w=16);
+     w=16, r=12, r2=1) at B=64, 8 and 1 (a forced budget of 41 with
+     check_every 2, entry counts near it and every fifth scenario frozen
+     at entry; converging), at w=5 and w=3, at the odd horizons N=7 and
+     N=25 and at N=2 (w=16), and at N=150 and N=400, w=16 and N=1500, w=3
+     (shared-memory tiers in the slab);
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
      B=1024 through ``BatchedSolver`` (2 warm-up + 5 timed ticks), checking
      the launch counts, finite trajectories, and that each warm tick lowers
@@ -71,16 +74,18 @@ Phases:
      mean and largest iteration count per launch (the rolled one also
      without its CR level, the shared one and the dense device loop also
      beside a loop of torch.matmul products; the shared one also on one
-     group of 6144; the device loop on a cold and on a steady-state tick
-     and in its global-memory variant at n=120, m=236; the CR chunk at a
-     steady B=64 and a B=8 tick beside the rolled chunk on the very same
-     inputs).
+     group of 6144 and at the B=64 latency batch, each with 8, 16 and 32
+     scenarios a block and beside its -fmad=false ceiling; the device loop
+     on a cold and on a steady-state tick and in its global-memory variant
+     at n=120, m=236; the CR chunk at a steady B=64 and a B=8 tick beside
+     the rolled chunk on the very same inputs).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -517,48 +522,50 @@ def main(argv) -> int:
         f"rolled {rolled_err:.3g}")
 
     # -- 3 (continued). the cyclic-reduction chunk vs its plain version ---
+    # Bitwise, as the other chunks, in every layout tier: what the kernel
+    # keeps in shared memory, as its C entry point derives it.
     cr_err = 0.0
+    cr_layout_fn = build.load_library("banded_cr_chunk").ocp_banded_cr_layout
+    cr_layout_fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    cr_tier_names = ("vec", "st", "ov", "dinvt", "lp", "lpt", "j_region")
 
-    def check_cr(out_k, out_p, errs, label):
-        """Equal done/it_inc and every iterate within 1e-5 (both sum each
-        product as the same ascending chain without FMA contraction)."""
+    def cr_case(shapes, st_, what, it0=None, done0=None):
         nonlocal cr_err
-        if not (torch.equal(out_k[7], out_p[7]) and torch.equal(out_k[8], out_p[8])):
-            raise SystemExit(f"phase 3 [{label}]: done/it_inc differ between kernel and plain")
-        gap = max(errs[k] for k in names[:7])
-        log(f"phase 3 [{label}]: it_inc {sorted(set(out_k[8].tolist()))[:10]}, converged "
-            f"{float((out_k[7] == 1).float().mean()):.4f}, largest iterate gap {gap:.3g} "
-            "(limit 1e-5)")
-        if not gap <= 1e-5:
-            raise SystemExit(f"phase 3 [{label}]: kernel and plain version disagree")
-        cr_err = max(cr_err, gap)
+        lay = (ctypes.c_longlong * 10)()
+        if cr_layout_fn(*shapes[:4], lay) != 0:
+            raise SystemExit(f"phase 3: the CR kernel refuses {shapes}")
+        label = ("cr N={} w={} r={} r2={} B={}".format(*shapes) + f", {what}; shared memory: "
+                 + ", ".join(k for k, on in zip(cr_tier_names, lay[3:10]) if on)
+                 + f" (product region {lay[2]} floats, {lay[1]} bytes in all)")
+        out_k, out_p, errs = compare(bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
+                                     shapes, st_, label, None, it0, done0)
+        cr_err = max(cr_err, check_exact(out_k, out_p, errs, label))
+        return out_k
 
     # A forced budget that is no multiple of check_every: one check block
     # of 2 runs while it0 + kb < 41.
     st_cforced = ADMMSettings(method="banded", eps_abs=0.0, eps_rel=0.0, max_iter=41,
                               adaptive_rho=False, check_infeasibility=False, check_every=2)
-    Bc = 64
-    it0 = np.array([0, 10, 30, 36, 38, 39, 40, 41])[np.arange(Bc) % 8]
-    done0 = (np.arange(Bc) % 5 == 0).astype(np.int32)
-    label = "cr N=100 w=16 r=12 B=64"
-    out_k, out_p, errs = compare(bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
-                                 (100, 16, 12, 1, Bc), st_cforced,
-                                 f"{label}, forced budget 41, it0 up to 41, done0 every 5th",
-                                 None, it0, done0)
-    check_cr(out_k, out_p, errs, f"{label}, frozen")
-    blocks = (np.clip(41 - it0, 0, None) + 1) // 2
-    if not torch.equal(out_k[8].cpu(), torch.as_tensor(
-            np.where(done0 == 1, 0, 2 * blocks).astype(np.int32))):
-        raise SystemExit(f"phase 3 [{label}]: iteration counts do not follow it0/done0")
-    out_k, out_p, errs = compare(bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
-                                 (100, 16, 12, 1, Bc), st_rconv, f"{label}, converging, eps 1e-3")
-    check_cr(out_k, out_p, errs, f"{label}, converging")
-    for shapes in ((20, 5, 4, 1, 1024), (7, 16, 12, 1, Bc), (25, 16, 12, 1, Bc),
-                   (2, 16, 12, 1, Bc)):
-        label = "cr N={} w={} r={} r2={} B={}".format(*shapes)
-        out_k, out_p, errs = compare(bck.banded_admm_chunk_cr, bck.banded_admm_chunk_cr_plain,
-                                     shapes, st_cforced, f"{label}, forced budget 41")
-        check_cr(out_k, out_p, errs, label)
+    quad = (100, 16, 12, 1)
+    for Bc in (64, 8, 1):
+        it0, done0 = near_budget(Bc)
+        if Bc == 1:  # its one scenario runs
+            done0 = np.zeros(1, np.int32)
+        out_k = cr_case(quad + (Bc,), st_cforced, "forced budget 41, it0 up to 41, done0 every "
+                        "5th", it0=it0, done0=done0)
+        blocks = (np.clip(41 - it0, 0, None) + 1) // 2
+        if not torch.equal(out_k[8].cpu(), torch.as_tensor(
+                np.where(done0 == 1, 0, 2 * blocks).astype(np.int32))):
+            raise SystemExit(f"phase 3 [cr B={Bc}]: iteration counts do not follow it0/done0")
+    for Bc in (64, 8):
+        cr_case(quad + (Bc,), st_rconv, "converging, eps 1e-3")
+    # Tiers: everything in shared memory up to N=25, w=16; at N=150, w=16
+    # all but the product region in the slab; at N=400, w=16 the products
+    # and J0, J1 too; at N=1500, w=3 the state, rows and couplings.
+    for shapes in ((20, 5, 4, 1, 1024), (20, 3, 2, 1, 64), (7, 16, 12, 1, 64),
+                   (25, 16, 12, 1, 64), (2, 16, 12, 1, 64), (150, 16, 12, 1, 8),
+                   (400, 16, 12, 1, 8), (1500, 3, 2, 1, 8)):
+        cr_case(shapes, st_cforced, "forced budget 41")
     log(f"phase 3: largest gap kernel vs plain, cyclic-reduction chunk: {cr_err:.3g}")
 
     # Recording wrappers: each driver looks its kernels up on its own
@@ -621,13 +628,25 @@ def main(argv) -> int:
     s_names = ("x", "z", "y", "conv", "it_inc", "rp", "rd", "rp_rel", "rd_rel")
     shared_err = 0.0
 
-    def compare_shared(args, kw, label, check):
-        """Kernel and plain version on the same inputs: conv, it_inc and
-        the pattern of infinite residuals equal, every float output within
-        1e-6 (both sum each product as the same ascending chain without
-        FMA contraction, so the measured gap is 0)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # The operator slice rows the kernel's C entry point derives (0: the
+    # operators through L1).
+    stage_rows_fn = build.load_library("shared_chunk").ocp_shared_stage_rows
+    stage_rows_fn.argtypes = [ctypes.c_int] * 3
+
+    def compare_shared(args, kw, label, check, rows=None):
+        """Kernel (``rows`` scenarios per block, default the launcher's
+        rule) and plain version on the same inputs: conv, it_inc and the
+        pattern of infinite residuals equal, every float output bitwise
+        equal (gap 0: both sum each product as the same ascending chain
+        without FMA contraction)."""
         nonlocal shared_err
-        out_k = sk.shared_admm_chunk(*args, **kw)
+        B_, n_k, m_k = args[12].shape[0], args[12].shape[1], args[13].shape[1]
+        rows_k = rows or sk.shared_block_rows(B_, kw["batch_tile"], n_k, m_k, sms)
+        label = (f"{label}; {rows_k} scenarios a block"
+                 + (" (launcher's rule)" if rows is None else "")
+                 + f", operator slices of {stage_rows_fn(rows_k, n_k, m_k)} rows")
+        out_k = sk.shared_admm_chunk(*args, **kw, rows_per_block=rows)
         sync()
         out_p = sk.shared_admm_chunk_plain(*args, **kw)
         sync()
@@ -645,8 +664,8 @@ def main(argv) -> int:
         log(f"phase 3 [{label}]: B={B_} n={out_k[0].shape[1]} m={out_k[1].shape[1]}: max "
             f"|kernel - plain| " + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
             + f"; it_inc {sorted(set(out_k[4].tolist()))}, converged {float(out_k[3].float().mean()):.4f}")
-        if max(errs.values()) > 1e-6:
-            raise SystemExit(f"phase 3 [{label}]: kernel and plain version disagree")
+        if max(errs.values()) != 0.0:
+            raise SystemExit(f"phase 3 [{label}]: kernel and plain version disagree (limit 0)")
         check(out_k)
         shared_err = max(shared_err, max(errs.values()))
         return out_k
@@ -699,6 +718,27 @@ def main(argv) -> int:
     r_args, r_kw = captured["shared_admm_chunk"][0]
     captured["shared_admm_chunk"].clear()
     shared_cases(r_args, r_kw, "shared chunk, random shared QP")
+    # Each block shape the launcher can pick, on the same forced budget.
+    for rows in sk.ROWS_PER_BLOCK:
+        compare_shared((r_args[0], 60) + r_args[2:], {**r_kw, "eps_abs": 0.0, "eps_rel": 0.0},
+                       f"shared chunk, random shared QP, forced budget 60", lambda o: expect(
+                           bool((o[4] == 75).all()), "forced"), rows=rows)
+    # The latency batch B=64, and a width that is no multiple of 4 (the
+    # operators read through L1, no slices): the first chunk of a solve.
+    for Bs, ns, ms in ((64, 120, 196), (256, 118, 195)):
+        P_s, A_s, q_s, l_s, u_s = (torch.as_tensor(a, device=dev)
+                                   for a in random_shared_qp(2, Bs, ns, ms))
+        fac_s = tab.prepare_shared(P_s, A_s, l_s, u_s, q_s, st_r)
+        record(lambda: tab.admm_iterate_prepared(fac_s, q_s, l_s, u_s, st_r))
+        sync()
+        s_args, s_kw = captured["shared_admm_chunk"][0]
+        captured["shared_admm_chunk"].clear()
+        where = f"shared chunk, random shared QP B={Bs} n={ns} m={ms}"
+        compare_shared((s_args[0], 60) + s_args[2:], {**s_kw, "eps_abs": 0.0, "eps_rel": 0.0},
+                       f"{where}, forced budget 60",
+                       lambda o: expect(bool((o[4] == 75).all()), "forced"))
+        compare_shared(s_args, s_kw, f"{where}, converging",
+                       lambda o: expect(bool((o[4] % 25 == 0).all()), "converging"))
     # Groups beyond the ~4,200 scenarios the card holds resident at once at
     # n=120, m=196: one group of 6,144, and 8,192 scenarios in two of the
     # JAX package's tiles of 6,536 (the driver pads the batch to 13,072
@@ -1015,6 +1055,8 @@ def main(argv) -> int:
         log(f"{label} backend=pallas: {n / ticks:.1f} chunk launches per tick over {ticks} ticks")
         if Bd == B_di:
             di_state = state_d
+        else:
+            di_state64 = state_d
         # The same ticks on the "xla" backend (the torch.matmul loop), each
         # from the state the "pallas" backend started that tick from, so a
         # difference stays within one tick.
@@ -1096,10 +1138,16 @@ def main(argv) -> int:
             f"finite {bool(torch.isfinite(tr_b).all())}")
         if not ok_b:
             raise SystemExit(f"phase 4c: the double integrator at B={Bd} failed on the card")
-    # One more B=4096 tick records the chunk inputs of a steady-state tick.
+    # One more B=64 and B=4096 tick each records the chunk inputs of a
+    # steady-state tick.
+    record(lambda: di_pallas.solve(di_frames[:64], di_refs[:64], di_state64))
+    sync()
+    scalls64 = list(captured["shared_admm_chunk"])
+    captured["shared_admm_chunk"].clear()
     record(lambda: di_pallas.solve(di_frames, di_refs, di_state))
     sync()
-    if not captured["shared_admm_chunk"] or len(captured["banded_admm_chunk"]) != step_num:
+    if not (captured["shared_admm_chunk"] and scalls64) or len(
+            captured["banded_admm_chunk"]) != step_num:
         raise SystemExit("phase 4c: the recorded tick did not go through the shared chunk")
 
     # -- 4d. the per-scenario dense main path: cart-pole h20, B=256 ---------
@@ -1337,8 +1385,6 @@ def main(argv) -> int:
     # The shared-operator chunk on the recorded launches of one
     # steady-state B=4096 tick of the double integrator.
     scalls = captured["shared_admm_chunk"]
-    n_s = len(scalls)
-    n_, m_ = scalls[0][0][12].shape[1], scalls[0][0][13].shape[1]
 
     def matmul_loop(args, kw, iters, checks):
         """The chunk's products as torch.matmul calls (cuBLAS, true f32)
@@ -1369,15 +1415,18 @@ def main(argv) -> int:
                 r_dual <= kw["eps_abs"] + kw["eps_rel"] * max_dual)
         return x, z, y
 
-    def shared_stats(calls):
-        """Per launch: the largest iteration count (from the plain version,
-        equal to the kernel's, phase 3), bytes read and written once, and
-        operations from each scenario's own iterations and checks."""
+    def shared_stats(calls, mean_its=None):
+        """Per launch: the largest iteration count (from the kernel, equal
+        to the plain version's, phase 3; the mean per scenario appended to
+        ``mean_its``), bytes read and written once, and operations from each
+        scenario's own iterations and checks."""
         nbytes = flops = 0
         its = []
         for args, kw in calls:
-            outs = sk.shared_admm_chunk_plain(*args, **kw)
+            outs = sk.shared_admm_chunk(*args, **kw)
             its.append(int(outs[4].max()))
+            if mean_its is not None:
+                mean_its.append(float(outs[4].double().mean()))
             tensors = [a for a in args if torch.is_tensor(a)]
             nbytes += sum(t_.numel() * t_.element_size() for t_ in tensors)
             nbytes += sum(t_.numel() * t_.element_size() for t_ in outs)
@@ -1387,45 +1436,67 @@ def main(argv) -> int:
         nc = len(calls)
         return its, nbytes / nc / PEAK_BYTES_PER_S * 1e3, flops / nc / PEAK_F32_FLOPS * 1e3
 
-    s_iters, s_bytes_ms, s_ops_ms = shared_stats(scalls)
-    s_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in scalls], 7, sync) / n_s
-    s_plain_ms = time_ms(
-        lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in scalls], 3, sync) / n_s
-    s_mm_ms = time_ms(lambda: [
-        matmul_loop(a, k, it, it // k["check_every"]) for (a, k), it in zip(scalls, s_iters)],
-        7, sync) / n_s
-    by_rows = {
-        rows: time_ms(lambda: [sk.shared_admm_chunk(*a, **k, rows_per_block=rows)
-                               for a, k in scalls], 7, sync) / n_s
-        for rows in sk.ROWS_PER_BLOCK}
-    log(f"phase 6: shared_admm_chunk at its main path's inputs ({n_s} launches of one "
-        f"steady-state tick, B={scalls[0][0][12].shape[0]}, n={n_}, m={m_}, iterations per "
-        f"launch {s_iters}): {s_ms:.4f} ms/launch, plain {s_plain_ms:.3f} ms, the same "
-        f"iterations and checks as torch.matmul products {s_mm_ms:.4f} ms, bound "
-        f"{max(s_bytes_ms, s_ops_ms) * 1e3:.3f} us (bytes {s_bytes_ms * 1e3:.3f} us, "
-        f"operations {s_ops_ms * 1e3:.3f} us); with 8 / 16 / 32 scenarios per thread "
-        f"block: " + " / ".join(f"{by_rows[r]:.4f}" for r in sk.ROWS_PER_BLOCK) + " ms/launch")
+    def shared_timing(calls, what, reps=7, plain=False, matmul=False):
+        """ms/launch of the kernel (the launcher's block shape and each
+        forced one), its bound and the -fmad=false ceiling (each term a
+        separate multiply and add: twice the operations bound), the mean
+        and largest iteration count per launch; optionally the plain
+        version and the torch.matmul loop on the same launches."""
+        nc = len(calls)
+        mean_its = []
+        its, bytes_ms, ops_ms = shared_stats(calls, mean_its)
+        k_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in calls], reps,
+                       sync) / nc
+        by_rows = {
+            rows: time_ms(lambda: [sk.shared_admm_chunk(*a, **k, rows_per_block=rows)
+                                   for a, k in calls], reps, sync) / nc
+            for rows in sk.ROWS_PER_BLOCK}
+        a0, k0 = calls[0]
+        B_, n_c, m_c = a0[12].shape[0], a0[12].shape[1], a0[13].shape[1]
+        rule = sk.shared_block_rows(B_, k0["batch_tile"], n_c, m_c, sms)
+        out = {"ms": k_ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "rows": rule,
+               "by_rows_ms": {str(r_): v for r_, v in by_rows.items()},
+               "mean_it_inc": statistics.fmean(mean_its), "max_it_inc": max(its)}
+        extra = ""
+        if plain:
+            out["plain_ms"] = time_ms(
+                lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in calls], 3, sync) / nc
+            extra += f", plain {out['plain_ms']:.3f} ms"
+        if matmul:
+            out["matmul_loop_ms"] = time_ms(lambda: [
+                matmul_loop(a, k, it, it // k["check_every"]) for (a, k), it in zip(calls, its)],
+                reps, sync) / nc
+            extra += (f", the same iterations and checks as torch.matmul products "
+                      f"{out['matmul_loop_ms']:.4f} ms")
+        log(f"phase 6: shared_admm_chunk, {what} ({nc} launches, B={B_}, n={n_c}, m={m_c}, "
+            f"iterations per launch: mean {out['mean_it_inc']:.2f}, largest by launch {its}): "
+            f"{k_ms:.4f} ms/launch with {rule} scenarios a block (launcher's rule){extra}; "
+            f"bound {out['bound_ms'] * 1e3:.3f} us (bytes {bytes_ms * 1e3:.3f} us, operations "
+            f"{ops_ms * 1e3:.3f} us), -fmad=false ceiling {2 * ops_ms * 1e3:.3f} us; with 8 / 16 "
+            f"/ 32 scenarios per thread block: "
+            + " / ".join(f"{by_rows[r_]:.4f}" for r_ in sk.ROWS_PER_BLOCK) + " ms/launch")
+        return out
+
+    s4096 = shared_timing(scalls, "steady-state double integrator tick", plain=True, matmul=True)
+    s64 = shared_timing(scalls64, "steady-state double integrator tick at the latency batch")
+    # One group of 6,144 scenarios (beyond the grid the card holds resident
+    # at once): the random shared QP solve's chunks of phase 3.
+    s6144 = shared_timing(big_calls[6144], "one group of 6144, a random shared QP solve",
+                          reps=5)
     row3 = {
         "name": "shared_admm_chunk", "route": "cuda", "source": SHARED_SOURCE,
         "replaces": SHARED_REPLACES, "launches": shared_launches, "max_abs_err": shared_err,
-        "ms": s_ms, "plain_ms": s_plain_ms, "bound_ms": max(s_bytes_ms, s_ops_ms),
-        "bound_by": "bytes" if s_bytes_ms >= s_ops_ms else "operations",
+        "ms": s4096["ms"], "plain_ms": s4096["plain_ms"], "bound_ms": s4096["bound_ms"],
+        "bound_by": s4096["bound_by"],
         # No single PyTorch call computes an ADMM chunk; the loop of
-        # torch.matmul products above is reported beside it.
-        "library_ms": None, "matmul_loop_ms": s_mm_ms,
+        # torch.matmul products is reported beside it.
+        "library_ms": None, "matmul_loop_ms": s4096["matmul_loop_ms"],
+        "by_rows_ms": s4096["by_rows_ms"], "mean_it_inc": s4096["mean_it_inc"],
+        "max_it_inc": s4096["max_it_inc"],
+        "b64": s64, "b6144": s6144,
     }
-    # One group of 6,144 scenarios (beyond the grid the card holds resident
-    # at once): the random shared QP solve's chunks of phase 3.
-    bcalls = big_calls[6144]
-    b_iters, b_bytes_ms, b_ops_ms = shared_stats(bcalls)
-    b_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in bcalls], 5,
-                   sync) / len(bcalls)
-    log(f"phase 6: shared_admm_chunk, one group of 6144 ({len(bcalls)} launches of a random "
-        f"shared QP solve, n=120, m=196, iterations per launch {b_iters}): {b_ms:.4f} "
-        f"ms/launch, bound {max(b_bytes_ms, b_ops_ms) * 1e3:.3f} us (bytes "
-        f"{b_bytes_ms * 1e3:.3f} us, operations {b_ops_ms * 1e3:.3f} us)")
-    row3.update({"b6144_ms": b_ms, "b6144_bound_ms": max(b_bytes_ms, b_ops_ms),
-                 "b6144_bound_by": "bytes" if b_bytes_ms >= b_ops_ms else "operations"})
 
     # The dense device loop on the recorded launches of one cold and one
     # steady-state B=256 tick of the cart-pole dense path.
@@ -1551,7 +1622,8 @@ def main(argv) -> int:
     row5 = dict(cr_rows[64])
     row5["max_abs_err"] = cr_err
     row5.update({f"b8_{k}": cr_rows[8][k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "rolled_same_inputs_ms")})
+        "ms", "plain_ms", "bound_ms", "bound_by", "rolled_same_inputs_ms", "prologue_ms",
+        "mean_it_inc", "max_it_inc")})
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row1, row2, row3, row4, row5]}), flush=True)

@@ -114,9 +114,22 @@ __device__ __forceinline__ float chain(const float* __restrict__ a,
   return acc;
 }
 
+// NaN-propagating max (torch.amax / torch.maximum semantics; fmaxf would
+// drop a NaN, and a diverged scenario's residual with it).
+__device__ __forceinline__ float nmax(float m, float v) {
+  return (v > m || v != v) ? v : m;
+}
+
+// min(max(v, lo), hi) as torch.minimum(torch.maximum(...)) computes it: a
+// NaN v stays NaN (fmaxf / fminf alone would clip it to a bound).  The
+// bounds are never NaN.
+__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -182,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) admm_device_loop_kernel(Args a, Dims
   // z = clip(x @ Ab^T, lb, ub), recomputed at every entry as the TPU kernel
   // does; w = rho z - y feeds the first iteration.
   for (int i = tid; i < m; i += kThreads) {
-    const float zv = fminf(fmaxf(chain(sx, sAb + i * ld, 1, n), slb[i]), sub[i]);
+    const float zv = clip_nan(chain(sx, sAb + i * ld, 1, n), slb[i], sub[i]);
     sz[i] = zv;
     sw[i] = srho[i] * zv - sy[i];
   }
@@ -210,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) admm_device_loop_kernel(Args a, Dims
         const float acc = chain(sxt, sAb + i * ld, 1, n);
         const float rho = srho[i], zo = sz[i], yo = sy[i];
         const float z_rel = alpha * acc + oma * zo;
-        const float z_n = fminf(fmaxf(z_rel + yo / rho, slb[i]), sub[i]);
+        const float z_n = clip_nan(z_rel + yo / rho, slb[i], sub[i]);
         const float y_n = yo + rho * (z_rel - z_n);
         sz[i] = z_n;
         sy[i] = y_n;
@@ -224,18 +237,18 @@ __global__ void __launch_bounds__(kThreads) admm_device_loop_kernel(Args a, Dims
     for (int i = tid; i < m; i += kThreads) {
       const float ax = chain(sx, sAb + i * ld, 1, n);
       const float e = seinv[i], zv = sz[i];
-      mx[0] = fmaxf(mx[0], fabsf((ax - zv) * e));
-      mx[1] = fmaxf(mx[1], fabsf(ax * e));
-      mx[2] = fmaxf(mx[2], fabsf(zv * e));
+      mx[0] = nmax(mx[0], fabsf((ax - zv) * e));
+      mx[1] = nmax(mx[1], fabsf(ax * e));
+      mx[2] = nmax(mx[2], fabsf(zv * e));
     }
     for (int j = tid; j < n; j += kThreads) {
       const float px = chain(sx, sPb + j, n, n);
       const float aty = chain(sy, sAb + j, ld, m);
       const float dv = sdinv[j], qv = sq[j];
-      mx[3] = fmaxf(mx[3], fabsf(((px + qv) + aty) * dv));
-      mx[4] = fmaxf(mx[4], fabsf(aty * dv));
-      mx[5] = fmaxf(mx[5], fabsf(px * dv));
-      mx[6] = fmaxf(mx[6], fabsf(qv * dv));
+      mx[3] = nmax(mx[3], fabsf(((px + qv) + aty) * dv));
+      mx[4] = nmax(mx[4], fabsf(aty * dv));
+      mx[5] = nmax(mx[5], fabsf(px * dv));
+      mx[6] = nmax(mx[6], fabsf(qv * dv));
     }
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
@@ -246,14 +259,14 @@ __global__ void __launch_bounds__(kThreads) admm_device_loop_kernel(Args a, Dims
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       float v = sred[q];
-      for (int w = 1; w < kWarps; ++w) v = fmaxf(v, sred[w * kRed + q]);
+      for (int w = 1; w < kWarps; ++w) v = nmax(v, sred[w * kRed + q]);
       mx[q] = v;
     }
     __syncthreads();  // sred is rewritten at the next check
     const float r_prim = mx[0];
-    const float max_prim = fmaxf(mx[1], mx[2]);
+    const float max_prim = nmax(mx[1], mx[2]);
     const float r_dual = ci * mx[3];
-    const float max_dual = ci * fmaxf(fmaxf(mx[4], mx[5]), mx[6]);
+    const float max_dual = ci * nmax(nmax(mx[4], mx[5]), mx[6]);
     done = (r_prim <= d.eps_abs + d.eps_rel * max_prim) &&
            (r_dual <= d.eps_abs + d.eps_rel * max_dual);
     it += d.check_every;

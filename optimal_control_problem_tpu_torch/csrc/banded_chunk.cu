@@ -132,6 +132,13 @@ int slab_floats(int N, int w, int r, int r2) {
          4 * N * r2;
 }
 
+// min(max(v, lo), hi) as torch.clip / torch.minimum(torch.maximum(...))
+// compute it: a NaN v stays NaN (fmaxf / fminf alone would clip it to a
+// bound).  The bounds are never NaN.
+__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
 // NaN-propagating max (jnp.max semantics; fmaxf would drop a NaN).
 __device__ __forceinline__ float nmax(float m, float v) {
   return (v > m || v != v) ? v : m;
@@ -405,7 +412,7 @@ banded_chunk_kernel(const ChunkArgs a, const Dims d) {
     const float rh = rho[i];
     const float z_rel = alpha * zt + oma * z[i];
     const float y0 = y[i];
-    const float z_new = fminf(fmaxf(z_rel + y0 / rh, lo[i]), hi[i]);
+    const float z_new = clip_nan(z_rel + y0 / rh, lo[i], hi[i]);
     y[i] = y0 + rh * (z_rel - z_new);
     z[i] = z_new;
   };

@@ -9,18 +9,30 @@
 // batch-leading, (B, n) and (B, m), row-major.
 //
 // Work split.  A thread block owns R = 8, 16 or 32 consecutive scenarios
-// (template parameter: TR rows for each of its 8 warps) and keeps their
-// iterates x, z, y and the three intermediates of an iteration in shared
-// memory for the whole chunk.  The six panel products (three per
-// iteration, three per termination check) are computed here, by hand: a
-// warp owns TR rows, a lane owns columns lane, lane + 32, ... of them, and
-// every output element is one accumulator that runs the contraction index
-// upwards from zero with one multiply and one add per term (build with
-// -fmad=false), the plain version's order, so the two agree bitwise.  The
-// elementwise relaxation, projection and dual update run in the products'
-// epilogues.  The shared operators are read through the read-only cache
-// from L2 (they total ~210 KB at n=120, m=196; keeping them in shared
-// memory, and the tensor cores, are later work).
+// (template parameter: TR rows for each of its 8 warps; the wrapper picks
+// R, ops/shared_kernel.py::shared_block_rows) and keeps their iterates x,
+// z, y and the three intermediates of an iteration in shared memory for
+// the whole chunk.  The six panel products (three per iteration, three
+// per termination check) are computed here, by hand: a warp owns TR rows,
+// a lane owns columns lane, lane + 32, ... of the whole product width (C
+// of them, a template parameter: 4 at n=120, 7 at m=196, so a product
+// runs in one pass), and every output element is one accumulator in a
+// register that runs the contraction index upwards from zero with one
+// multiply and one add per term (build with -fmad=false), the plain
+// version's order, so the two agree bitwise.  No split-K: the chain of an
+// element stays in one thread.  The elementwise relaxation, projection and
+// dual update run in the products' epilogues.
+//
+// Operator staging.  The shared operators (OP, Ab, Ab^T, Pb: 303 KB at
+// n=120, m=196) do not fit in shared memory together, and read through
+// L1 from L2 they left each k step waiting on a load.  So each product
+// streams its operator through shared memory in slices of KS rows
+// (KS = 32, 16, 8 or 4, the most that fits beside the panels: 32 at R=32,
+// n=120, m=196), three slices in flight: cp.async copies the slice two
+// ahead while the block computes on the current one, one barrier a slice.
+// Every warp reads the slice's rows, a lane its own columns (no bank
+// conflicts).  Where not even 4 rows fit beside the panels the operator is
+// read through L1 as before (KS = 0).
 //
 // Termination group.  `tile` consecutive scenarios vote together: the
 // group runs whole check blocks while k < bound and not all of its
@@ -46,16 +58,25 @@
 //
 // Bound on this card: operations.  At n=120, m=196 an iteration is 122,880
 // float operations per scenario against ~3 KB of panel traffic per chunk.
+// With -fmad=false every term is a multiply and an add, two instructions,
+// so under the bitwise contract the kernel can reach at most half the
+// card's float32 peak (which counts a fused multiply-add as two).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <string.h>
 
 namespace {
 
+// Warps per block.  16 (half the scenario rows a warp, each operator word
+// read from shared memory serving half as many) is slower on an H100
+// (tools/kernel_ablation.py, PERF.md).
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;  // columns per lane and pass: 128 columns per pass
+constexpr int kMaxCols = 7;  // columns per lane and pass: 224 columns per pass
+constexpr int kStages = 3;   // operator slices in flight
+constexpr long long kSmemLimit = 232448;  // dynamic shared memory a block may opt into
 constexpr int kNumPtrs = 25;
 
 struct Args {
@@ -88,56 +109,129 @@ struct Args {
 
 struct Dims {
   int B, n, m, tile, bpg, bound, check_every, n_checks, groups;
+  int ks;  // operator slice rows (0: the operators are read through L1)
   float sigma, alpha, one_m_alpha, eps_abs, eps_rel;
 };
 
 // out[r, j] = sum_k a[r, k] * W[k, j] for the block's rows; `a` in shared
-// memory with row stride K, W (K, J) row-major in global memory.  Calls
+// memory with row stride K, W (K, J) row-major in global memory, streamed
+// through `stage` in slices of ks rows (ks = 0: read through L1).  Calls
 // epi(i, r, j, value) once per element from the thread that owns it: rows
-// r = warp * TR + i, columns lane + 32 c of each 128-column pass.
-template <int TR, class Epi>
-__device__ __forceinline__ void panel_product(const float* __restrict__ a,
-                                              const float* __restrict__ W, int K, int J,
-                                              Epi epi) {
+// r = warp * TR + i, columns lane + 32 c of each (32 C)-column pass.
+template <int TR, int C, class Epi>
+__device__ __forceinline__ void panel_product_c(const float* __restrict__ a,
+                                                const float* __restrict__ W, int K, int J,
+                                                float* stage, int ks, Epi epi) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * TR;
-  for (int j0 = 0; j0 < J; j0 += 32 * kCols) {
-    int col[kCols];
-    int ld[kCols];  // clamped: a lane past the edge loads a valid column it drops
+  for (int j0 = 0; j0 < J; j0 += 32 * C) {
+    int col[C];
+    int ld[C];  // clamped: a lane past the edge loads a valid column it drops
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < C; ++c) {
       col[c] = j0 + lane + 32 * c;
       ld[c] = col[c] < J ? col[c] : J - 1;
     }
-    float acc[TR][kCols];
+    float acc[TR][C];
 #pragma unroll
     for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float* wrow = W + static_cast<size_t>(k) * J;
-      float w[kCols];
+      for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+    // Terms k0 .. k0 + rows - 1 of every chain, the operator's rows read
+    // from ws (row stride J, row 0 = operator row k0).
+    auto mac = [&](const float* ws, bool global, int k0, int rows) {
+#pragma unroll 8
+      for (int k = 0; k < rows; ++k) {
+        const float* wrow = ws + static_cast<size_t>(k) * J;
+        float w[C];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) w[c] = __ldg(wrow + ld[c]);
+        for (int c = 0; c < C; ++c) w[c] = global ? __ldg(wrow + ld[c]) : wrow[ld[c]];
 #pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const float av = a[(r0 + i) * K + k];
+        for (int i = 0; i < TR; ++i) {
+          const float av = a[(r0 + i) * K + k0 + k];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = acc[i][c] + av * w[c];
+          for (int c = 0; c < C; ++c) acc[i][c] = acc[i][c] + av * w[c];
+        }
+      }
+    };
+    if (ks == 0) {
+      mac(W, true, 0, K);
+    } else {
+      const int S = (K + ks - 1) / ks;
+      __syncthreads();  // nobody still reads the slices of the last product
+      // Slice s (operator rows [s ks, s ks + ks) clipped to K) into buffer
+      // s % kStages, 16 bytes per copy (J % 4 == 0 where ks > 0); one
+      // commit group per slice, empty past the last.
+      auto issue = [&](int s) {
+        if (s < S) {
+          const int k0 = s * ks, rows = K - k0 < ks ? K - k0 : ks;
+          float* const dst = stage + (s % kStages) * ks * J;
+          const float* const src = W + static_cast<size_t>(k0) * J;
+          for (int q = threadIdx.x; q < rows * J / 4; q += kThreads)
+            __pipeline_memcpy_async(dst + 4 * q, src + 4 * q, 16);
+        }
+        __pipeline_commit();
+      };
+      issue(0);
+      issue(1);
+      for (int s = 0; s < S; ++s) {
+        __pipeline_wait_prior(1);  // slice s has landed (s + 1 may be in flight)
+        __syncthreads();           // ... for every thread; slice s - 1 is free
+        issue(s + 2);
+        const int k0 = s * ks, rows = K - k0 < ks ? K - k0 : ks;
+        mac(stage + (s % kStages) * ks * J, false, k0, rows);
       }
     }
 #pragma unroll
     for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c)
+      for (int c = 0; c < C; ++c)
         if (col[c] < J) epi(i, r0 + i, col[c], acc[i][c]);
   }
 }
 
+// The pass width that covers J in one pass where it can.
+template <int TR, class Epi>
+__device__ __forceinline__ void panel_product(const float* __restrict__ a,
+                                              const float* __restrict__ W, int K, int J,
+                                              float* stage, int ks, Epi epi) {
+  if (J <= 32)
+    panel_product_c<TR, 1>(a, W, K, J, stage, ks, epi);
+  else if (J <= 64)
+    panel_product_c<TR, 2>(a, W, K, J, stage, ks, epi);
+  else if (J <= 128)
+    panel_product_c<TR, 4>(a, W, K, J, stage, ks, epi);
+  else
+    panel_product_c<TR, kMaxCols>(a, W, K, J, stage, ks, epi);
+}
+
+// x / y, correctly rounded, bitwise the IEEE quotient.  A zero dividend
+// (the Gauss-Jordan rows' eliminated and not yet filled entries, inactive
+// duals) sends the division's fast path to its slow fallback; its result is
+// a zero whose sign is the XOR of the operands' signs wherever y is neither
+// zero nor NaN, so that case is answered directly.
+__device__ __forceinline__ float div_rn(float x, float y) {
+  if (x == 0.f && y != 0.f && y == y)
+    return __int_as_float((__float_as_int(x) ^ __float_as_int(y)) & 0x80000000);
+  return x / y;
+}
+
+// NaN-propagating max (torch.amax / torch.maximum semantics; fmaxf would
+// drop a NaN, and a diverged scenario's residual with it).
+__device__ __forceinline__ float nmax(float m, float v) {
+  return (v > m || v != v) ? v : m;
+}
+
+// min(max(v, lo), hi) as torch.minimum(torch.maximum(...)) computes it: a
+// NaN v stays NaN (fmaxf / fminf alone would clip it to a bound).  The
+// bounds are never NaN.
+__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -152,6 +246,8 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   float* sw = sy + R * m;     // (R, m) rho z - y
   float* srhs = sw + R * m;   // (R, n) rhs; Px during a check
   float* sxt = srhs + R * n;  // (R, n) xt
+  float* stage = sxt + R * n;  // [kStages][ks][max(n, m)] operator slices
+  const int ks = d.ks;
   __shared__ int s_conv[R];
   __shared__ float s_rp[R], s_rd[R], s_rpr[R], s_rdr[R];
 
@@ -221,24 +317,24 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   {
     for (int t = 0; t < d.check_every; ++t) {
       // rhs = sigma x - qb + (rho z - y) @ Ab
-      panel_product<TR>(sw, a.Ab, m, n, [&](int, int r, int j, float v) {
+      panel_product<TR>(sw, a.Ab, m, n, stage, ks, [&](int, int r, int j, float v) {
         const float qv = __ldg(a.qb + static_cast<size_t>(grow(r)) * n + j);
         srhs[r * n + j] = (sigma * sx[r * n + j] - qv) + v;
       });
       __syncthreads();
       // xt = rhs @ OP;  x = alpha xt + (1 - alpha) x
-      panel_product<TR>(srhs, a.OP, n, n, [&](int, int r, int j, float v) {
+      panel_product<TR>(srhs, a.OP, n, n, stage, ks, [&](int, int r, int j, float v) {
         sxt[r * n + j] = v;
         sx[r * n + j] = alpha * v + oma * sx[r * n + j];
       });
       __syncthreads();
       // zt = xt @ Ab^T;  relaxation, projection onto [lb, ub], dual update
-      panel_product<TR>(sxt, a.AbT, n, m, [&](int, int r, int j, float v) {
+      panel_product<TR>(sxt, a.AbT, n, m, stage, ks, [&](int, int r, int j, float v) {
         const size_t gi = static_cast<size_t>(grow(r)) * m + j;
         const float rho = __ldg(a.rho + j);
         const float zo = sz[r * m + j], yo = sy[r * m + j];
         const float z_rel = alpha * v + oma * zo;
-        const float z_n = fminf(fmaxf(z_rel + yo / rho, __ldg(a.lb + gi)), __ldg(a.ub + gi));
+        const float z_n = clip_nan(z_rel + div_rn(yo, rho), __ldg(a.lb + gi), __ldg(a.ub + gi));
         const float y_n = yo + rho * (z_rel - z_n);
         sz[r * m + j] = z_n;
         sy[r * m + j] = y_n;
@@ -252,36 +348,36 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
     float m_rp[TR], m_ax[TR], m_z[TR];
 #pragma unroll
     for (int i = 0; i < TR; ++i) m_rp[i] = m_ax[i] = m_z[i] = 0.0f;
-    panel_product<TR>(sx, a.AbT, n, m, [&](int i, int r, int j, float ax) {
+    panel_product<TR>(sx, a.AbT, n, m, stage, ks, [&](int i, int r, int j, float ax) {
       const float e = __ldg(a.einv + j);
       const float zv = sz[r * m + j];
-      m_rp[i] = fmaxf(m_rp[i], fabsf((ax - zv) * e));
-      m_ax[i] = fmaxf(m_ax[i], fabsf(ax * e));
-      m_z[i] = fmaxf(m_z[i], fabsf(zv * e));
+      m_rp[i] = nmax(m_rp[i], fabsf((ax - zv) * e));
+      m_ax[i] = nmax(m_ax[i], fabsf(ax * e));
+      m_z[i] = nmax(m_z[i], fabsf(zv * e));
     });
     // Px lands in the slot of srhs that the same thread reads back below
     // (both products are n wide, so the element's owner is the same).
-    panel_product<TR>(sx, a.Pb, n, n, [&](int, int r, int j, float px) { srhs[r * n + j] = px; });
+    panel_product<TR>(sx, a.Pb, n, n, stage, ks, [&](int, int r, int j, float px) { srhs[r * n + j] = px; });
     float m_rd[TR], m_aty[TR], m_px[TR], m_q[TR];
 #pragma unroll
     for (int i = 0; i < TR; ++i) m_rd[i] = m_aty[i] = m_px[i] = m_q[i] = 0.0f;
-    panel_product<TR>(sy, a.Ab, m, n, [&](int i, int r, int j, float aty) {
+    panel_product<TR>(sy, a.Ab, m, n, stage, ks, [&](int i, int r, int j, float aty) {
       const float dv = __ldg(a.dinv + j);
       const float px = srhs[r * n + j];
       const float qv = __ldg(a.qb + static_cast<size_t>(grow(r)) * n + j);
-      m_rd[i] = fmaxf(m_rd[i], fabsf(((px + qv) + aty) * dv));
-      m_aty[i] = fmaxf(m_aty[i], fabsf(aty * dv));
-      m_px[i] = fmaxf(m_px[i], fabsf(px * dv));
-      m_q[i] = fmaxf(m_q[i], fabsf(qv * dv));
+      m_rd[i] = nmax(m_rd[i], fabsf(((px + qv) + aty) * dv));
+      m_aty[i] = nmax(m_aty[i], fabsf(aty * dv));
+      m_px[i] = nmax(m_px[i], fabsf(px * dv));
+      m_q[i] = nmax(m_q[i], fabsf(qv * dv));
     });
     int mine = 1;
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
       const float r_prim = warp_max(m_rp[i]);
-      const float max_prim = fmaxf(warp_max(m_ax[i]), warp_max(m_z[i]));
+      const float max_prim = nmax(warp_max(m_ax[i]), warp_max(m_z[i]));
       const float r_dual = ci * warp_max(m_rd[i]);
       const float max_dual =
-          ci * fmaxf(fmaxf(warp_max(m_aty[i]), warp_max(m_px[i])), warp_max(m_q[i]));
+          ci * nmax(nmax(warp_max(m_aty[i]), warp_max(m_px[i])), warp_max(m_q[i]));
       const float eps_pri = d.eps_abs + d.eps_rel * max_prim;
       const float eps_dua = d.eps_abs + d.eps_rel * max_dual;
       const int cv = (r_prim <= eps_pri) && (r_dual <= eps_dua);
@@ -291,8 +387,9 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
         s_conv[r] = cv;
         s_rp[r] = r_prim;
         s_rd[r] = r_dual;
-        s_rpr[r] = r_prim / fmaxf(max_prim, 1e-12f);
-        s_rdr[r] = r_dual / fmaxf(max_dual, 1e-12f);
+        // torch.clamp(., min=1e-12) keeps a NaN.
+        s_rpr[r] = r_prim / (max_prim != max_prim ? max_prim : fmaxf(max_prim, 1e-12f));
+        s_rdr[r] = r_dual / (max_dual != max_dual ? max_dual : fmaxf(max_dual, 1e-12f));
       }
     }
     // The block's vote: every scenario of it converged or not.  (Also the
@@ -322,37 +419,23 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   }
 }
 
-template <int TR>
-size_t smem_bytes(const Dims& d) {
-  return static_cast<size_t>(kWarps * TR) * (3 * d.n + 3 * d.m) * sizeof(float);
+// Shared memory of a block of R scenarios with ks-row operator slices:
+// the six panels, kStages slices, the per-row results (static).
+long long smem_floats(int R, int n, int m, int ks) {
+  const int J = n > m ? n : m;
+  return static_cast<long long>(R) * (3 * n + 3 * m) + static_cast<long long>(kStages) * ks * J;
 }
+constexpr int kStaticFloats(int R) { return 5 * R; }
 
-// Waves of a grid of `rows`-scenario blocks over the card (0 when the
-// panels of `rows` scenarios do not fit in shared memory).
-template <int TR>
-cudaError_t waves(const Dims& d, int* out) {
-  constexpr int R = kWarps * TR;
-  *out = 0;
-  auto kern = shared_chunk_kernel<TR>;
-  const size_t smem = smem_bytes<TR>(d);
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess) {
-    cudaGetLastError();  // a refused size leaves no sticky error behind
-    return cudaSuccess;
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) !=
-      cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaSuccess;
-  const long long grid = static_cast<long long>(d.groups) * ((d.tile + R - 1) / R);
-  const long long slots = static_cast<long long>(per_sm) * sms;
-  *out = static_cast<int>((grid + slots - 1) / slots);
-  return cudaSuccess;
+// The most slice rows that fit beside the panels of R scenarios (32, 16, 8
+// or 4; 0: read the operators through L1; -1: not even the panels fit).
+int stage_rows(int R, int n, int m) {
+  const int J = n > m ? n : m;
+  if ((smem_floats(R, n, m, 0) + kStaticFloats(R)) * 4 > kSmemLimit) return -1;
+  if (J % 4 == 0)
+    for (int ks = 32; ks >= 4; ks /= 2)
+      if ((smem_floats(R, n, m, ks) + kStaticFloats(R)) * 4 <= kSmemLimit) return ks;
+  return 0;
 }
 
 // One launch per check block of the chunk's budget, on `stream`.
@@ -360,11 +443,20 @@ template <int TR>
 cudaError_t launch_checks(const Args& a, Dims d, cudaStream_t stream) {
   constexpr int R = kWarps * TR;
   d.bpg = (d.tile + R - 1) / R;
+  d.ks = stage_rows(R, d.n, d.m);
+  if (d.ks < 0) return cudaErrorInvalidValue;
+  // cp.async copies 16 bytes from 16-byte aligned operators only.
+  for (const float* op : {a.OP, a.Ab, a.AbT, a.Pb})
+    if (reinterpret_cast<size_t>(op) % 16 != 0) d.ks = 0;
   const dim3 grid(d.groups * d.bpg);
-  const size_t smem = smem_bytes<TR>(d);
+  const size_t smem = static_cast<size_t>(smem_floats(R, d.n, d.m, d.ks)) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(shared_chunk_kernel<TR>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
   for (int c = 0; c < d.n_checks; ++c) {
     shared_chunk_kernel<TR><<<grid, kThreads, smem, stream>>>(a, d, c);
-    const cudaError_t e = cudaGetLastError();
+    e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -374,15 +466,17 @@ cudaError_t launch_checks(const Args& a, Dims d, cudaStream_t stream) {
 
 extern "C" {
 
-// ptrs: the kNumPtrs device pointers in Args order.  `rows` scenarios per
-// thread block: 8, 16 or 32, or 0 for the candidate whose grid runs in the
-// fewest waves over the card, then the most rows (measured on an H100 at
-// n=120, m=196: the more rows, the faster, at B=64 as at B=4096, since a
-// block's time is set by its chain of operator loads, whatever their
-// reuse).  Enqueues n_checks launches.  Returns the cudaError_t of the
-// launches (0 on success; cudaErrorInvalidValue when no candidate's
-// panels fit in shared memory); the kernels run on `stream` and are not
-// synchronised.
+// The slice rows stage_rows gives a block of `rows` scenarios (8, 16 or
+// 32) at (n, m): 32, 16, 8, 4, 0 (operators through L1) or -1 (the panels
+// do not fit).
+int ocp_shared_stage_rows(int rows, int n, int m) { return stage_rows(rows, n, m); }
+
+// ptrs: the kNumPtrs device pointers in Args order; `rows` scenarios per
+// thread block: 8, 16 or 32 (the wrapper's ops/shared_kernel.py::
+// shared_block_rows).  Enqueues n_checks launches.  Returns the
+// cudaError_t of the launches (0 on success; cudaErrorInvalidValue for
+// sizes the kernel does not take, e.g. panels of `rows` scenarios beyond
+// shared memory); the kernels run on `stream` and are not synchronised.
 int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, int m, int tile,
                               int rows, int bound, int check_every, int n_checks, double sigma,
                               double alpha, double eps_abs, double eps_rel, void* stream) {
@@ -390,8 +484,7 @@ int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, 
       check_every < 1 || n_checks < 1 ||
       static_cast<long long>(n_checks) * check_every < bound)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (rows != 0 && rows != 8 && rows != 16 && rows != 32)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows != 8 && rows != 16 && rows != 32) return static_cast<int>(cudaErrorInvalidValue);
   static_assert(sizeof(Args) == kNumPtrs * sizeof(void*), "Args layout");
   Args a;
   memcpy(&a, ptrs, sizeof(Args));
@@ -405,25 +498,17 @@ int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, 
   d.n_checks = n_checks;
   d.groups = B / tile;
   d.bpg = 0;
+  d.ks = 0;
   d.sigma = static_cast<float>(sigma);
   d.alpha = static_cast<float>(alpha);
   d.one_m_alpha = static_cast<float>(1.0 - alpha);
   d.eps_abs = static_cast<float>(eps_abs);
   d.eps_rel = static_cast<float>(eps_rel);
-  int wv[3];  // rows 32, 16, 8
-  cudaError_t e;
-  if ((e = waves<4>(d, &wv[0])) != cudaSuccess || (e = waves<2>(d, &wv[1])) != cudaSuccess ||
-      (e = waves<1>(d, &wv[2])) != cudaSuccess)
-    return static_cast<int>(e);
-  int best = -1;
-  for (int i = 0; i < 3; ++i) {
-    if (wv[i] == 0 || (rows != 0 && rows != (32 >> i))) continue;
-    if (best < 0 || wv[i] < wv[best]) best = i;
-  }
-  if (best < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = best == 0 ? launch_checks<4>(a, d, s) : best == 1 ? launch_checks<2>(a, d, s)
-                                                         : launch_checks<1>(a, d, s);
+  const cudaError_t e = rows == 4 * kWarps   ? launch_checks<4>(a, d, s)
+                        : rows == 2 * kWarps ? launch_checks<2>(a, d, s)
+                        : rows == kWarps     ? launch_checks<1>(a, d, s)
+                                             : cudaErrorInvalidValue;
   return static_cast<int>(e);
 }
 

@@ -207,6 +207,16 @@ def admm_device_loop(
             OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv,
             sigma, alpha, eps_abs, eps_rel, x0, y0, **kw,
         )
+    return _launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs,
+                   eps_rel, x0, y0, max_iter, check_every)
+
+
+def _launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs, eps_rel,
+            x0, y0, max_iter, check_every):
+    """The wrapper's kernel path: outputs, vector slab and the launch of
+    ``csrc/admm_device_loop.cu`` on checked inputs."""
+    B, n, m = x0.shape[0], x0.shape[1], y0.shape[1]
+    dev = x0.device
     shared = kernel_variant(n, m) == "shared"
     outs = (
         torch.empty((B, n), dtype=torch.float32, device=dev),

@@ -57,11 +57,11 @@ __all__ = [
     "banded_admm_chunk_cr",
     "banded_admm_chunk_cr_plain",
     "cr_level_plan",
-    "cr_scratch_floats",
+    "cr_slab_floats",
     "MAX_CR_WIDTH",
 ]
 
-# Widest block the CUDA kernel takes (one thread per block row and stage).
+# Widest block the CUDA kernel takes.
 MAX_CR_WIDTH = 16
 
 
@@ -89,19 +89,44 @@ def cr_level_plan(N: int):
     return levels, off_d, off_L
 
 
-def cr_scratch_floats(N: int, w: int) -> int:
-    """Floats of CUDA scratch per scenario (the layout the kernel checks):
-    working diagonals and transposed couplings in two buffers each
-    (``N + 1`` and ``N // 2 + 2`` blocks), packed odd-pivot inverses plus
-    the root, packed per-level couplings, and four solve vectors (two
-    ping-pong buffers, the folded odd right-hand sides, a temporary)."""
+def cr_slab_floats(N: int, w: int, r: int, r2: int) -> int:
+    """Floats of the CUDA kernel's global slab per scenario (the layout the
+    kernel checks, ``make_layout`` in ``csrc/banded_cr_chunk.cu``): the
+    operators copied from the batch-last inputs (Hb, J0, J1, Jc, the
+    bound and scaling rows), the carried state, the level arrays (working
+    diagonals and transposed couplings in two ping-pong buffers each, of
+    ``N + 1`` and ``N // 2 + 2`` blocks), the packed odd-pivot inverses
+    plus the root and their transposes, the packed couplings and their
+    transposes, the level's three block products and the solve vectors,
+    each rounded up to 16 bytes.  Regions held in shared memory keep their
+    slot."""
     _, nd_slots, nl_slots = cr_level_plan(N)
     ww = w * w
-    return (
-        2 * (N + 1) * ww + 2 * (N // 2 + 2) * ww
-        + (nd_slots + 1) * ww + nl_slots * ww
-        + 3 * (N + 1) * w + nd_slots * w
+    h0 = (N + 1) // 2
+    regions = (
+        N * ww, (N - 1) * r * w, (N - 1) * r * w, N * r2 * w,
+        _ov_floats(N, w, r, r2), _st_floats(N, w, r, r2),
+        (N + 1) * ww, (N + 1) * ww, (N // 2 + 2) * ww, (N // 2 + 2) * ww,
+        (nd_slots + 1) * ww, (nd_slots + 1) * ww, nl_slots * ww, nl_slots * ww,
+        3 * h0 * ww, _vec_floats(N, w, nd_slots),
     )
+    return sum(_r4(n) for n in regions)
+
+
+def _r4(n):  # a count of floats rounded up to 16 bytes
+    return -(-n // 4) * 4
+
+
+def _ov_floats(N, w, r, r2):  # q, rho_x, lx, ux, ds, ex; rho_d, ld, ud, ed; rho_c, lc, uc, ec
+    return 6 * N * w + 4 * (N - 1) * r + 4 * N * r2
+
+
+def _st_floats(N, w, r, r2):  # x, zx, yx, zd, yd, zc, yc
+    return 3 * N * w + 2 * (N - 1) * r + 2 * N * r2
+
+
+def _vec_floats(N, w, nd_slots):  # two ping-pong solve vectors, a temporary, the odd rhs
+    return 3 * (N + 1) * w + nd_slots * w
 
 
 def _cr_factor(diag, low) -> Tuple[List[tuple], torch.Tensor]:
@@ -235,28 +260,37 @@ def banded_admm_chunk_cr(
         "banded_admm_chunk_cr", it0, done0, HbT, J0T, J1T, JcT, qT, boundsT,
         scaleT, xT, yxT, ydT, ycT, zxT, zdT, zcT, check_every,
     )
-    N, w, r, r2, B = dims
     dev = qT.device
     if dev.type == "cpu":
         return banded_admm_chunk_cr_plain(
             it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
             xT, yxT, ydT, ycT, zxT, zdT, zcT, **kw,
         )
+    return _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs,
+                   eps_rel)
+
+
+def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs, eps_rel):
+    """The wrapper's kernel path: outputs, slab and the launch of
+    ``csrc/banded_cr_chunk.cu`` on ``inputs`` (checked by
+    ``chunk_contract``)."""
+    N, w, r, r2, B = dims
     if w > MAX_CR_WIDTH:
         raise ValueError(
             f"banded_admm_chunk_cr: block width w={w} exceeds the CUDA "
             f"kernel's {MAX_CR_WIDTH}"
         )
+    dev = inputs[0].device
     outs = chunk_outputs(dims, dev)
     if B == 0:
         return outs
-    # Level arrays and solve vectors, scenario-major: one thread block's
-    # scenario is one contiguous slab.
-    per = cr_scratch_floats(N, w)
-    scratch = torch.empty((B, per), dtype=torch.float32, device=dev)
+    # The operators, level arrays and whatever else does not fit in shared
+    # memory, scenario-major: one thread block's scenario is one slab.
+    per = cr_slab_floats(N, w, r, r2)
+    slab = torch.empty((B, per), dtype=torch.float32, device=dev)
     launch_chunk(
         "banded_admm_chunk_cr", "banded_cr_chunk", "ocp_banded_admm_chunk_cr_f32",
-        [*inputs, *outs, scratch],
+        [*inputs, *outs, slab],
         (N, w, r, r2, B, interval, check_every, max_iter, per),
         (sigma, alpha, eps_abs, eps_rel), dev,
     )

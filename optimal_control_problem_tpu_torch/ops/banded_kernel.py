@@ -521,12 +521,20 @@ def banded_admm_chunk(
             it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
             xT, yxT, ydT, ycT, zxT, zdT, zcT, **kw,
         )
+    return _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs,
+                   eps_rel)
+
+
+def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs, eps_rel):
+    """The wrapper's kernel path: outputs, slab and the launch of
+    ``csrc/banded_chunk.cu`` on ``inputs`` (checked by ``chunk_contract``)."""
     N, w, r, r2, B = dims
     if w not in KERNEL_WIDTHS:
         raise ValueError(
             f"banded_admm_chunk: block width w={w} has no CUDA instantiation "
             f"(built for {KERNEL_WIDTHS}); the rolled chunk takes it"
         )
+    dev = inputs[0].device
     outs = chunk_outputs(dims, dev)
     if B == 0:
         return outs

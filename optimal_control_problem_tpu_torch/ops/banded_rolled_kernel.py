@@ -270,11 +270,21 @@ def banded_admm_chunk_rolled(
             it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
             xT, yxT, ydT, ycT, zxT, zdT, zcT, cr1=cr1, **kw,
         )
+    return _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs,
+                   eps_rel, cr1)
+
+
+def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs, eps_rel, cr1):
+    """The wrapper's kernel path: outputs, slab and the launch of
+    ``csrc/banded_rolled_chunk.cu`` on ``inputs`` (checked by
+    ``chunk_contract``)."""
+    N, w, r, r2, B = dims
     if w > MAX_ROLLED_WIDTH:
         raise ValueError(
             f"banded_admm_chunk_rolled: block width w={w} exceeds the CUDA "
             f"kernel's {MAX_ROLLED_WIDTH}"
         )
+    dev = inputs[0].device
     outs = chunk_outputs(dims, dev)
     if B == 0:
         return outs

@@ -58,11 +58,41 @@ __all__ = [
     "shared_admm_chunk_plain",
     "chain_matmul",
     "pick_shared_tile",
+    "shared_block_rows",
     "ROWS_PER_BLOCK",
 ]
 
 # Scenarios per thread block the CUDA kernel is instantiated for.
 ROWS_PER_BLOCK = (8, 16, 32)
+# Dynamic shared memory a thread block may opt into on an H100.
+SMEM_LIMIT = 232448
+
+
+def shared_block_rows(B: int, batch_tile: int, n: int, m: int, sms: int) -> int:
+    """Scenarios per thread block for a launch over ``B`` scenarios in
+    termination groups of ``batch_tile`` on a card with ``sms`` SMs: of
+    the ``ROWS_PER_BLOCK`` whose panels fit in shared memory (six of
+    ``rows`` by ``n`` or ``m`` floats and five per row; the C entry point
+    refuses the others), the one that puts the fewest scenario rows on
+    the busiest SM (``ceil(blocks / sms) * rows``: an SM's float pipes are
+    shared by the blocks it holds), then the most
+    rows (each block streams the operators once).  At n=120, m=196: 32 at
+    B=4096 (128 blocks), 8 at B=64 (8 blocks, where 32 would leave 130 of
+    132 SMs idle).  Raises where no block of 8 fits."""
+    best = None
+    for rows in sorted(ROWS_PER_BLOCK, reverse=True):
+        if rows * (3 * n + 3 * m + 5) * 4 > SMEM_LIMIT:
+            continue
+        blocks = (B // batch_tile) * -(-batch_tile // rows)
+        load = -(-blocks // sms) * rows
+        if best is None or load < best[0]:
+            best = (load, rows)
+    if best is None:
+        raise ValueError(
+            f"shared_admm_chunk: the panels of {min(ROWS_PER_BLOCK)} scenarios at n={n}, "
+            f"m={m} exceed the {SMEM_LIMIT} bytes of shared memory a block can have"
+        )
+    return best[1]
 
 
 def pick_shared_tile(B: int, n: int, m: int) -> Optional[int]:
@@ -224,10 +254,9 @@ def shared_admm_chunk(
     thread blocks through global memory between launches), or raise: a
     panel width whose rows do not fit in shared memory is refused.
     ``rows_per_block`` (one of ``ROWS_PER_BLOCK``) forces the scenarios per
-    thread block, for timing; by default the launcher takes the one whose
-    grid runs in the fewest waves over the card, then the most rows.
-    Results do not depend on it.  One call counts one launch in
-    ``shared_admm_chunk.launches`` (one chunk of the driver).
+    thread block, for timing; by default :func:`shared_block_rows` picks
+    it for the card.  Results do not depend on it.  One call counts one
+    launch in ``shared_admm_chunk.launches`` (one chunk of the driver).
     """
     B, n, m, bound, done0, cinv = _contract(
         done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
@@ -240,6 +269,17 @@ def shared_admm_chunk(
         return shared_admm_chunk_plain(
             done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, **kw
         )
+    return _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+                   rows_per_block, **kw)
+
+
+def _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+            rows_per_block, *, check_every, sigma, alpha, eps_abs, eps_rel, batch_tile):
+    """The wrapper's kernel path: outputs, votes and the launches of
+    ``csrc/shared_chunk.cu`` on inputs checked by ``_contract``."""
+    B, n = x.shape
+    m = z.shape[1]
+    dev = x.device
 
     def empty(*shape, dt=torch.float32):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -252,8 +292,11 @@ def shared_admm_chunk(
     if B == 0:
         return outs[:3] + (outs[3].bool(),) + outs[4:]
     groups = B // batch_tile
-    rows = rows_per_block or 0
-    if rows and rows not in ROWS_PER_BLOCK:
+    rows = rows_per_block
+    if rows is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rows = shared_block_rows(B, batch_tile, n, m, sms)
+    elif rows not in ROWS_PER_BLOCK:
         raise ValueError(f"rows_per_block must be one of {ROWS_PER_BLOCK}, got {rows}")
     n_checks = max(1, -(-bound // check_every))
     # Per group and check block: how many of the group's thread blocks

@@ -202,10 +202,18 @@ def test_cr_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
 
 
 def test_cr_scratch_layout():
-    # N=100, w=16: 2 x 101 + 2 x 52 working blocks, 102 + 1 inverses,
-    # 204 couplings, 3 x 101 + 102 vectors.
-    assert bck.cr_scratch_floats(100, 16) == (2 * 101 + 2 * 52 + 103 + 204) * 256 + (
-        3 * 101 + 102) * 16
+    # N=100, w=16, r=12, r2=1: operators 100 + 2 x 99 x 12 / 16 + 100 / 16
+    # blocks, rows and state, 2 x 101 + 2 x 52 working blocks, 2 x (102 + 1)
+    # inverses and transposes, 2 x 204 couplings and transposes, 3 x 50
+    # products, 3 x 101 + 102 vectors.
+    ov = 6 * 100 * 16 + 4 * 99 * 12 + 4 * 100
+    st = 3 * 100 * 16 + 2 * 99 * 12 + 2 * 100
+    assert bck.cr_slab_floats(100, 16, 12, 1) == (
+        (100 + 2 * 101 + 2 * 52 + 2 * 103 + 2 * 204 + 150) * 256 + 2 * 99 * 12 * 16 + 100 * 16
+        + ov + st + (3 * 101 + 102) * 16)
+    # Every region is rounded up to 16 bytes: at N=50, w=3, r=2, r2=1, J0
+    # and J1 hold 294 floats each, padded to 296.
+    assert bck.cr_slab_floats(50, 3, 2, 1) % 4 == 0
 
 
 # ---- the driver ------------------------------------------------------------

@@ -408,3 +408,36 @@ def test_default_group_and_xla_fallback_match_jax(monkeypatch, tile):
         assert torch.equal(tp.x, tx.x)
     else:
         assert calls and set(calls) == {tile}
+
+
+# ---- the CUDA kernel's block shape (a host-side rule) ----------------------
+
+
+# (B, tile, n, m, SMs, rows): of the shapes whose panels fit, the fewest
+# scenario rows on the busiest SM, ceil(blocks / SMs) * rows, then the most
+# rows.  The panels of 8, 16 and 32 scenarios fit at every n, m below but
+# n=600, m=1200, where only 8 do.
+_ROWS_AT = {(8, 132): 8,  # one block of 8
+            (64, 132): 8,  # 8 blocks of 8, where 32 would leave 130 SMs idle
+            (4096, 132): 32,  # 128 blocks of 32: one a SM
+            (6144, 132): 16,  # 384 blocks of 16: 3 a SM (48 rows) against 2 of 32 (64)
+            (200, 7): 32}  # 7 blocks of 32, 13 of 16, 25 of 8: 32 rows on each SM, a tie
+BLOCK_ROWS_CASES = [
+    (4096, 4096, 120, 196, 132, 32),
+    (64, 64, 120, 196, 132, 8),
+    (6144, 6144, 120, 196, 132, 16),
+    (13072, 6536, 120, 196, 132, 8),
+    (1, 1, 120, 196, 132, 8),
+] + [(B, B, n, m, sms, rows) for n, m in [(120, 196), (6, 9), (40, 36), (232, 12)]
+     for (B, sms), rows in _ROWS_AT.items()] + [
+    (B, B, 600, 1200, sms, 8) for B, sms in _ROWS_AT]
+
+
+@pytest.mark.parametrize("B,tile,n,m,sms,rows", BLOCK_ROWS_CASES)
+def test_block_rows_rule(B, tile, n, m, sms, rows):
+    assert sk.shared_block_rows(B, tile, n, m, sms) == rows
+
+
+def test_block_rows_refuses_panels_beyond_shared_memory():
+    with pytest.raises(ValueError, match="exceed"):
+        sk.shared_block_rows(64, 64, 3000, 3000, 132)
