@@ -30,14 +30,14 @@ Phases:
      holds resident) and B=8192 (two of JAX's tiles of 6536); the dense
      device loop at B=256, n=100, m=196 on the
      cart-pole h20 dense tick's own inputs (a forced budget of 60 with
-     check_every 25, the first SQP step of a cold tick, a later step whose
-     scenarios stop at different counts, one scenario alone), on a QP with
-     +-inf bounds and equality rows, and -- in its global-memory variant
-     -- on the first entry of random dense solves at n=120, m=236 and
-     n=200, m=392; the cyclic-reduction chunk at quadrotor shapes (N=100,
-     w=16, r=12, r2=1) at B=64, 8 and 1 (a forced budget of 41 with
-     check_every 2, entry counts near it and every fifth scenario frozen
-     at entry; converging), at w=5 and w=3, at the odd horizons N=7 and
+     check_every 25 in each of the kernel's three tiers, the first SQP
+     step of a cold tick, a later step whose scenarios stop at different
+     counts, one scenario alone), on a QP with +-inf bounds and equality
+     rows, and on the first entry of random dense solves at n=120, m=236
+     (tier 2) and n=200, m=392 (tier 3); the cyclic-reduction chunk at
+     quadrotor shapes (N=100, w=16, r=12, r2=1) at B=64, 8 and 1 (a forced
+     budget of 41 with check_every 2, entry counts near it and every fifth
+     scenario frozen at entry; converging), at w=5 and w=3, at the odd horizons N=7 and
      N=25 and at N=2 (w=16), and at N=150 and N=400, w=16 and N=1500, w=3
      (shared-memory tiers in the slab);
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
@@ -76,9 +76,11 @@ Phases:
      beside a loop of torch.matmul products; the shared one also on one
      group of 6144 and at the B=64 latency batch, each with 8, 16 and 32
      scenarios a block and beside its -fmad=false ceiling; the device loop
-     on a cold and on a steady-state tick and in its global-memory variant
-     at n=120, m=236; the CR chunk at a steady B=64 and a B=8 tick beside
-     the rolled chunk on the very same inputs).
+     on a cold and on a steady-state tick with its iteration counts, the
+     steady tick's slowest scenario alone at B=1 (ms and us per
+     iteration), and in tiers 2 and 3 at n=120, m=236 and n=200, m=392; the CR
+     chunk at a steady B=64 and a B=8 tick beside the rolled chunk on the
+     very same inputs).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -794,12 +796,14 @@ def main(argv) -> int:
                          f"times, expected {steps_cd}")
     loop_err = 0.0
 
-    def compare_loop(args, kw, label, check):
-        """Kernel and plain version on the same inputs: equal ``it``, every
-        float output within 1e-6 (both sum each product as the same
-        ascending chain without FMA contraction, so the gap should be 0)."""
+    def compare_loop(args, kw, label, check, tier=None):
+        """Kernel (in ``tier``, default the rule's) and plain version on the
+        same inputs: equal ``it`` and every float output bitwise equal (NaN
+        where NaN, the sign of a zero included; gap 0): both sum each
+        product as the same ascending chain without FMA contraction."""
         nonlocal loop_err
-        out_k = ak.admm_device_loop(*args, **kw)
+        out_k = (ak.admm_device_loop(*args, **kw) if tier is None else
+                 ak._launch(*args, kw["max_iter"], kw["check_every"], tier))
         sync()
         t0 = time.perf_counter()
         out_p = ak.admm_device_loop_plain(*args, **kw)
@@ -808,26 +812,35 @@ def main(argv) -> int:
         if not torch.equal(out_k[3], out_p[3]):
             raise SystemExit(f"phase 3 [{label}]: iteration counts differ between kernel and plain")
         errs = {}
+        same = True
         for nm, a, b in zip("xyz", out_k, out_p):
             if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
                 raise SystemExit(f"phase 3 [{label}]: {nm} is infinite in other places")
             fin = torch.isfinite(b)
             errs[nm] = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+            same &= bool((torch.isnan(a) & torch.isnan(b)
+                          | (a == b) & (torch.signbit(a) == torch.signbit(b))).all())
         its = sorted(set(out_k[3].tolist()))
-        log(f"phase 3 [{label}]: B={out_k[0].shape[0]} n={out_k[0].shape[1]} "
-            f"m={out_k[1].shape[1]}: max |kernel - plain| "
+        n_, m_ = out_k[0].shape[1], out_k[1].shape[1]
+        log(f"phase 3 [{label}]: B={out_k[0].shape[0]} n={n_} m={m_} tier "
+            f"{tier or ak.kernel_tier(n_, m_)}: max |kernel - plain| "
             + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
             + f"; it {its[:8]}{' ...' if len(its) > 8 else ''} (plain side {plain_s:.1f} s)")
-        if max(errs.values()) > 1e-6:
-            raise SystemExit(f"phase 3 [{label}]: kernel and plain version disagree")
+        if not same:
+            raise SystemExit(f"phase 3 [{label}]: kernel and plain version differ in their bits "
+                             "(limit: gap 0)")
         if not check(out_k[3]):
             raise SystemExit(f"phase 3 [{label}]: unexpected iteration counts")
         loop_err = max(loop_err, max(errs.values()))
 
     args0, kw0 = cd_cold[0]
     forced_args = args0[:12] + (0.0, 0.0) + args0[14:]
-    compare_loop(forced_args, {**kw0, "max_iter": 60}, "device loop, cart-pole cold step 1, "
-                 "forced budget 60 (check_every 25)", lambda it: bool((it == 75).all()))
+    if ak.kernel_tier(100, 196) != 1:
+        raise SystemExit("phase 3: the cart-pole h20 QP did not take the device loop's tier 1")
+    for tier in (1, 2, 3):
+        compare_loop(forced_args, {**kw0, "max_iter": 60}, "device loop, cart-pole cold step 1, "
+                     f"forced budget 60 (check_every 25), tier {tier} forced",
+                     lambda it: bool((it == 75).all()), tier=tier)
     compare_loop(args0, kw0, "device loop, cart-pole cold step 1, eps 1e-3, max_iter 500",
                  lambda it: bool((it % 25 == 0).all() and (it <= 500).all()))
     args2, kw2 = cd_cold[2]
@@ -857,15 +870,16 @@ def main(argv) -> int:
     compare_loop(args_e, {"max_iter": 1000, "check_every": 25},
                  "device loop, +-inf bounds and equality rows, eps 1e-4",
                  lambda it: bool((it > 0).all()))
-    # QPs whose operators exceed a thread block's shared memory take the
-    # kernel's global-memory variant: random batches at n=120, m=236 and
-    # n=200, m=392 solved by the dense "pallas" path (the JAX package's
-    # guard admits both), and the kernel's first entry of each against
-    # its plain version.
-    dense_global = {}
-    for (n_g, m_g, B_g) in ((120, 236, 64), (200, 392, 32)):
-        if ak.kernel_variant(n_g, m_g) != "global":
-            raise SystemExit(f"phase 3: n={n_g}, m={m_g} did not take the global variant")
+    # Larger QPs take the kernel's other tiers: random batches at n=120,
+    # m=236 (tier 2: OP^T and Ab in shared memory) and n=200, m=392 (tier
+    # 3: operators read from global memory) solved by the dense "pallas"
+    # path (the JAX package's guard admits both), and the kernel's first
+    # entry of each against its plain version.
+    dense_tiers = {}
+    for (n_g, m_g, B_g, tier_g) in ((120, 236, 64, 2), (200, 392, 32, 3)):
+        if ak.kernel_tier(n_g, m_g) != tier_g:
+            raise SystemExit(f"phase 3: n={n_g}, m={m_g} did not take the device loop's "
+                             f"tier {tier_g}")
         P_g, q_g, A_g, l_g, u_g = (torch.as_tensor(a, device=dev)
                                    for a in random_dense_qp(2, B_g, n_g, m_g))
         st_g = ADMMSettings(method="condensed", eps_abs=1e-3, eps_rel=1e-3, max_iter=500,
@@ -874,16 +888,16 @@ def main(argv) -> int:
         sync()
         calls_g = list(captured["admm_device_loop"])
         captured["admm_device_loop"].clear()
-        log(f"phase 3: backend=pallas dense QPs B={B_g} n={n_g} m={m_g} (global variant): "
+        log(f"phase 3: backend=pallas dense QPs B={B_g} n={n_g} m={m_g} (tier {tier_g}): "
             f"{len(calls_g)} kernel entries, converged {float(sol_g.converged.float().mean()):.4f}, "
             f"iterations {sorted(set(sol_g.iters.tolist()))[:8]}, finite "
             f"{bool(torch.isfinite(sol_g.x).all())}")
         if not bool(torch.isfinite(sol_g.x).all()):
             raise SystemExit(f"phase 3: the n={n_g}, m={m_g} dense solve is not finite")
         g_args, g_kw = calls_g[0]
-        compare_loop(g_args, g_kw, f"device loop, global variant, B={B_g} n={n_g} m={m_g}",
+        compare_loop(g_args, g_kw, f"device loop, tier {tier_g}, B={B_g} n={n_g} m={m_g}",
                      lambda it: bool((it % 25 == 0).all()))
-        dense_global[(n_g, m_g)] = calls_g
+        dense_tiers[(n_g, m_g)] = calls_g
     log(f"phase 3: largest gap kernel vs plain, dense device loop: {loop_err:.3g}")
 
     def drive(solver, frames, refs, ticks, label, expect_launches, pinned=False):
@@ -1552,6 +1566,20 @@ def main(argv) -> int:
         ops_ms = flops / nc / PEAK_F32_FLOPS * 1e3
         return iters, bytes_ms, ops_ms
 
+    def event_ms(fn, reps):
+        """Mean device ms of ``fn`` over ``reps`` calls (CUDA events, after
+        one warm call)."""
+        fn()
+        sync()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        sync()
+        return e0.elapsed_time(e1) / reps
+
     loop_rows = {}
     for which, calls in (("cold", cd_cold), ("steady", cd_steady)):
         nc = len(calls)
@@ -1565,31 +1593,51 @@ def main(argv) -> int:
                                2, sync) / nc
         mean_it = statistics.fmean(float(it.float().mean()) for it in iters)
         max_it = max(int(it.max()) for it in iters)
+        B_, n_, m_ = calls[0][0][0].shape[0], calls[0][0][0].shape[1], calls[0][0][1].shape[1]
         loop_rows[which] = dict(ms=k_ms, mm_ms=mm_ms, plain_ms=plain_ms,
                                 bound_ms=max(bytes_ms, ops_ms),
-                                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                                mean_it=mean_it, max_it=max_it)
         log(f"phase 6: admm_device_loop at the {which} cart-pole dense tick's inputs ({nc} "
-            f"launches, B={calls[0][0][0].shape[0]}, n={calls[0][0][0].shape[1]}, "
-            f"m={calls[0][0][1].shape[1]}; iterations per scenario and launch: mean "
-            f"{mean_it:.2f}, largest {max_it}, by launch (largest) "
-            f"{[int(it.max()) for it in iters]}): {k_ms:.4f} ms/launch, plain "
+            f"launches, B={B_}, n={n_}, m={m_}, tier {ak.kernel_tier(n_, m_)}; iterations "
+            f"per scenario and launch: mean {mean_it:.2f}, largest {max_it}, by launch "
+            f"(largest) {[int(it.max()) for it in iters]}): {k_ms:.4f} ms/launch, plain "
             + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured (minutes)")
             + f", the same iterations and checks as batched torch.matmul products "
             f"{mm_ms:.4f} ms, bound {max(bytes_ms, ops_ms) * 1e3:.3f} us (bytes "
             f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us)")
-    # The global-memory variant: the n=120, m=236 random dense solve's
+        if which == "steady":
+            # The slowest scenario of the steady tick alone (B=1): its
+            # latency against the B=256 launch's time says whether one
+            # scenario's iterations or the waves of blocks set the
+            # launch; over its iteration count (checks in the time, not
+            # the count), one scenario's us per iteration.
+            (sa, sk_), sit = max(zip(calls, iters), key=lambda c: int(c[1].max()))
+            bs = int(sit.argmax())
+            one_ = tuple(t_[bs:bs + 1] if torch.is_tensor(t_) else t_ for t_ in sa)
+            b1_ms = event_ms(lambda: ak.admm_device_loop(*one_, **sk_), 20)
+            loop_rows[which].update(b1_slowest_ms=b1_ms, b1_slowest_it=int(sit.max()),
+                                    b1_us_per_iter=b1_ms * 1e3 / int(sit.max()))
+            log(f"phase 6: admm_device_loop, the steady tick's slowest scenario alone (B=1, "
+                f"{int(sit.max())} iterations): {b1_ms:.4f} ms/launch "
+                f"({b1_ms * 1e3 / int(sit.max()):.4f} us per iteration)")
+    # Tiers 2 and 3: the n=120, m=236 and n=200, m=392 random dense solves'
     # kernel entries of phase 3.
-    gcalls = dense_global[(120, 236)]
-    g_iters, g_bytes_ms, g_ops_ms = loop_stats(gcalls)
-    g_ms = time_ms(lambda: [ak.admm_device_loop(*a, **k) for a, k in gcalls], 5,
-                   sync) / len(gcalls)
-    log(f"phase 6: admm_device_loop, global variant ({len(gcalls)} launches of a random "
-        f"dense solve, B={gcalls[0][0][0].shape[0]}, n=120, m=236; iterations per scenario "
-        f"and launch: mean {statistics.fmean(float(it.float().mean()) for it in g_iters):.2f}, "
-        f"largest {max(int(it.max()) for it in g_iters)}): {g_ms:.4f} ms/launch, bound "
-        f"{max(g_bytes_ms, g_ops_ms) * 1e3:.3f} us (bytes {g_bytes_ms * 1e3:.3f} us, "
-        f"operations {g_ops_ms * 1e3:.3f} us)")
-    st_row = loop_rows["steady"]
+    tier_rows = {}
+    for (n_t, m_t), tcalls in dense_tiers.items():
+        t_iters, t_bytes_ms, t_ops_ms = loop_stats(tcalls)
+        t_ms = time_ms(lambda: [ak.admm_device_loop(*a, **k) for a, k in tcalls], 5,
+                       sync) / len(tcalls)
+        B_t = tcalls[0][0][0].shape[0]
+        tier_t = ak.kernel_tier(n_t, m_t)
+        tier_rows[tier_t] = (n_t, m_t, t_ms, max(t_bytes_ms, t_ops_ms))
+        log(f"phase 6: admm_device_loop, tier {tier_t} ({len(tcalls)} launches of a random "
+            f"dense solve, B={B_t}, n={n_t}, m={m_t}; iterations per scenario and launch: "
+            f"mean {statistics.fmean(float(it.float().mean()) for it in t_iters):.2f}, "
+            f"largest {max(int(it.max()) for it in t_iters)}): {t_ms:.4f} ms/launch, "
+            f"bound {max(t_bytes_ms, t_ops_ms) * 1e3:.3f} us (bytes "
+            f"{t_bytes_ms * 1e3:.3f} us, operations {t_ops_ms * 1e3:.3f} us)")
+    st_row, cold_row = loop_rows["steady"], loop_rows["cold"]
     row4 = {
         "name": "admm_device_loop", "route": "cuda", "source": DEVLOOP_SOURCE,
         "replaces": DEVLOOP_REPLACES, "launches": dense_launches, "max_abs_err": loop_err,
@@ -1598,10 +1646,17 @@ def main(argv) -> int:
         # No single PyTorch call computes the loop; the batched
         # torch.matmul loop above is reported beside it.
         "library_ms": None, "matmul_loop_ms": st_row["mm_ms"],
-        "cold_ms": loop_rows["cold"]["ms"], "cold_bound_ms": loop_rows["cold"]["bound_ms"],
-        "cold_matmul_loop_ms": loop_rows["cold"]["mm_ms"],
-        "global_n120_m236_ms": g_ms, "global_n120_m236_bound_ms": max(g_bytes_ms, g_ops_ms),
+        "tier": ak.kernel_tier(100, 196),
+        "mean_it": st_row["mean_it"], "max_it": st_row["max_it"],
+        "b1_slowest_ms": st_row["b1_slowest_ms"], "b1_slowest_it": st_row["b1_slowest_it"],
+        "b1_us_per_iter": st_row["b1_us_per_iter"],
+        "cold_ms": cold_row["ms"], "cold_bound_ms": cold_row["bound_ms"],
+        "cold_matmul_loop_ms": cold_row["mm_ms"], "cold_mean_it": cold_row["mean_it"],
+        "cold_max_it": cold_row["max_it"],
     }
+    for tier_t, (n_t, m_t, t_ms, t_bound) in sorted(tier_rows.items()):
+        row4[f"tier{tier_t}_n{n_t}_m{m_t}_ms"] = t_ms
+        row4[f"tier{tier_t}_n{n_t}_m{m_t}_bound_ms"] = t_bound
 
     # The cyclic-reduction chunk on the recorded launches of one steady
     # B=64 and one B=8 quadrotor tick, and the rolled chunk (with the CR

@@ -26,12 +26,16 @@ kernel's, not the ``"xla"`` loop's: an f32 inverse (and a Hessian from
 :func:`admm_device_loop` is the wrapper: for CUDA tensors it launches the
 hand-written kernel ``csrc/admm_device_loop.cu`` (built by ``nvcc`` at
 first use; one thread block per scenario) and counts the launch in
-``admm_device_loop.launches``.  :func:`kernel_variant` picks where the
-kernel keeps a scenario's operators: in shared memory where they fit
-(``"shared"``), else where the caller holds them, read through L2
-(``"global"``, vectors in a scratch slab); both variants run the same op
-order.  The only size limit is the JAX driver's own guard, which the dense
-``"pallas"`` path (``solvers/admm.py``) copies.  For CPU tensors it runs
+``admm_device_loop.launches``.  :func:`kernel_tier` picks where the
+kernel keeps a scenario's operators, greedily: tier 1 stages ``OP^T``,
+``Ab`` and ``Ab^T`` in shared memory, tier 2 ``OP^T`` and ``Ab``, tier 3
+reads them where the caller holds them, through L2 (vectors in a scratch
+slab); all three run the same op order.  The layout (each tier's shared
+memory, the slab's row) is the C entry point's alone: the wrapper asks
+the built library for it (``ocp_admm_device_loop_smem``,
+``ocp_admm_device_loop_slab_floats``) and keeps no copy.  The only size limit is the JAX
+driver's own guard, which the dense ``"pallas"`` path
+(``solvers/admm.py``) copies.  For CPU tensors it runs
 :func:`admm_device_loop_plain`, the plain PyTorch version of the same
 contract that the CPU tests hold against the Pallas kernel.  There is no
 fallback from one to the other.
@@ -43,48 +47,45 @@ FMA contraction off), so they round alike and agree bitwise.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .banded_kernel import _check, launch_chunk
+from .build import load_library
 
 __all__ = [
     "admm_device_loop",
     "admm_device_loop_plain",
     "chain_bmm",
-    "kernel_variant",
-    "smem_bytes",
-    "vector_floats",
+    "kernel_tier",
     "SMEM_LIMIT",
 ]
 
 # Dynamic shared memory one thread block may opt into on sm_90 (H100/H200).
 SMEM_LIMIT = 232_448
-# Threads per block of the CUDA kernel (its block-reduction scratch holds
-# 8 values for each of their warps).
-_THREADS = 256
 
 
-def vector_floats(n: int, m: int) -> int:
-    """Floats of one scenario's vectors in the kernel: five n-vectors (x,
-    rhs, xt, qb, 1/D) and seven m-vectors (z, y, rho z - y, lb, ub, rho,
-    1/E)."""
-    return 5 * n + 7 * m
+def _layout(symbol: str, *ints: int) -> int:
+    """One of the C entry point's layout queries, from the built library
+    (``ocp_admm_device_loop_smem(tier, n, m)``: a block's shared bytes;
+    ``ocp_admm_device_loop_slab_floats(n, m)``: a scenario's row of tier
+    3's vector slab)."""
+    fn = getattr(load_library("admm_device_loop"), symbol)
+    fn.argtypes = [ctypes.c_int] * len(ints)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*ints))
 
 
-def smem_bytes(n: int, m: int) -> int:
-    """Shared memory of one thread block of ``csrc/admm_device_loop.cu``'s
-    ``"shared"`` variant: ``OP`` and ``Pb`` (n x n), ``Ab`` with its rows
-    padded to an odd stride (``n | 1``, so both of its orientations read
-    without bank conflicts), the vectors and the reduction scratch."""
-    return 4 * (2 * n * n + m * (n | 1) + vector_floats(n, m) + 8 * (_THREADS // 32))
-
-
-def kernel_variant(n: int, m: int) -> str:
-    """``"shared"`` where one scenario's operators and vectors fit in a
-    thread block's shared memory (166,928 bytes at n=100, m=196), else
-    ``"global"`` (from 238,688 bytes at n=120, m=236): the kernel then reads
-    the operators through L2 and keeps its vectors in a scratch slab."""
-    return "shared" if smem_bytes(n, m) <= SMEM_LIMIT else "global"
+def kernel_tier(n: int, m: int) -> int:
+    """The first tier whose shared memory (the C entry point's count) fits
+    a thread block: 1 up to 204,544 bytes at n=100, m=196 (the cart-pole
+    h20 QP), 2 at n=120, m=236 (185,840 bytes), 3 at n=200, m=392 and
+    beyond."""
+    for tier in (1, 2):
+        if _layout("ocp_admm_device_loop_smem", tier, n, m) <= SMEM_LIMIT:
+            return tier
+    return 3
 
 
 def chain_bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -196,8 +197,8 @@ def admm_device_loop(
 
     CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
     launch ``csrc/admm_device_loop.cu`` on the current stream, one thread
-    block per scenario, in the variant :func:`kernel_variant` picks, or
-    raise if the launch is refused.
+    block per scenario, in the tier :func:`kernel_tier` picks, or raise if
+    the launch is refused.
     """
     B, n, m = _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
     kw = dict(max_iter=max_iter, check_every=check_every)
@@ -212,12 +213,14 @@ def admm_device_loop(
 
 
 def _launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs, eps_rel,
-            x0, y0, max_iter, check_every):
+            x0, y0, max_iter, check_every, tier=None):
     """The wrapper's kernel path: outputs, vector slab and the launch of
-    ``csrc/admm_device_loop.cu`` on checked inputs."""
+    ``csrc/admm_device_loop.cu`` on checked inputs, in ``tier`` (default
+    :func:`kernel_tier`; the tests and the ablation force one, and the C
+    entry point refuses a tier whose shared memory does not fit)."""
     B, n, m = x0.shape[0], x0.shape[1], y0.shape[1]
     dev = x0.device
-    shared = kernel_variant(n, m) == "shared"
+    tier = kernel_tier(n, m) if tier is None else tier
     outs = (
         torch.empty((B, n), dtype=torch.float32, device=dev),
         torch.empty((B, m), dtype=torch.float32, device=dev),
@@ -226,12 +229,12 @@ def _launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs
     )
     if B == 0:
         return outs
-    vec = torch.empty((1 if shared else B * vector_floats(n, m),), dtype=torch.float32,
-                      device=dev)
+    slab = _layout("ocp_admm_device_loop_slab_floats", n, m) if tier == 3 else 0
+    vec = torch.empty((max(1, B * slab),), dtype=torch.float32, device=dev)
     launch_chunk(
         "admm_device_loop", "admm_device_loop", "ocp_admm_device_loop_f32",
         [OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, *outs, vec],
-        (B, n, m, max_iter, check_every, int(shared)),
+        (B, n, m, max_iter, check_every, tier),
         (sigma, alpha, eps_abs, eps_rel), dev,
     )
     admm_device_loop.launches += 1

@@ -302,7 +302,7 @@ def check_pallas_size(n: int, m: int) -> None:
     """The JAX package's size guard of the dense ``"pallas"`` path
     (``solvers/admm.py``, its VMEM budget for one QP's operators), copied
     so that the port raises exactly where JAX's does; the device loop
-    itself takes any size (``ops/admm_kernel.kernel_variant``)."""
+    itself takes any size (``ops/admm_kernel.kernel_tier``)."""
     vmem_bytes = 4 * (2 * n * n + 2 * m * n + 4 * (n + m))
     if vmem_bytes > 40 * 1024 * 1024:
         raise ValueError(

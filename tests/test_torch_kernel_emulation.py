@@ -36,6 +36,7 @@ accepts.  Skips only where ``g++`` is missing.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import pickle
 import re
@@ -473,7 +474,8 @@ def _run_entry(emu_lib, lib_name, symbol, tensors, ints, floats):
 
 @pytest.fixture
 def emulate(emu_lib, monkeypatch):
-    """Route every wrapper's ``launch_chunk`` to the emulated library;
+    """Route every wrapper's ``launch_chunk`` to the emulated library, and
+    the device loop's layout queries (its tier rule) to its emulated build;
     ``emulate.rcs`` collects the entry points' return codes."""
     rcs = []
 
@@ -485,6 +487,7 @@ def emulate(emu_lib, monkeypatch):
 
     for mod in (bk, brk, bck, sk, ak):
         monkeypatch.setattr(mod, "launch_chunk", fake_launch)
+    monkeypatch.setattr(ak, "load_library", lambda name: ctypes.CDLL(str(emu_lib(name))))
     fake_launch.rcs = rcs
     return fake_launch
 
@@ -573,7 +576,7 @@ def plain_name(module):
             bck: "banded_admm_chunk_cr_plain"}[module]
 
 
-# ---- B1, B2, B5: one small case each ------------------------------------------
+# ---- B1, B2: one small case each; B5: every tier ---------------------------------
 
 
 def test_banded_chunk_emulated_matches_plain(emulate):
@@ -590,14 +593,11 @@ def test_rolled_chunk_emulated_matches_plain(emulate):
     assert emulate.rcs == [0] and int(out[8].max()) == 6 and bool(out[4][..., 0].isnan().all())
 
 
-@pytest.mark.parametrize("diverging", [False, True])
-def test_device_loop_emulated_matches_plain(emulate, diverging):
-    """A converging batch, and one whose operator is no ADMM operator, so
-    that a scenario's iterates overflow to NaN: its NaN residual keeps it
-    running to ``max_iter`` in both (a maximum that drops NaN would stop
-    it early as converged)."""
-    rng = np.random.default_rng(0)
-    B, n, m = 3, 6, 9
+def device_loop_case(B, n, m, diverging=False, seed=0):
+    """Device-loop inputs of B random QPs of their own (the positional
+    arguments before ``max_iter``).  ``diverging``: the operator is no
+    ADMM operator, so a scenario's iterates overflow to NaN."""
+    rng = np.random.default_rng(seed)
 
     def f(*shape):
         return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
@@ -616,8 +616,17 @@ def test_device_loop_emulated_matches_plain(emulate, diverging):
         OP = torch.linalg.inv(L2 @ L2.transpose(1, 2) + 4 * torch.eye(n))
     pos = lambda *s: 0.5 + f(*s).abs()  # noqa: E731
     OP, Pb = OP.contiguous(), Pb.contiguous()
-    args = (OP, Ab, Pb, f(B, n), lb, ub, rho, pos(B, n), pos(B, m), pos(B), 1e-6, 1.6,
+    return (OP, Ab, Pb, f(B, n), lb, ub, rho, pos(B, n), pos(B, m), pos(B), 1e-6, 1.6,
             1e-4, 1e-4, 0.1 * f(B, n), 0.1 * f(B, m))
+
+
+@pytest.mark.parametrize("diverging", [False, True])
+def test_device_loop_emulated_matches_plain(emulate, diverging):
+    """A converging batch, and one whose operator is no ADMM operator, so
+    that a scenario's iterates overflow to NaN: its NaN residual keeps it
+    running to ``max_iter`` in both (a maximum that drops NaN would stop
+    it early as converged)."""
+    args = device_loop_case(3, 6, 9, diverging)
     out_p = ak.admm_device_loop_plain(*args, max_iter=100, check_every=5)
     out_k = ak._launch(*args, 100, 5)
     assert_bitwise(out_k, out_p)
@@ -626,6 +635,110 @@ def test_device_loop_emulated_matches_plain(emulate, diverging):
         assert bool(out_k[0].isnan().any()) and int(out_k[3].max()) == 100
     else:
         assert len(set(out_k[3].tolist())) > 1
+
+
+# (B, n, m, max_iter, check_every, diverging, eps): n=7, m=13 pad every row
+# stride and vector (row_stride 12 and 20, float4 tails of 3 and 1 terms);
+# B=1; a forced budget (eps 0) that is no multiple of check_every; a
+# diverging (NaN) batch; the cart-pole h20 QP's n=100, m=196 at a short
+# budget; n=104 and m=300 (more rows than a block has threads).
+DEVICE_LOOP_CASES = [
+    (4, 7, 13, 200, 5, False, 1e-4),
+    (1, 9, 6, 23, 4, False, 0.0),
+    (3, 6, 9, 100, 5, True, 1e-4),
+    (1, 100, 196, 3, 2, False, 0.0),
+    (2, 104, 20, 6, 3, False, 0.0),
+    (2, 8, 300, 6, 3, False, 0.0),
+]
+
+
+@pytest.mark.parametrize("tier", [1, 2, 3])
+@pytest.mark.parametrize("B,n,m,max_iter,check_every,diverging,eps", DEVICE_LOOP_CASES,
+                         ids=[f"B{c[0]}-n{c[1]}-m{c[2]}" + ("-nan" if c[5] else "")
+                              for c in DEVICE_LOOP_CASES])
+def test_device_loop_tier_emulated_matches_plain(emulate, tier, B, n, m, max_iter,
+                                                  check_every, diverging, eps):
+    """Each tier (forced through the wrapper's launch path) bitwise equal to
+    the plain version: iterates, NaN where NaN, signs of zeros, ``it``."""
+    args = list(device_loop_case(B, n, m, diverging))
+    args[12] = args[13] = eps
+    out_p = ak.admm_device_loop_plain(*args, max_iter=max_iter, check_every=check_every)
+    out_k = ak._launch(*args, max_iter, check_every, tier)
+    assert_bitwise(out_k, out_p)
+    assert emulate.rcs == [0]
+    if eps == 0.0:
+        assert bool((out_k[3] == -(-max_iter // check_every) * check_every).all())
+    if diverging:
+        assert bool(out_k[0].isnan().any())
+    elif eps:
+        assert len(set(out_k[3].tolist())) > 1  # masked: scenarios stop apart
+
+
+def test_device_loop_rule_tier_emulated_at_n120_m236(emulate):
+    """n=120, m=236 (row stride 124) runs in tier 2 by the rule, and the C
+    entry point refuses tier 1 there (299,120 bytes)."""
+    assert ak.kernel_tier(120, 236) == 2
+    args = device_loop_case(1, 120, 236, seed=1)
+    args = args[:12] + (0.0, 0.0) + args[14:]
+    out_p = ak.admm_device_loop_plain(*args, max_iter=2, check_every=1)
+    assert_bitwise(ak._launch(*args, 2, 1), out_p)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ak._launch(*args, 2, 1, 1)
+    assert emulate.rcs == [0, 1]
+
+
+@pytest.fixture
+def dl_smem(emu_lib, monkeypatch):
+    """The device loop's C ``ocp_admm_device_loop_smem(tier, n, m)``, with
+    the wrapper's layout queries routed to the same emulated build."""
+    lib = ctypes.CDLL(str(emu_lib("admm_device_loop")))
+    monkeypatch.setattr(ak, "load_library", lambda name: lib)
+    fn = lib.ocp_admm_device_loop_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+@pytest.mark.parametrize("n,m,tier", [
+    (100, 196, 1), (120, 236, 2), (200, 392, 3),
+    (91, 258, 1), (91, 259, 2),     # tier 1 at exactly 232,448 bytes, then one row more
+    (100, 444, 2), (100, 445, 3),   # the last m of tier 2 at n=100, then one more
+    (7, 13, 1), (1, 1, 1), (700, 10, 3),
+])
+def test_device_loop_tier_rule(dl_smem, n, m, tier):
+    """``kernel_tier`` is the first tier whose block (the C entry point's
+    count) fits the card's 232,448 bytes: pinned at the dense cart-pole
+    QP, at n=120, m=236 and n=200, m=392, and either side of each
+    boundary."""
+    assert ak.kernel_tier(n, m) == tier
+    assert dl_smem(tier, n, m) <= ak.SMEM_LIMIT
+    assert all(dl_smem(t, n, m) > ak.SMEM_LIMIT for t in range(1, tier))
+    assert dl_smem(1, 91, 258) == ak.SMEM_LIMIT
+
+
+# (tier, n, m, bytes): every shared row stride is the least multiple of 4
+# >= its row's terms whose quotient by 4 is odd (100 and 196 as they are,
+# 120 -> 124, 7 -> 12, 13 -> 20), every vector padded to a multiple of 4,
+# and 64 floats of reduction rows; -1 for no tier.
+@pytest.mark.parametrize("tier,n,m,nbytes", [
+    (1, 100, 196, 204_544), (2, 100, 196, 126_144), (1, 120, 236, 299_120),
+    (2, 120, 236, 185_840), (2, 200, 392, 498_304), (1, 7, 13, 2_384), (2, 7, 13, 1_824),
+    (3, 200, 392, 256), (0, 7, 13, -1), (4, 7, 13, -1),
+])
+def test_device_loop_smem_of_each_tier(dl_smem, tier, n, m, nbytes):
+    assert dl_smem(tier, n, m) == nbytes
+
+
+def test_device_loop_slab_of_tier3(emu_lib):
+    """Tier 3's vector slab, which the wrapper sizes from this count: five
+    n-vectors and seven m-vectors a scenario, each padded to a multiple of
+    4."""
+    fn = ctypes.CDLL(str(emu_lib("admm_device_loop"))).ocp_admm_device_loop_slab_floats
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    assert fn(120, 236) == 5 * 120 + 7 * 236
+    assert fn(7, 13) == 5 * 8 + 7 * 16
+    assert fn(0, 13) == fn(7, 0) == -1
 
 
 # ---- B4: the cyclic-reduction chunk, every layout tier ----------------------
