@@ -39,7 +39,12 @@ Phases:
      budget of 41 with check_every 2, entry counts near it and every fifth
      scenario frozen at entry; converging), at w=5 and w=3, at the odd horizons N=7 and
      N=25 and at N=2 (w=16), and at N=150 and N=400, w=16 and N=1500, w=3
-     (shared-memory tiers in the slab);
+     (shared-memory tiers in the slab); and at the shapes of phases 4f-4h:
+     the one-way chunk at the unicycle's N=50, w=5, r=3, r2=1 with a binding
+     half-space stage row and with one free on both sides, the device loop
+     at the augmented cart-pole's odd n=101, m=197 (its own cold tick, each
+     tier forced, then converging), the shared chunk at the augmented double
+     integrator's n=160, m=236 (its own cold tick, in JAX's groups);
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
      B=1024 through ``BatchedSolver`` (2 warm-up + 5 timed ticks), checking
      the launch counts, finite trajectories, and that each warm tick lowers
@@ -64,11 +69,25 @@ Phases:
      ``banded_solver: "thomas"`` (the rolled chunk), tick by tick from the
      same state: both medians and the largest trajectory gap (findings,
      not gates);
+  4f. the augmented dense path: the cart-pole h20 tick of 4d with the
+     formulation left at its default (QP n=101, m=197), B=256, "pallas" with
+     the same checks, then interleaved with "xla"; then 3 ticks of the
+     reference-parity preset on both backends (its nonconvex QPs diverge to
+     NaN, as in the JAX package: the backends must agree on where, on the
+     flags and on the iteration counts);
+  4g. the unicycle h50 banded tick (``unicycle_h50_banded``: a live
+     half-space row, adaptive rho, check_every 5), B=256, with the same
+     checks, then the same with the merit line search;
+  4h. the augmented LTI path: the double integrator tick of 4c with the
+     formulation at its default (n=160, m=236), B=4096, 3 ticks;
   5. the cart-pole tick at B=64 on the card and on the CPU (plain chunk)
      agree; 5b. the quadrotor h100 tick at B=8 likewise; 5c. the double
      integrator tick at B=64 likewise; 5d. the dense cart-pole tick at B=4
      over 3 ticks likewise; 5e. the quadrotor h100 CR tick at B=8 over 2
-     ticks likewise;
+     ticks likewise; 5f-5h. the ticks of 4f (also under the parity preset:
+     NaN, flags and iteration counts equal), 4g (both step rules) and 4h at
+     B=4 likewise; 5i. ``MPCController`` on the double integrator h10, 40
+     closed-loop steps on the card and on the CPU;
   6. time each kernel at its main path's own inputs beside its plain
      version and its bound, the banded ones with their prologue and the
      mean and largest iteration count per launch (the rolled one also
@@ -80,7 +99,10 @@ Phases:
      steady tick's slowest scenario alone at B=1 (ms and us per
      iteration), and in tiers 2 and 3 at n=120, m=236 and n=200, m=392; the CR
      chunk at a steady B=64 and a B=8 tick beside the rolled chunk on the
-     very same inputs).
+     very same inputs; and at the new shapes: the one-way chunk on the
+     unicycle tick's launches, the device loop on the augmented cart-pole's
+     cold and steady ticks, the shared chunk on the augmented double
+     integrator's steady tick).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -149,6 +171,10 @@ DI_ADMM = {
 }
 
 
+# The JAX bench's unicycle_h50_banded settings (bench_models.py:310-333).
+UNI_ADMM = {"method": "banded", "max_iter": 500, "check_every": 5}
+
+
 # The JAX bench's cartpole_h20_pallas settings (bench_models.py:257-283);
 # the backend is added per solver.
 DENSE_ADMM = {
@@ -163,8 +189,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def random_stage_qp_batch(seed, B, N, w, r, r2):
-    """Batch-last random stage QP (the shape of tests' random_stage_qp)."""
+def random_stage_qp_batch(seed, B, N, w, r, r2, stage_bounds=(-1.0, np.inf)):
+    """Batch-last random stage QP (the shape of tests' random_stage_qp);
+    ``stage_bounds``: the stage rows' (lower, upper)."""
     rng = np.random.default_rng(seed)
     L = rng.normal(size=(B, N, w, w))
     Hb = L @ np.swapaxes(L, -1, -2) + 2 * np.eye(w)
@@ -174,10 +201,10 @@ def random_stage_qp_batch(seed, B, N, w, r, r2):
     n = N * w
     q = rng.normal(size=(B, n))
     l = np.concatenate(
-        [np.full(n, -2.0), np.zeros((N - 1) * r), np.full(N * r2, -1.0)]
+        [np.full(n, -2.0), np.zeros((N - 1) * r), np.full(N * r2, stage_bounds[0])]
     )
     u = np.concatenate(
-        [np.full(n, 2.0), np.zeros((N - 1) * r), np.full(N * r2, np.inf)]
+        [np.full(n, 2.0), np.zeros((N - 1) * r), np.full(N * r2, stage_bounds[1])]
     )
     m = l.shape[0]
     last = lambda a: np.ascontiguousarray(np.moveaxis(a, 0, -1), np.float32)  # noqa: E731
@@ -360,7 +387,13 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from optimal_control_problem_tpu_torch.models import cartpole, double_integrator, quadrotor
+    from optimal_control_problem_tpu_torch.controller import MPCController
+    from optimal_control_problem_tpu_torch.models import (
+        cartpole,
+        double_integrator,
+        quadrotor,
+        unicycle,
+    )
     from optimal_control_problem_tpu_torch.ops import admm_kernel as ak
     from optimal_control_problem_tpu_torch.ops import banded_cr_kernel as bck
     from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
@@ -402,11 +435,12 @@ def main(argv) -> int:
     # -- 3. kernels vs plain versions on the card -----------------------
     names = ("x", "yx", "yd", "yc", "zx", "zd", "zc", "done", "it_inc", "rp", "rd", "mp", "md")
 
-    def compare(kernel, plain, shapes, st, label, extra=None, it0=None, done0=None):
+    def compare(kernel, plain, shapes, st, label, extra=None, it0=None, done0=None,
+                stage_bounds=(-1.0, np.inf)):
         """Kernel and plain version on one random batch; ``it0``/``done0``
         (numpy, per scenario) default to 0."""
         N, w, r, r2, B = shapes
-        fields, x0, y0 = random_stage_qp_batch(0, B, N, w, r, r2)
+        fields, x0, y0 = random_stage_qp_batch(0, B, N, w, r, r2, stage_bounds)
         qpT = BandedQP(*(torch.as_tensor(a, device=dev) for a in fields))
         x0T, y0T = torch.as_tensor(x0, device=dev), torch.as_tensor(y0, device=dev)
         prob = abb.prepare_banded_batch_T(qpT, st, x0T, y0T)
@@ -479,6 +513,18 @@ def main(argv) -> int:
         label = "one-way N={} w={} r={} r2={} B={}".format(*shapes) + f", {what}"
         out_k, out_p, errs = compare(bk.banded_admm_chunk, bk.banded_admm_chunk_plain,
                                      shapes, st_, label)
+        max_abs_err = max(max_abs_err, check_exact(out_k, out_p, errs, label))
+    # The unicycle h50's shapes (phase 4g): a half-space stage row
+    # lb <= a^T x, ub = +inf that binds (lb 0.5 above the random rows'
+    # values near 0), and a row free on both sides.
+    uni_shapes = (50, 5, 3, 1, 256)
+    for st_, what, sb in ((st_rforced, "forced budget, 40 iterations", (0.5, np.inf)),
+                          (st_conv, "converging, eps 1e-4", (0.5, np.inf)),
+                          (st_rforced, "forced budget, 40 iterations", (-np.inf, np.inf))):
+        label = ("one-way N={} w={} r={} r2={} B={}".format(*uni_shapes)
+                 + f", stage row [{sb[0]}, {sb[1]}], {what}")
+        out_k, out_p, errs = compare(bk.banded_admm_chunk, bk.banded_admm_chunk_plain,
+                                     uni_shapes, st_, label, stage_bounds=sb)
         max_abs_err = max(max_abs_err, check_exact(out_k, out_p, errs, label))
     it0, done0 = near_budget(1024)
     label = "one-way N=20 w=5 B=1024, forced budget, it0 up to 41, done0 every 5th"
@@ -609,10 +655,13 @@ def main(argv) -> int:
     # -- 3 (continued). the shared-operator chunk vs its plain version ----
     H_di, dt_di, B_di = 20, 0.005, 4096
 
-    def di_solver(backend, device="cuda"):
+    def di_solver(backend, device="cuda", augmented=False):
+        """The JAX bench's double integrator; ``augmented``: with the
+        formulation left at its default (the reference's z = [p; x])."""
+        form = {} if augmented else {"formulation": "reduced"}
         cfg_ = double_integrator.make_config(
             horizon=H_di, dt=dt_di, solve_method="TPU_SQP", alpha=0.1, step_num=10,
-            formulation="reduced", ADMM_settings={**DI_ADMM, "backend": backend})
+            ADMM_settings={**DI_ADMM, "backend": backend}, **form)
         return BatchedSolver(double_integrator.build(cfg_, device=device), device=device)
 
     rng_di = np.random.default_rng(0)  # frames and references as bench.py:129-133
@@ -768,6 +817,25 @@ def main(argv) -> int:
             raise SystemExit(f"phase 3: the B={Bb} shared solve is not finite")
         compare_shared(b_args, b_kw, f"shared chunk, random shared QP B={Bb}, {groups} group(s)",
                        lambda o: expect(bool((o[4] % 25 == 0).all()), f"B={Bb}"))
+    # The augmented double integrator (phase 4h): the reference joins the
+    # QP, n = 40 + 120, m = 160 + 76.  The first chunk of its own cold tick
+    # at B=4096, voting in JAX's termination groups for this shape (the
+    # whole batch up to 5,430 scenarios here, 6,538 at n=120, m=196).
+    dia_pallas = di_solver("pallas", augmented=True)
+    if not dia_pallas.solver.shared_system or dia_pallas.solver._qp_n != 160:
+        raise SystemExit("phase 3: the augmented double integrator did not take the shared "
+                         "path at n=160")
+    record(lambda: dia_pallas.solve(di_frames, di_refs, dia_pallas.init_state(B_di)))
+    sync()
+    a_args, a_kw = captured["shared_admm_chunk"][0]
+    captured["shared_admm_chunk"].clear()
+    tile_a = sk.pick_shared_tile(B_di, 160, 236)
+    if (a_args[12].shape[1], a_args[13].shape[1]) != (160, 236) or a_kw["batch_tile"] != tile_a:
+        raise SystemExit(f"phase 3: the augmented double integrator did not vote in JAX's "
+                         f"groups of {tile_a} at n=160, m=236")
+    log(f"phase 3: augmented double integrator B={B_di}: n=160, m=236, "
+        f"{a_args[12].shape[0] // tile_a} group(s) of {tile_a} (JAX's pick_shared_tile)")
+    shared_cases(a_args, a_kw, "shared chunk, augmented double integrator cold tick")
     log(f"phase 3: largest gap kernel vs plain, shared chunk: {shared_err:.3g}")
 
     # -- 3 (continued). the dense device loop vs its plain version --------
@@ -776,10 +844,16 @@ def main(argv) -> int:
     cd_frames[:, 2] = np.random.default_rng(0).uniform(-0.5, 0.5, B_cd).astype(np.float32)
     cd_refs = np.full((B_cd, 1), np.pi, np.float32)
 
-    def cd_build(backend, device="cuda"):
+    def cd_build(backend, device="cuda", augmented=False, parity=False):
+        """The JAX bench's cartpole_h20_pallas; ``augmented``: with the
+        formulation left at its default; ``parity``: and the parity
+        preset on."""
+        form = {} if augmented else {"formulation": "reduced"}
         cfg_ = cartpole.make_config(
-            horizon=20, dt=0.02, alpha=0.3, step_num=steps_cd, formulation="reduced",
-            ADMM_settings={**DENSE_ADMM, "backend": backend})
+            horizon=20, dt=0.02, alpha=0.3, step_num=steps_cd,
+            ADMM_settings={**DENSE_ADMM, "backend": backend}, **form)
+        if parity:
+            cfg_["solver_settings"]["SQP_settings"]["parity"] = True
         return cartpole.build(cfg_, stagewise=False, device=device)
 
     cd_pallas = BatchedSolver(cd_build("pallas"))
@@ -898,6 +972,33 @@ def main(argv) -> int:
         compare_loop(g_args, g_kw, f"device loop, tier {tier_g}, B={B_g} n={n_g} m={m_g}",
                      lambda it: bool((it % 25 == 0).all()))
         dense_tiers[(n_g, m_g)] = calls_g
+    # The augmented cart-pole (phase 4f): the reference angle joins the
+    # QP, n = 1 + 100, m = 101 + 96, both odd, so every chain ends in a
+    # one-term tail inside the padded rows.  One cold tick records its
+    # inputs: each tier forced, then the rule's tier at eps 1e-3.
+    ca_pallas = BatchedSolver(cd_build("pallas", augmented=True))
+    if ca_pallas._solve_batch is not ca_pallas.solver.solve_batch_dense_fn or (
+            ca_pallas.solver._qp_n, ca_pallas.solver._qp_m) != (101, 197):
+        raise SystemExit("phase 3: the augmented cart-pole was not routed to the dense batch "
+                         "path at n=101, m=197")
+    if ak.kernel_tier(101, 197) != 1:
+        raise SystemExit("phase 3: the n=101, m=197 QP did not take the device loop's tier 1")
+    record(lambda: ca_pallas.solve(cd_frames, cd_refs, ca_pallas.init_state(B_cd)))
+    sync()
+    ca_cold = list(captured["admm_device_loop"])
+    captured["admm_device_loop"].clear()
+    if len(ca_cold) != steps_cd:
+        raise SystemExit(f"phase 3: the cold augmented tick entered the device loop "
+                         f"{len(ca_cold)} times, expected {steps_cd}")
+    args_a, kw_a = ca_cold[0]
+    for tier in (1, 2, 3):
+        compare_loop(args_a[:12] + (0.0, 0.0) + args_a[14:], {**kw_a, "max_iter": 60},
+                     "device loop, augmented cart-pole cold step 1, forced budget 60, "
+                     f"tier {tier} forced", lambda it: bool((it == 75).all()), tier=tier)
+    compare_loop(args_a, kw_a, "device loop, augmented cart-pole cold step 1, eps 1e-3",
+                 lambda it: bool((it % 25 == 0).all() and (it <= 500).all()))
+    compare_loop(*ca_cold[2], "device loop, augmented cart-pole cold step 3",
+                 lambda it: bool((it % 25 == 0).all()))
     log(f"phase 3: largest gap kernel vs plain, dense device loop: {loop_err:.3g}")
 
     def drive(solver, frames, refs, ticks, label, expect_launches, pinned=False):
@@ -1179,57 +1280,81 @@ def main(argv) -> int:
     dense_launches = n_cd
     log(f"{label} backend=pallas: {n_cd} device-loop launches over {ticks} ticks "
         f"(step_num x ticks = {steps_cd * ticks}: {n_cd == steps_cd * ticks})")
-    # The same ticks on the "xla" backend, each from the state the "pallas"
-    # backend started that tick from.
-    cd_xla = BatchedSolver(cd_build("xla"))
-    st_p = cd_pallas.init_state(B_cd)
-    xla_ms, pal_ms, gap, same_conv = [], [], 0.0, True
-    iters_p, iters_x = [], []
-    reset_counts()
-    for _ in range(ticks):
-        st_in = BatchState(*(a.clone() for a in st_p))
-        sync()
-        t0 = time.perf_counter()
-        tp, _, st_p = cd_pallas.solve(cd_frames, cd_refs, st_p)
-        sync()
-        pal_ms.append((time.perf_counter() - t0) * 1e3)
-        rp_ = cd_pallas.last_result
-        t0 = time.perf_counter()
-        tx, _, _ = cd_xla.solve(cd_frames, cd_refs, st_in)
-        sync()
-        xla_ms.append((time.perf_counter() - t0) * 1e3)
-        rx_ = cd_xla.last_result
-        iters_p.append(rp_.qp_iters.cpu())
-        iters_x.append(rx_.qp_iters.cpu())
-        same_conv &= torch.equal(rp_.qp_converged, rx_.qp_converged)
-        gap = max(gap, float((tp - tx).abs().max()))
-    if counts()[3] != tadmm._iterate_dense.entries or counts()[:3] != (0, 0, 0) or counts()[4]:
-        raise SystemExit(f"{label}: the launch counts do not follow the dense driver's entries")
-    # Per scenario and step (B x steps per tick); the differing ones listed.
-    for t_, (p_, x_) in enumerate(zip(iters_p, iters_x)):
-        diff = (p_ != x_).nonzero().tolist()
-        if diff:
-            log(f"{label}: tick {t_ + 1}: qp_iters differ in {len(diff)} of {p_.numel()} "
-                "(scenario, step): " + ", ".join(
-                    f"({b}, {k}) pallas {int(p_[b, k])} xla {int(x_[b, k])}" for b, k in diff[:12]))
-    same_last = torch.equal(iters_p[-1], iters_x[-1])
-    n_same = sum(int((p_ == x_).sum()) for p_, x_ in zip(iters_p, iters_x))
-    log(f"{label}: backend=xla ms/tick {', '.join(f'{t:.2f}' for t in xla_ms)} (median of "
-        f"timed {statistics.median(xla_ms[warm:]):.3f}) beside backend=pallas "
-        f"{', '.join(f'{t:.2f}' for t in pal_ms)} (median of timed "
-        f"{statistics.median(pal_ms[warm:]):.3f}); qp_iters equal in {n_same} of "
-        f"{ticks * iters_p[0].numel()} (scenario, step) pairs, at the last tick: {same_last}; "
-        f"qp_converged equal: {same_conv}, converged share at the last tick "
-        f"{float(rp_.qp_converged.float().mean()):.4f}; max |pallas - xla| trajectory "
-        f"{gap:.3g} (limit 5e-3)")
-    if not (same_conv and same_last):
-        raise SystemExit(f"{label}: the two backends disagree on qp_iters or qp_converged")
-    if not gap <= 5e-3:
-        raise SystemExit(f"{label}: the two backends' trajectories disagree")
+    def dense_interleave(label, pal, xla, n_ticks, nan_ok=False):
+        """``n_ticks`` ticks of the dense path on the "pallas" backend, each
+        followed by the same tick on the "xla" backend (the torch.matmul
+        loop) from the state the "pallas" tick started from: equal
+        qp_converged every tick and qp_iters at the last, trajectories
+        within 5e-3.  ``nan_ok`` (a diverging preset): NaN in the same
+        places, the gap over the finite entries, and equal certificates."""
+        st_p = pal.init_state(B_cd)
+        xla_ms, pal_ms, gap, same_conv = [], [], 0.0, True
+        iters_p, iters_x = [], []
+        same_nan = same_cert = True
+        reset_counts()
+        for _ in range(n_ticks):
+            st_in = BatchState(*(a.clone() for a in st_p))
+            sync()
+            t0 = time.perf_counter()
+            tp, _, st_p = pal.solve(cd_frames, cd_refs, st_p)
+            sync()
+            pal_ms.append((time.perf_counter() - t0) * 1e3)
+            rp_ = pal.last_result
+            t0 = time.perf_counter()
+            tx, _, _ = xla.solve(cd_frames, cd_refs, st_in)
+            sync()
+            xla_ms.append((time.perf_counter() - t0) * 1e3)
+            rx_ = xla.last_result
+            iters_p.append(rp_.qp_iters.cpu())
+            iters_x.append(rx_.qp_iters.cpu())
+            same_conv &= torch.equal(rp_.qp_converged, rx_.qp_converged)
+            same_cert &= torch.equal(rp_.qp_prim_inf, rx_.qp_prim_inf) and torch.equal(
+                rp_.qp_dual_inf, rx_.qp_dual_inf)
+            fin = torch.isfinite(tp)
+            same_nan &= torch.equal(fin, torch.isfinite(tx))
+            if nan_ok:
+                if bool(fin.any()):
+                    gap = max(gap, float((tp[fin] - tx[fin]).abs().max()))
+            else:
+                gap = max(gap, float((tp - tx).abs().max()))
+        n = counts()
+        if n[3] != tadmm._iterate_dense.entries or n[:3] != (0, 0, 0) or n[4] or (
+                n[3] < steps_cd * n_ticks):
+            raise SystemExit(f"{label}: the launch counts do not follow the dense driver's "
+                             f"entries {n}")
+        # Per scenario and step (B x steps per tick); the differing ones listed.
+        for t_, (p_, x_) in enumerate(zip(iters_p, iters_x)):
+            diff = (p_ != x_).nonzero().tolist()
+            if diff:
+                log(f"{label}: tick {t_ + 1}: qp_iters differ in {len(diff)} of {p_.numel()} "
+                    "(scenario, step): " + ", ".join(
+                        f"({b}, {k}) pallas {int(p_[b, k])} xla {int(x_[b, k])}"
+                        for b, k in diff[:12]))
+        same_last = torch.equal(iters_p[-1], iters_x[-1])
+        n_same = sum(int((p_ == x_).sum()) for p_, x_ in zip(iters_p, iters_x))
+        log(f"{label}: backend=xla ms/tick {', '.join(f'{t:.2f}' for t in xla_ms)} (median of "
+            f"timed {statistics.median(xla_ms[min(warm, n_ticks - 1):]):.3f}) beside "
+            f"backend=pallas {', '.join(f'{t:.2f}' for t in pal_ms)} (median of timed "
+            f"{statistics.median(pal_ms[min(warm, n_ticks - 1):]):.3f}); device-loop launches "
+            f"{n[3]} (pallas), qp_iters equal in {n_same} of {n_ticks * iters_p[0].numel()} "
+            f"(scenario, step) pairs, at the last tick: {same_last}; qp_converged equal: "
+            f"{same_conv}, certificates equal: {same_cert}, converged share at the last tick "
+            f"{float(rp_.qp_converged.float().mean()):.4f}; finite share of the trajectories "
+            f"{float(fin.float().mean()):.4f}, in the same places: {same_nan}; max |pallas - "
+            f"xla| trajectory {gap:.3g} (limit 5e-3)")
+        if not (same_conv and same_last and same_nan and (same_cert or not nan_ok)):
+            raise SystemExit(f"{label}: the two backends disagree on qp_iters, qp_converged, "
+                             "certificates or where the trajectories are finite")
+        if not gap <= 5e-3:
+            raise SystemExit(f"{label}: the two backends' trajectories disagree")
+        return rp_, n[3]
+
+    dense_interleave(label, cd_pallas, BatchedSolver(cd_build("xla")), ticks)
     # One more tick records the device loop's inputs of a steady-state tick.
     record(lambda: cd_pallas.solve(cd_frames, cd_refs, cd_state))
     sync()
     cd_steady = list(captured["admm_device_loop"])
+    captured["admm_device_loop"].clear()
     if len(cd_steady) < steps_cd:
         raise SystemExit("phase 4d: the recorded tick did not go through the device loop")
     if profile:
@@ -1281,24 +1406,132 @@ def main(argv) -> int:
         if n != (0, q_steps * q_ticks, 0, 0, q_steps * q_ticks):
             raise SystemExit(f"{label}: unexpected launch counts in the interleaved ticks {n}")
 
+    # -- 4f. the augmented dense path: cart-pole h20, B=256 ---------------
+    # cartpole_h20_pallas with the formulation left at its default: QP
+    # n = 101, m = 197 (the reference angle joins the QP, pinned by its
+    # identity row), then three ticks under the reference-parity preset.
+    label = f"phase 4f cart-pole h20 dense augmented B={B_cd}"
+    ca_state, aug_launches = drive(ca_pallas, cd_frames, cd_refs, ticks,
+                                   f"{label} backend=pallas", cd_launch_rule)
+    dense_interleave(label, ca_pallas, BatchedSolver(cd_build("xla", augmented=True)), ticks)
+    record(lambda: ca_pallas.solve(cd_frames, cd_refs, ca_state))
+    sync()
+    ca_steady = list(captured["admm_device_loop"])
+    captured["admm_device_loop"].clear()
+    if len(ca_steady) < steps_cd:
+        raise SystemExit(f"{label}: the recorded tick did not go through the device loop")
+    # The parity preset (raw objective Hessian, cold QPs): on this
+    # nonconvex cost the local QPs are unbounded and their iterates
+    # overflow to NaN in the JAX package too (its flags: none converged,
+    # no certificate).  Gates: the kernel runs every step, and the two
+    # backends agree on NaN, flags and iteration counts.
+    label_p = f"{label} parity preset"
+    rp_par, par_launches = dense_interleave(
+        label_p, BatchedSolver(cd_build("pallas", augmented=True, parity=True)),
+        BatchedSolver(cd_build("xla", augmented=True, parity=True)), 3, nan_ok=True)
+    log(f"{label_p}: qp_dual_inf share {float(rp_par.qp_dual_inf.float().mean()):.4f}, "
+        f"qp_prim_inf share {float(rp_par.qp_prim_inf.float().mean()):.4f}, mean QP "
+        f"iterations {float(rp_par.qp_iters.float().mean()):.1f}")
+
+    # -- 4g. the unicycle h50 banded path, with a live half-space row -------
+    # unicycle_h50_banded (bench_models.py:310-333): h50, dt 0.05, alpha
+    # 0.3 x 10, method "banded", max_iter 500, check_every 5 (adaptive rho
+    # on, so the chunk count follows the data), one half-space
+    # ((0, 1), -0.5); then the same with the merit line search.
+    B_u = 256
+    rng_u = np.random.default_rng(0)
+    u_frames = np.zeros((B_u, unicycle.FRAME), np.float32)
+    u_frames[:, 2] = rng_u.uniform(-0.5, 0.5, B_u).astype(np.float32)
+    u_refs = np.tile(unicycle.reference_line(50, 0.05)[None, :], (B_u, 1)).astype(np.float32)
+
+    def uni_build(merit, device="cuda"):
+        cfg_ = unicycle.make_config(horizon=50, dt=0.05, alpha=0.3, step_num=step_num,
+                                    formulation="reduced", ADMM_settings=dict(UNI_ADMM))
+        if merit:
+            cfg_["solver_settings"]["SQP_settings"]["line_search"] = "merit"
+        return unicycle.build(cfg_, halfspaces=(((0.0, 1.0), -0.5),), stagewise=True,
+                              device=device)
+
+    def uni_rule(n):
+        # Adaptive rho: at least one chunk launch per SQP step, one-way only.
+        return n[1:] == (0, 0, 0, 0) and n[0] >= step_num * ticks
+
+    uni_launches = {}
+    for merit in (False, True):
+        label = f"phase 4g unicycle h50 banded B={B_u}" + (" line_search=merit" if merit else "")
+        us = BatchedSolver(uni_build(merit))
+        if us._solve_batch is not us.solver.solve_batch_banded_fn or abb.chunk_kernel(
+                50, 5, B_u)[0] is not bk.banded_admm_chunk:
+            raise SystemExit(f"{label}: not routed to the one-way banded chunk")
+        u_state, uni_launches[merit] = drive(us, u_frames, u_refs, ticks, label, uni_rule)
+        traj_u = u_state.x.reshape(B_u, 50, unicycle.FRAME)
+        log(f"{label}: {uni_launches[merit]} one-way launches over {ticks} ticks "
+            + (f"(the merit rule evaluated {us.solver.options.ls_num} x {B_u} candidates a "
+               f"step, {us.solver.options.ls_num * B_u * step_num * ticks} in all)"
+               if merit else "")
+            + f"; smallest y of the plans {float(traj_u[..., 1].min()):.4f} (half-space "
+            "y >= -0.5)")
+        if not merit:
+            n_kept = len(captured["banded_admm_chunk"])  # phase 4's tick, for phase 6
+            record(lambda: us.solve(u_frames, u_refs, u_state))
+            sync()
+            uni_calls = captured["banded_admm_chunk"][n_kept:]
+            del captured["banded_admm_chunk"][n_kept:]
+            if not uni_calls or launch_shapes(uni_calls[0][0]) != (50, 5, 3, 1):
+                raise SystemExit(f"{label}: the recorded tick did not go through the one-way "
+                                 "chunk at N=50, w=5, r=3, r2=1")
+
+    # -- 4h. the augmented LTI path: double integrator h20, B=4096 ---------
+    # The JAX bench's double integrator with the formulation at its default:
+    # the shared factorization at n = 160, m = 236.  Three ticks (drive's
+    # checks need a second warm tick).
+    label = f"phase 4h double integrator h20 augmented B={B_di} backend=pallas"
+    dia_state, dia_launches = drive(dia_pallas, di_frames, di_refs, 3, label, lambda n: (
+        n[0], n[1], n[3], n[4]) == (0, 0, 0, 0) and n[2] == tab._admm_iterate_fused.chunks
+        >= di_steps * 3, pinned=True)
+    n_kept = len(captured["shared_admm_chunk"])  # phase 4c's steady tick, for phase 6
+    record(lambda: dia_pallas.solve(di_frames, di_refs, dia_state))
+    sync()
+    dia_calls = captured["shared_admm_chunk"][n_kept:]
+    del captured["shared_admm_chunk"][n_kept:]
+    if not dia_calls or dia_calls[0][1]["batch_tile"] != sk.pick_shared_tile(B_di, 160, 236):
+        raise SystemExit(f"{label}: the recorded tick did not go through the shared chunk "
+                         "in JAX's groups")
+
     # -- 5. card vs CPU ---------------------------------------------------
-    def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None, n_ticks=2):
+    def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None, n_ticks=2, nan_ok=False):
         """``n_ticks`` ticks on the card and on the CPU (plain kernels):
         trajectories within 5e-3; with ``acc_limit`` the double
         integrator's weakly weighted accelerations (columns 4:6 of each
-        frame) are held to it and the rest to 5e-3."""
-        trajs = {}
+        frame) are held to it and the rest to 5e-3.  ``nan_ok`` (a
+        diverging preset): NaN in the same places, the gap over the finite
+        entries, and equal QP flags and iteration counts every tick."""
+        trajs, flags = {}, {}
         for d in ("cuda", "cpu"):
             s_ = BatchedSolver(build_fn(d), device=d)
             st_ = s_.init_state(fr.shape[0])
             t0 = time.perf_counter()
-            out = []
+            out, fl = [], []
             for _ in range(n_ticks):
                 tr, _, st_ = s_.solve(fr, rf, st_)
                 out.append(tr.cpu().numpy())
-            trajs[d] = out
+                res_ = s_.last_result
+                fl.append([getattr(res_, k).cpu().numpy() for k in (
+                    "qp_converged", "qp_prim_inf", "qp_dual_inf", "qp_iters")])
+            trajs[d], flags[d] = out, fl
             log(f"{label}: {n_ticks} ticks at B={fr.shape[0]} on {d}: "
                 f"{time.perf_counter() - t0:.2f} s")
+        if nan_ok:
+            same = all(np.array_equal(np.isnan(a), np.isnan(b))
+                       for a, b in zip(trajs["cuda"], trajs["cpu"])) and all(
+                np.array_equal(x, y) for fa, fb in zip(flags["cuda"], flags["cpu"])
+                for x, y in zip(fa, fb))
+            log(f"{label}: NaN share of the card's last plans "
+                f"{float(np.isnan(trajs['cuda'][-1]).mean()):.4f}; NaN places, QP flags and "
+                f"iteration counts equal on card and CPU: {same}")
+            if not same:
+                raise SystemExit(f"{label}: card and CPU ticks disagree")
+            trajs = {d: [np.nan_to_num(a, nan=0.0) for a in v] for d, v in trajs.items()}
         diffs = [np.abs(a - b) for a, b in zip(trajs["cuda"], trajs["cpu"])]
         if acc_limit is not None:
             diffs = [d.reshape(d.shape[0], -1, double_integrator.FRAME) for d in diffs]
@@ -1327,6 +1560,61 @@ def main(argv) -> int:
     qcfg, qfr, qrf = quad_case(8, admm=QUAD_CR_ADMM)
     card_vs_cpu(lambda d: quadrotor.build(qcfg, stagewise=True, device=d), qfr, qrf,
                 "phase 5e quadrotor h100 banded_solver=cr")
+    card_vs_cpu(lambda d: cd_build("pallas", d, augmented=True), cd_frames[:4], cd_refs[:4],
+                "phase 5f cart-pole h20 dense augmented", n_ticks=3)
+    card_vs_cpu(lambda d: cd_build("pallas", d, augmented=True, parity=True), cd_frames[:4],
+                cd_refs[:4], "phase 5f cart-pole h20 dense parity preset", n_ticks=3,
+                nan_ok=True)
+    for merit in (False, True):
+        card_vs_cpu(lambda d: uni_build(merit, d), u_frames[:4], u_refs[:4],
+                    "phase 5g unicycle h50 banded" + (" line_search=merit" if merit else ""))
+    card_vs_cpu(lambda d: di_solver("pallas", d, augmented=True).ocp, di_frames[:4],
+                di_refs[:4], "phase 5h double integrator h20 augmented", acc_limit=0.1)
+
+    # -- 5i. the MPC controller: card vs CPU --------------------------------
+    # tests/test_controller.py's closed loop: the double integrator h10
+    # (dense single-scenario path, augmented), 40 steps towards (1, 0.5).
+    # The controls are its accelerations (range +-50, weight 1e-3 against
+    # 10 on the positions): QPs stopped at eps 1e-3 leave them loose, and
+    # on the CPU the port's and JAX's controls differ by up to 0.34 at one
+    # step (tests/test_torch_frontend.py).  Held: controls within 1% of the
+    # range (0.5), closed-loop positions and velocities within 2e-2, the
+    # final state within 1e-3, and on each device the position error below
+    # 0.4x its start; whether the controls also agree within 5e-3 is
+    # printed.
+    def closed_loop(device):
+        H_c, dt_c = 10, 0.05
+        ocp_c = double_integrator.build(double_integrator.make_config(
+            horizon=H_c, dt=dt_c, alpha=0.7, step_num=8), device=device)
+        ctl = MPCController(ocp_c, double_integrator.CONTROL_SLICE)
+        target = np.array([1.0, 0.5])
+        ref_c = np.tile(target, H_c)
+        pos, vel, acc = np.zeros(2), np.zeros(2), np.zeros(2)
+        errs, states, us = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(40):
+            u = ctl.step(np.concatenate([pos, vel, acc]), ref_c)
+            pos, vel, acc = pos + dt_c * vel, vel + dt_c * u, u
+            errs.append(float(np.linalg.norm(pos - target)))
+            states.append(np.r_[pos, vel])
+            us.append(u)
+        log(f"phase 5i MPCController double integrator h10: 40 closed-loop steps on {device}: "
+            f"{time.perf_counter() - t0:.2f} s, position error {errs[0]:.4f} -> {errs[-1]:.4f}")
+        return np.array(errs), np.array(states), np.array(us)
+
+    e_card, s_card, u_card = closed_loop("cuda")
+    e_cpu, s_cpu, u_cpu = closed_loop("cpu")
+    u_gap = float(np.abs(u_card - u_cpu).max())
+    s_gap = float(np.abs(s_card - s_cpu).max())
+    end_gap = float(np.abs(s_card[-1] - s_cpu[-1]).max())
+    log(f"phase 5i: max |card - CPU| controls {u_gap:.3g} (limit 0.5; within 5e-3: "
+        f"{u_gap <= 5e-3}), closed-loop states {s_gap:.3g} (limit 2e-2), final state "
+        f"{end_gap:.3g} (limit 1e-3)")
+    if not (e_card[-1] < 0.4 * e_card[0] and e_cpu[-1] < 0.4 * e_cpu[0]):
+        raise SystemExit("phase 5i: the closed loop did not bring the position error below "
+                         "0.4x its start")
+    if not (u_gap <= 0.5 and s_gap <= 2e-2 and end_gap <= 1e-3):
+        raise SystemExit("phase 5i: the card's and the CPU's closed loops disagree")
 
     # -- 6. kernel timing at the main paths' inputs ------------------------
     def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces, calls=None):
@@ -1382,6 +1670,17 @@ def main(argv) -> int:
         lambda sh, kw, it, ch: chunk_flops(*sh, it, ch), launches,
         CHUNK_SOURCE, CHUNK_REPLACES)
     row1["max_abs_err"] = max_abs_err
+    # B1 at the unicycle h50 tick's recorded inputs (N=50, w=5, r=3, r2=1,
+    # a live half-space row; adaptive rho: several chunks a step).
+    uni_row = kernel_row(
+        "banded_admm_chunk", bk.banded_admm_chunk, bk.banded_admm_chunk_plain,
+        lambda sh, kw, it, ch: chunk_flops(*sh, it, ch), uni_launches[False],
+        CHUNK_SOURCE, CHUNK_REPLACES, uni_calls)
+    row1["unicycle_h50"] = {k: uni_row[k] for k in (
+        "launches", "ms", "plain_ms", "bound_ms", "bound_by", "prologue_ms", "mean_it_inc",
+        "max_it_inc")}
+    row1["unicycle_h50"].update(launches_per_tick=len(uni_calls),
+                                merit_launches=uni_launches[True])
     row2 = kernel_row(
         "banded_admm_chunk_rolled", brk.banded_admm_chunk_rolled,
         brk.banded_admm_chunk_rolled_plain,
@@ -1499,6 +1798,7 @@ def main(argv) -> int:
     # at once): the random shared QP solve's chunks of phase 3.
     s6144 = shared_timing(big_calls[6144], "one group of 6144, a random shared QP solve",
                           reps=5)
+    s160 = shared_timing(dia_calls, "steady-state augmented double integrator tick")
     row3 = {
         "name": "shared_admm_chunk", "route": "cuda", "source": SHARED_SOURCE,
         "replaces": SHARED_REPLACES, "launches": shared_launches, "max_abs_err": shared_err,
@@ -1510,6 +1810,7 @@ def main(argv) -> int:
         "by_rows_ms": s4096["by_rows_ms"], "mean_it_inc": s4096["mean_it_inc"],
         "max_it_inc": s4096["max_it_inc"],
         "b64": s64, "b6144": s6144,
+        "augmented_n160_m236": {**s160, "launches": dia_launches},
     }
 
     # The dense device loop on the recorded launches of one cold and one
@@ -1581,14 +1882,16 @@ def main(argv) -> int:
         return e0.elapsed_time(e1) / reps
 
     loop_rows = {}
-    for which, calls in (("cold", cd_cold), ("steady", cd_steady)):
+    for which, calls in (("cold", cd_cold), ("steady", cd_steady), ("augmented cold", ca_cold),
+                         ("augmented steady", ca_steady)):
         nc = len(calls)
         iters, bytes_ms, ops_ms = loop_stats(calls)
         k_ms = time_ms(lambda: [ak.admm_device_loop(*a, **k) for a, k in calls], 7, sync) / nc
         mm_ms = time_ms(lambda: [loop_matmul(a, k, int(it.max())) for (a, k), it in
-                                 zip(calls, iters)], 3 if which == "steady" else 1, sync) / nc
+                                 zip(calls, iters)], 3 if which.endswith("steady") else 1,
+                        sync) / nc
         plain_ms = None
-        if which == "steady":
+        if which == "steady":  # the plain version at n=100, m=196 only (minutes)
             plain_ms = time_ms(lambda: [ak.admm_device_loop_plain(*a, **k) for a, k in calls],
                                2, sync) / nc
         mean_it = statistics.fmean(float(it.float().mean()) for it in iters)
@@ -1653,6 +1956,16 @@ def main(argv) -> int:
         "cold_ms": cold_row["ms"], "cold_bound_ms": cold_row["bound_ms"],
         "cold_matmul_loop_ms": cold_row["mm_ms"], "cold_mean_it": cold_row["mean_it"],
         "cold_max_it": cold_row["max_it"],
+    }
+    # B5 at the augmented cart-pole tick's recorded inputs (n=101, m=197).
+    ast_row, acold_row = loop_rows["augmented steady"], loop_rows["augmented cold"]
+    row4["augmented_n101_m197"] = {
+        "launches": aug_launches, "tier": ak.kernel_tier(101, 197), "ms": ast_row["ms"],
+        "bound_ms": ast_row["bound_ms"], "bound_by": ast_row["bound_by"],
+        "matmul_loop_ms": ast_row["mm_ms"], "mean_it": ast_row["mean_it"],
+        "max_it": ast_row["max_it"], "cold_ms": acold_row["ms"],
+        "cold_bound_ms": acold_row["bound_ms"], "cold_mean_it": acold_row["mean_it"],
+        "cold_max_it": acold_row["max_it"], "parity_launches": par_launches,
     }
     for tier_t, (n_t, m_t, t_ms, t_bound) in sorted(tier_rows.items()):
         row4[f"tier{tier_t}_n{n_t}_m{m_t}_ms"] = t_ms

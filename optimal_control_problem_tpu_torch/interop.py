@@ -20,7 +20,7 @@ from .parallel.batch import BatchState
 from .solvers.admm import ADMMSettings, DensePrep
 from .solvers.admm_banded import BandedQP
 from .solvers.admm_batched import SharedQPFactor
-from .solvers.sqp import SQPOptions
+from .solvers.sqp import SQPOptimizationSolver, SQPOptions
 
 __all__ = [
     "banded_qp_from_numpy",
@@ -29,6 +29,7 @@ __all__ = [
     "dense_prep_from_numpy",
     "settings_from_jax_dict",
     "shared_factor_from_numpy",
+    "sqp_iterate_from_numpy",
 ]
 
 
@@ -97,6 +98,21 @@ def batch_state_from_numpy(state_np: Any, device=None, dtype=None) -> BatchState
     return BatchState(*(_tensor(a, dev, dtype) for a in _fields(state_np, BatchState._fields)))
 
 
+def sqp_iterate_from_numpy(solver: SQPOptimizationSolver, x, qp_x, qp_y) -> None:
+    """Set a port solver's persistent iterate and QP warm start from the
+    JAX solver's arrays (its ``_result_x``, ``_qp_x``, ``_qp_y`` after
+    ``np.asarray``), so the next ``get_optimal_solution`` of both packages
+    starts from one state.  Sizes are checked against the port solver's."""
+    sizes = {"x": solver.n_x, "qp_x": solver._qp_n, "qp_y": solver._qp_m}
+    vals = {}
+    for name, a in (("x", x), ("qp_x", qp_x), ("qp_y", qp_y)):
+        t = _tensor(np.asarray(a).reshape(-1), solver.device, solver.dtype)
+        if t.shape[0] != sizes[name]:
+            raise ValueError(f"{name} must have size {sizes[name]}, got {t.shape[0]}")
+        vals[name] = t
+    solver._result_x, solver._qp_x, solver._qp_y = vals["x"], vals["qp_x"], vals["qp_y"]
+
+
 def _torch_dtype(d) -> torch.dtype:
     return torch.float64 if np.dtype(d) == np.float64 else torch.float32
 
@@ -104,9 +120,10 @@ def _torch_dtype(d) -> torch.dtype:
 def settings_from_jax_dict(d: Mapping[str, Any]) -> Union[ADMMSettings, SQPOptions]:
     """``dataclasses.asdict`` of a JAX ``ADMMSettings`` -> the port's
     :class:`ADMMSettings`; of a JAX ``SQPOptions`` (recognised by its
-    ``admm`` entry) -> the port's :class:`SQPOptions` with its nested
-    settings and dtype converted.  Fields the port does not know are
-    dropped."""
+    ``admm`` entry; the parity preset's and the line search's fields
+    included) -> the port's :class:`SQPOptions` with its nested settings
+    and dtype converted, and ``hessian_reg`` kept a string or made a
+    Python float.  Fields the port does not know are dropped."""
 
     def known(cls, src):
         names = {f.name for f in dataclasses.fields(cls)}
@@ -118,5 +135,7 @@ def settings_from_jax_dict(d: Mapping[str, Any]) -> Union[ADMMSettings, SQPOptio
         kw["admm"] = admm if isinstance(admm, ADMMSettings) else ADMMSettings(**known(ADMMSettings, admm))
         if "dtype" in kw:
             kw["dtype"] = _torch_dtype(kw["dtype"])
+        if "hessian_reg" in kw and not isinstance(kw["hessian_reg"], str):
+            kw["hessian_reg"] = float(kw["hessian_reg"])
         return SQPOptions(**kw)
     return ADMMSettings(**known(ADMMSettings, d))

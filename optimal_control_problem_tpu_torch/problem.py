@@ -3,20 +3,20 @@
 ``OptimalControlProblem``).
 
 Kept: the solver-settings parsing and validation with the YAML schema, the
-cost/constraint registries (torch callables ``fn(X, P)``), the stage
-structure and ``gen_solver``'s automatic switch to the banded QP method,
-problems without a stage structure (the NLP functions are assembled from
-the registries and feed the dense or shared-system QP paths of
-``solvers/sqp.py``), the per-tick solve with first-frame pinning and
-cross-tick warm start, and input validation.
+cost/constraint registries (``add_scalar_cost``, ``add_vector_cost`` —
+``c^T diag(w) c`` —, ``add_inequality_constraint``,
+``add_equation_constraint``) whose terms are :class:`Sym` expressions or
+torch callables ``fn(X, P)``, the stage structure and ``gen_solver``'s
+automatic switch to the banded QP method, the reference-parity preset
+(``SQP_settings.parity``: the dense augmented path, cold QPs), the per-tick
+solve with first-frame pinning and cross-tick warm start, input validation
+and the per-tick solver statistics.
 
 The problem lives on one device, chosen at construction: ``cuda`` unless
 the caller passes ``device="cpu"`` (:func:`..device.resolve_device`).
 
-Not ported yet (ROADMAP Queue A): ``Sym`` expression terms (A5), the
-reference-parity preset and the augmented formulation (A8d), and the
-MIXED/IPOPT/SQP host backends (A9) — ``gen_solver`` raises
-``NotImplementedError`` for them.
+Not ported yet (ROADMAP Queue A9): the MIXED/IPOPT/SQP host backends —
+``gen_solver`` raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from .config import OCPConfig, load_config
 from .device import resolve_device
 from .solvers.admm import ADMMSettings
 from .solvers.sqp import SQPOptimizationSolver, SQPOptions
-from .sym import Sym, sym
+from .sym import Sym, evaluate, sym
 from .utils.logging import ocp_warn
 
 __all__ = ["SolverType", "SolverSettings", "OptimalControlProblem"]
@@ -142,7 +142,8 @@ class SolverSettings:
         }
 
 
-ExprLike = Callable
+CostLike = Union[Sym, Callable]
+ExprLike = Union[Sym, Callable]
 
 
 class OptimalControlProblem:
@@ -167,7 +168,7 @@ class OptimalControlProblem:
         self.ocp_config = OCPConfig(node)
         self._config_node = node
 
-        self._costs: List[Callable] = []
+        self._costs: List[CostLike] = []
         self._constraints: List[ExprLike] = []
         self._constraint_names: List[str] = []
         self._constraint_sizes: List[int] = []
@@ -180,6 +181,7 @@ class OptimalControlProblem:
         self._optimal_trajectory: Optional[torch.Tensor] = None
         self._last_f: Optional[float] = None
         self._solver: Optional[SQPOptimizationSolver] = None
+        self._nlp_fns = None  # (f_fn, g_fn)
         self._generated = False
 
     # ------------------------------------------------------------------
@@ -203,9 +205,39 @@ class OptimalControlProblem:
     def reference_size(self) -> int:
         return 0 if self._reference is None else self._reference.size1()
 
-    # -- cost / constraint registries (cpp:444-489) ----------------------
-    def add_scalar_cost(self, cost: Callable) -> None:
+    # -- cost / constraint registries (cpp:444-489, 574-600) --------------
+    def add_scalar_cost(self, cost: CostLike) -> None:
+        if isinstance(cost, Sym) and cost.size1() != 1:
+            raise ValueError("scalar cost must have size 1")
         self._costs.append(cost)
+
+    def add_vector_cost(self, weights: Sequence[float], cost: ExprLike) -> None:
+        """Quadratic-form cost ``sum_i w_i * c_i(X, P)^2`` (cpp:574-600)."""
+        w = np.asarray(weights, dtype=np.float64).reshape(-1)
+        if isinstance(cost, Sym):
+            if w.shape[0] != cost.size1():
+                raise ValueError("weight vector and cost expression dimensions differ")
+            self._costs.append(_sym_quadform(w, cost))
+        else:
+            def quadform(X, P, c=cost):
+                v = torch.as_tensor(c(X, P)).reshape(-1)
+                return torch.sum(torch.as_tensor(w, dtype=v.dtype, device=v.device)
+                                 * torch.square(v))
+
+            self._costs.append(quadform)
+
+    def get_cost_function(self) -> Callable:
+        """Total cost as a callable ``f(X, P) -> scalar`` (cpp:491-497)."""
+        costs = list(self._costs)
+        leaf = self._leaf_names()
+
+        def f_fn(X, P):
+            total = torch.zeros((), dtype=X.dtype, device=X.device)
+            for c in costs:
+                total = total + _eval_term(c, X, P, leaf)
+            return total
+
+        return f_fn
 
     def add_inequality_constraint(
         self,
@@ -228,13 +260,20 @@ class OptimalControlProblem:
     def add_equation_constraint(
         self, constraint_name: str, left: ExprLike, right: Optional[ExprLike] = None
     ) -> None:
-        """``left == right`` (or ``left == 0``), as ``0 <= left-right <= 0``."""
+        """``left == right`` (or ``left == 0``), as ``0 <= left-right <= 0``
+        (cpp:467-489)."""
         if right is None:
             expr = left
+        elif isinstance(left, Sym) and isinstance(right, Sym):
+            if left.size1() != right.size1():
+                raise ValueError("equation constraint sides have different dimensions")
+            expr = left - right
         elif callable(left) and callable(right):
             def expr(X, P, l=left, r=right):
                 return (torch.as_tensor(l(X, P)).reshape(-1)
                         - torch.as_tensor(r(X, P)).reshape(-1))
+        elif isinstance(left, Sym):
+            expr = left - np.asarray(right, dtype=np.float64)
         else:
             raise ValueError("unsupported equation constraint operand types")
         size = self._expr_size(expr)
@@ -245,10 +284,19 @@ class OptimalControlProblem:
         self._constraint_upper.append(np.zeros(size))
 
     def _expr_size(self, expr) -> int:
-        """Static output size of a constraint term (one CPU evaluation)."""
+        """Static output size of a constraint term (a callable's from one
+        CPU evaluation)."""
+        if isinstance(expr, Sym):
+            return expr.size1()
         X = torch.zeros((self.ocp_config.num_variables,), dtype=torch.float64)
         P = torch.zeros((self.reference_size,), dtype=torch.float64)
         return int(torch.as_tensor(expr(X, P)).reshape(-1).shape[0])
+
+    def get_constraints(self) -> List[ExprLike]:
+        return list(self._constraints)
+
+    def get_constraint_names(self) -> List[str]:
+        return list(self._constraint_names)
 
     def get_constraint_lower_bounds(self) -> np.ndarray:
         if self._stage_structure is not None and hasattr(self, "_structure_lbg"):
@@ -267,26 +315,20 @@ class OptimalControlProblem:
         return sum(self._constraint_sizes)
 
     # ------------------------------------------------------------------
-    def _build_nlp_fns(self):
-        """``(f_fn, g_fn)`` from the registries: the sum of the scalar costs
-        and the concatenated constraint terms, as callables of ``(X, P)``."""
-        costs = list(self._costs)
-        constraints = list(self._constraints)
-        for term in costs + constraints:
-            if isinstance(term, Sym):
-                raise NotImplementedError(
-                    "Sym expression costs/constraints are not ported yet "
-                    "(ROADMAP Queue A5); register torch callables fn(X, P)"
-                )
+    def _leaf_names(self):
+        x_name = self.ocp_config.get_variables().name
+        p_name = self._reference.name if self._reference is not None else None
+        return x_name, p_name
 
-        def f_fn(X, P):
-            total = torch.zeros((), dtype=X.dtype, device=X.device)
-            for c in costs:
-                total = total + torch.as_tensor(c(X, P)).reshape(())
-            return total
+    def _build_nlp_fns(self):
+        """``(f_fn, g_fn)`` from the registries: the sum of the costs and
+        the concatenated constraint terms, as callables of ``(X, P)``."""
+        f_fn = self.get_cost_function()
+        constraints = list(self._constraints)
+        leaf = self._leaf_names()
 
         def g_fn(X, P):
-            return torch.cat([torch.as_tensor(c(X, P)).reshape(-1) for c in constraints])
+            return torch.cat([_eval_term(c, X, P, leaf, scalar=False) for c in constraints])
 
         return f_fn, (g_fn if constraints else None)
 
@@ -313,32 +355,32 @@ class OptimalControlProblem:
         st = self.solver_settings
         if self._stage_structure is None and not self._constraints:
             raise RuntimeError("Constraints are empty")  # cpp:230-233
-        if st.parity:
-            raise NotImplementedError(
-                "the reference-parity preset (augmented formulation) is not "
-                "ported yet (ROADMAP Queue A8d)"
-            )
         if st.solver_type != SolverType.TPU_SQP:
             raise NotImplementedError(
                 f"solve_method {st.solver_type.value} (host backends / MIXED "
                 "dispatch) is not ported yet (ROADMAP Queue A9)"
             )
         ss = self._stage_structure
+        parts = None
         if ss is not None:
             from .stagewise import build_stagewise_fns, build_stagewise_parts
 
             f_fn, g_fn, lbg, ubg = build_stagewise_fns(ss)
             self._structure_lbg = lbg
             self._structure_ubg = ubg
-            st.formulation = "reduced"
-            parts = build_stagewise_parts(ss, st.dtype, "auto")
-            # The block-tridiagonal QP path is the default whenever a stage
-            # structure is registered and the user did not pin a method.
-            if not st.admm_method_explicit and st.admm.method == "kkt":
-                st.admm = st.admm.replace(method="banded")
+            # Under the parity preset the structure defines the NLP
+            # functions only: the reference's dense augmented flow solves.
+            if not st.parity:
+                st.formulation = "reduced"
+                parts = build_stagewise_parts(ss, st.dtype, "auto")
+                # The block-tridiagonal QP path is the default whenever a
+                # stage structure is registered and the user did not pin a
+                # method.
+                if not st.admm_method_explicit and st.admm.method == "kkt":
+                    st.admm = st.admm.replace(method="banded")
         else:
             f_fn, g_fn = self._build_nlp_fns()
-            parts = None
+        self._nlp_fns = (f_fn, g_fn)
 
         nlp = {
             "x": self.ocp_config.get_variables(),
@@ -346,23 +388,34 @@ class OptimalControlProblem:
             "g": g_fn,
             "p": self.reference_size,
         }
-        options = SQPOptions(
+        kw = dict(
             max_iter=st.step_num,
             alpha=st.alpha,
             verbose=st.verbose,
-            formulation=st.formulation,
             qp_warm_start=st.qp_warm_start,
             dtype=st.dtype,
             admm=st.admm,
-            shared_system=st.shared_system,
-            hessian_reg=st.hessian_reg,
-            line_search=st.line_search,
-            ls_num=st.ls_num,
-            ls_alpha_max=st.ls_alpha_max,
-            ls_merit_mu=st.ls_merit_mu,
             early_exit=st.early_exit,
             early_exit_tol=st.early_exit_tol,
         )
+        if st.parity:
+            # The preset pins formulation, hessian_reg, line_search and
+            # shared_system; QPs start cold unless the config set
+            # qp_warm_start itself.
+            if not st.qp_warm_start_explicit:
+                kw.pop("qp_warm_start")
+            options = SQPOptions.parity(**kw)
+        else:
+            options = SQPOptions(
+                formulation=st.formulation,
+                shared_system=st.shared_system,
+                hessian_reg=st.hessian_reg,
+                line_search=st.line_search,
+                ls_num=st.ls_num,
+                ls_alpha_max=st.ls_alpha_max,
+                ls_merit_mu=st.ls_merit_mu,
+                **kw,
+            )
         self._solver = SQPOptimizationSolver(
             nlp, options, local_system_parts=parts, stage_structure=ss,
             device=self.device,
@@ -446,6 +499,28 @@ class OptimalControlProblem:
         """Latest full-horizon solution (``getOptimalTrajectory``)."""
         return self._optimal_trajectory
 
+    def get_solver_stats(self) -> Dict[str, Any]:
+        """Statistics of the last solve: ``objective``, ``f_history``
+        (objective after each SQP step), ``qp_iters`` (ADMM iterations per
+        step), ``step_norms`` (``||alpha*dx||`` per step) and the per-step
+        QP status flags ``qp_converged``, ``qp_prim_inf``, ``qp_dual_inf``,
+        as numpy arrays.  Empty before the first solve."""
+        res = self._solver.last_result if self._solver is not None else None
+        if res is None:
+            return {}
+        np_ = lambda t: t.cpu().numpy()  # noqa: E731
+        out = {
+            "objective": float(res.f),
+            "f_history": np_(res.f_history),
+            "qp_iters": np_(res.qp_iters),
+            "step_norms": np_(res.step_norms),
+        }
+        if res.qp_converged.numel():
+            out["qp_converged"] = np_(res.qp_converged)
+            out["qp_prim_inf"] = np_(res.qp_prim_inf)
+            out["qp_dual_inf"] = np_(res.qp_dual_inf)
+        return out
+
     def get_optimal_frames(self) -> np.ndarray:
         """Solution reshaped to ``(horizon, frame_size)``."""
         if self._optimal_trajectory is None:
@@ -455,6 +530,47 @@ class OptimalControlProblem:
             cfg.get_horizon(), cfg.get_frame_size()
         )
 
+    # convenience passthroughs ------------------------------------------
+    def get_variable(self, step: int, name: str) -> Sym:
+        return self.ocp_config.get_variable(step, name)
+
+    def set_solver_type(self, stype: SolverType) -> None:
+        self.solver_settings.solver_type = stype
+
+    def get_solver_type(self) -> SolverType:
+        return self.solver_settings.solver_type
+
     @property
     def solver(self) -> Optional[SQPOptimizationSolver]:
         return self._solver
+
+    @property
+    def nlp_functions(self):
+        """(f_fn, g_fn) after gen_solver()."""
+        return self._nlp_fns
+
+
+# ----------------------------------------------------------------------
+def _sym_quadform(w: np.ndarray, cost: Sym) -> Sym:
+    """``sum_i w_i c_i^2`` as a Sym (addVectorCost, cpp:574-586)."""
+
+    def fn(env, memo):
+        c = cost._ev(env, memo)
+        wt = torch.as_tensor(w, dtype=c.dtype, device=c.device)
+        return torch.sum(wt * torch.square(c)).reshape(1)
+
+    return Sym(fn, (1,), (cost,))
+
+
+def _eval_term(term, X, P, leaf_names, scalar: bool = True):
+    """One registry term at ``(X, P)``: a Sym evaluated with ``X``/``P``
+    bound to the leaf names, or a callable called."""
+    x_name, p_name = leaf_names
+    if isinstance(term, Sym):
+        env = {x_name: X}
+        if p_name is not None:
+            env[p_name] = P
+        out = evaluate(term, env)
+        return out[0] if scalar else out
+    out = torch.as_tensor(term(X, P))
+    return out.reshape(()) if scalar else out.reshape(-1)

@@ -3,13 +3,16 @@
 Reference semantics kept: a fixed number ``max_iter`` (``step_num``) of
 damped steps ``x += alpha * dx`` whose directions come from local QPs built
 on the exact objective Hessian (convexified per ``hessian_reg``) and the
-linearized constraint stack ``l - c(x) <= A dx <= u - c(x)``; warm start
-across calls from the persisted iterate (the incoming ``x0`` is ignored,
-as in the reference); the optional ``||alpha*dx|| < tol`` early exit that
-freezes the iterate.
+linearized constraint stack ``l - c <= A dz <= u - c``; the augmented
+formulation (the reference's: ``dz = [dp; dx]``, the stack ``[p; x; g]``,
+identity rows pinning ``dp = 0``) or the reduced one (``dp`` eliminated);
+warm start across calls from the persisted iterate (the incoming ``x0`` is
+ignored, as in the reference); the optional ``||alpha*dx|| < tol`` early
+exit that freezes the iterate; and the opt-in merit line search (``ls_num``
+geometric candidates against an L1 exact-penalty merit, all evaluated in
+one ``torch.func.vmap``).
 
-Four QP paths, all on the reduced formulation, each a Python step loop
-that enqueues device work:
+Four QP paths, each a Python step loop that enqueues device work:
 
 * **banded** (``method="banded"``, stage-structured problems): per step the
   batch-last stage derivatives (``stagewise.py``) feed
@@ -17,23 +20,18 @@ that enqueues device work:
   chunk) or, for one scenario, ``admm_solve_banded``;
 * **dense, per problem** (``method="kkt"`` / ``"condensed"``): ``solve_fn``
   assembles the dense local QP with ``torch.func`` (``hessian``, ``jacfwd``,
-  ``grad``) and calls ``admm_solve``;
+  ``grad``; or stage-wise, ``stagewise.build_stagewise_parts``) and calls
+  ``admm_solve``;
 * **shared system** (the same methods on an LQ/LTI problem, detected by
   probing whether ``(H, A)`` depend on the point): ``solve_batch_fn``
   factors one operator for the whole batch and all steps
   (``admm_batched.py``) and maps only the per-scenario vectors with
   ``torch.func.vmap``;
-* **dense, per scenario** (the same methods on any other problem without a
-  stage structure): ``solve_batch_dense_fn``, the port of
-  ``jax.vmap(solve_fn)``, maps the dense assembly with ``torch.func.vmap``
-  and solves the batch of local QPs with ``admm_solve_batch`` (with
-  ``backend="pallas"``, one launch of the device-loop kernel per step).
-
-Not ported yet (``ROADMAP.md`` Queue A), each raising
-``NotImplementedError``: the augmented formulation and the ``parity``
-preset (A8d), the merit line search (A6), dense methods on stage-wise
-local-system parts (A8b: their dense ``(H, A)`` assembly) and ``Sym``
-expression costs (A5).
+* **dense, per scenario** (the same methods on any other problem):
+  ``solve_batch_dense_fn``, the port of ``jax.vmap(solve_fn)``, maps the
+  dense assembly with ``torch.func.vmap`` and solves the batch of local QPs
+  with ``admm_solve_batch`` (with ``backend="pallas"``, one launch of the
+  device-loop kernel per step).
 """
 
 from __future__ import annotations
@@ -45,7 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..sym import Sym
+from ..sym import Sym, evaluate
 from .admm import ADMMSettings, admm_solve, admm_solve_batch
 
 __all__ = [
@@ -93,14 +91,35 @@ class SQPOptions:
     early_exit: Optional[bool] = None
     early_exit_tol: float = 1e-6
 
+    @classmethod
+    def parity(cls, **overrides) -> "SQPOptions":
+        """Reference-parity preset: the augmented ``z = [p; x]`` formulation,
+        the raw objective Hessian (``hessian_reg`` 0.0), the fixed damped
+        step ``alpha`` 0.1 x 10 with no line search, early exit tied to
+        ``verbose``, the per-scenario QP path (no shared-factorization
+        shortcut) and cold-started QPs (the reference re-creates its QP
+        workspace every SQP iteration).  Override any field by keyword."""
+        base = dict(
+            formulation="augmented",
+            hessian_reg=0.0,
+            line_search="none",
+            alpha=0.1,
+            max_iter=10,
+            shared_system=False,
+            qp_warm_start=False,
+        )
+        base.update(overrides)
+        return cls(**base)
+
 
 def normalize_nlp(nlp: Dict[str, Any]):
     """Normalize the reference-shaped nlp dict to callables.
 
-    ``nlp`` keys: ``"x"`` (leaf :class:`Sym` or int size), ``"f"``
-    (callable ``f(x, p)``), ``"g"`` (callable or None), ``"p"`` (leaf Sym,
-    int size or None).  Returns ``(f_fn, g_fn, n_x, n_p, n_g)``.
-    ``Sym`` expression costs/constraints are not ported yet.
+    ``nlp`` keys: ``"x"`` (leaf :class:`Sym` or int size), ``"f"`` (scalar
+    :class:`Sym` or callable ``f(x, p)``), ``"g"`` (:class:`Sym`, callable
+    or None), ``"p"`` (leaf Sym, int size or None).  Returns ``(f_fn, g_fn,
+    n_x, n_p, n_g)`` with ``f_fn(x, p) -> scalar`` and ``g_fn(x, p) ->
+    (n_g,)`` (``g_fn`` is None when there are no constraints).
     """
     if "x" not in nlp:
         raise ValueError("optimization variable 'x' not defined")
@@ -110,37 +129,49 @@ def normalize_nlp(nlp: Dict[str, Any]):
     xspec = nlp["x"]
     pspec = nlp.get("p", None)
     if isinstance(xspec, Sym):
-        n_x = xspec.size1()
-        if xspec.name is None:
+        n_x, x_name = xspec.size1(), xspec.name
+        if x_name is None:
             raise ValueError("'x' must be a leaf symbol")
     else:
-        n_x = int(xspec)
+        n_x, x_name = int(xspec), None
     if pspec is None:
-        n_p = 0
+        n_p, p_name = 0, None
     elif isinstance(pspec, Sym):
-        n_p = pspec.size1()
+        n_p, p_name = pspec.size1(), pspec.name
     else:
-        n_p = int(pspec)
+        n_p, p_name = int(pspec), None
 
-    def wrap(fn_raw, out_scalar):
-        if fn_raw is None:
+    def wrap(spec, out_scalar):
+        if spec is None:
             return None
-        if isinstance(fn_raw, Sym):
-            raise NotImplementedError(
-                "Sym expression costs/constraints are not ported yet "
-                "(ROADMAP Queue A5); pass torch callables fn(x, p)"
-            )
+        if isinstance(spec, Sym):
+            if x_name is None:
+                raise ValueError("Sym expressions require 'x' to be a leaf symbol")
+
+            def fn(x, p):
+                env = {x_name: x}
+                if p_name:
+                    env[p_name] = p
+                out = evaluate(spec, env)
+                return out[0] if out_scalar else out
+
+            return fn
 
         def fn(x, p):
-            out = torch.as_tensor(fn_raw(x, p))
+            out = torch.as_tensor(spec(x, p))
             return out.reshape(()) if out_scalar else out.reshape(-1)
 
         return fn
 
     f_fn = wrap(nlp["f"], True)
-    g_fn = wrap(nlp.get("g", None), False)
+    gspec = nlp.get("g", None)
+    if isinstance(gspec, Sym) and gspec.size1() == 0:
+        gspec = None
+    g_fn = wrap(gspec, False)
     if g_fn is None:
         n_g = 0
+    elif isinstance(gspec, Sym):
+        n_g = gspec.size1()
     else:
         n_g = int(
             g_fn(torch.zeros((n_x,), dtype=torch.float64),
@@ -159,21 +190,25 @@ def build_local_system_parts(
     dtype,
     hessian_reg="auto",
 ):
-    """Composable pieces of the dense local-QP assembly (reduced
-    formulation).
+    """Composable pieces of the dense local-QP assembly.
 
     Returns ``(matrices, matrices_raw, vectors, stack_bounds)``:
 
     * ``matrices(x, p) -> (H, A)`` — regularized objective Hessian and the
-      linearized constraint-stack Jacobian ``[I; dg/dx]``;
+      linearized constraint-stack Jacobian;
     * ``matrices_raw(x, p) -> (H, A)`` — the same without Hessian
       regularization (used for shared-system detection/extraction, where
       the shift is applied on the host instead);
     * ``vectors(x, p) -> (grad, cval)`` — objective gradient and the value
-      of the constraint stack ``c = [x; g(x)]`` at the point;
+      of the constraint stack ``c`` at the point;
     * ``stack_bounds(p, lbx, ubx, lbg, ubg) -> (lower, upper)`` — the raw
       (un-shifted) bound stack; batched inputs work too (it concatenates
       along the last axis).
+
+    Augmented: the QP variable is ``z = [p; x]``, ``c = [z; g]`` and the
+    bound stack ``[p; lbx; lbg]`` / ``[p; ubx; ubg]`` (identity rows pin
+    ``dp = 0``); the Hessian, and its regularization, cover the whole of
+    ``z``.  Reduced: ``c = [x; g]`` over ``x`` alone.
 
     Derivatives come from ``torch.func``; every output is cast back to
     ``dtype`` (forward mode promotes ``tensor / python_float`` tangents to
@@ -181,11 +216,6 @@ def build_local_system_parts(
     """
     if formulation not in ("augmented", "reduced"):
         raise ValueError(f"unknown formulation {formulation!r}")
-    if formulation == "augmented":
-        raise NotImplementedError(
-            "the augmented formulation (and the parity preset built on it) is "
-            "not ported yet: use formulation='reduced' (ROADMAP Queue A8d)"
-        )
 
     def _regularize(H):
         """Convexify an indefinite objective Hessian (SQPOptions.hessian_reg):
@@ -205,30 +235,60 @@ def build_local_system_parts(
         reg = float(hessian_reg)
         return H + reg * eye if reg > 0.0 else H
 
-    def matrices_raw(x, p):
-        x = x.to(dtype)
-        H = torch.func.hessian(lambda xx: f_fn(xx, p))(x).to(dtype)
-        A = torch.eye(n_x, dtype=dtype, device=x.device)
-        if g_fn is not None:
-            J = torch.func.jacfwd(lambda xx: g_fn(xx, p))(x).to(dtype)
-            A = torch.cat([A, J], dim=0)
-        return H, A
+    if formulation == "augmented":
+        nz = n_p + n_x
+
+        def f_z(z):
+            return f_fn(z[n_p:], z[:n_p])
+
+        def c_z(z):
+            return z if g_fn is None else torch.cat([z, g_fn(z[n_p:], z[:n_p])])
+
+        def matrices_raw(x, p):
+            z = torch.cat([p, x]).to(dtype)
+            H = torch.func.hessian(f_z)(z).to(dtype)
+            if g_fn is None:
+                A = torch.eye(nz, dtype=dtype, device=z.device)
+            else:
+                A = torch.func.jacfwd(c_z)(z).to(dtype)
+            return H, A
+
+        def vectors(x, p):
+            z = torch.cat([p, x]).to(dtype)
+            return torch.func.grad(f_z)(z).to(dtype), c_z(z).to(dtype)
+
+        def stack_bounds(p, lbx, ubx, lbg, ubg):
+            return (
+                torch.cat([p, lbx, lbg], dim=-1).to(dtype),
+                torch.cat([p, ubx, ubg], dim=-1).to(dtype),
+            )
+
+    else:
+
+        def matrices_raw(x, p):
+            x = x.to(dtype)
+            H = torch.func.hessian(lambda xx: f_fn(xx, p))(x).to(dtype)
+            A = torch.eye(n_x, dtype=dtype, device=x.device)
+            if g_fn is not None:
+                J = torch.func.jacfwd(lambda xx: g_fn(xx, p))(x).to(dtype)
+                A = torch.cat([A, J], dim=0)
+            return H, A
+
+        def vectors(x, p):
+            x = x.to(dtype)
+            grad = torch.func.grad(lambda xx: f_fn(xx, p))(x).to(dtype)
+            cval = x if g_fn is None else torch.cat([x, g_fn(x, p).to(dtype)])
+            return grad, cval
+
+        def stack_bounds(p, lbx, ubx, lbg, ubg):
+            return (
+                torch.cat([lbx, lbg], dim=-1).to(dtype),
+                torch.cat([ubx, ubg], dim=-1).to(dtype),
+            )
 
     def matrices(x, p):
         H, A = matrices_raw(x, p)
         return _regularize(H), A
-
-    def vectors(x, p):
-        x = x.to(dtype)
-        grad = torch.func.grad(lambda xx: f_fn(xx, p))(x).to(dtype)
-        cval = x if g_fn is None else torch.cat([x, g_fn(x, p).to(dtype)])
-        return grad, cval
-
-    def stack_bounds(p, lbx, ubx, lbg, ubg):
-        return (
-            torch.cat([lbx, lbg], dim=-1).to(dtype),
-            torch.cat([ubx, ubg], dim=-1).to(dtype),
-        )
 
     return matrices, matrices_raw, vectors, stack_bounds
 
@@ -268,19 +328,10 @@ class SQPOptimizationSolver:
             # (matrices, matrices_raw, vectors, stack_bounds) tuple.
             if options.formulation != "reduced":
                 raise ValueError("custom local_system_parts require formulation='reduced'")
-            if not banded and local_system_parts[1] is None:
-                raise NotImplementedError(
-                    f"ADMM method {options.admm.method!r} on stage-wise local-system "
-                    "parts needs their dense (H, A) assembly, which is not ported "
-                    "yet (ROADMAP Queue A8b); use method='banded'"
-                )
             self._parts = local_system_parts
         else:
-            if banded and stage_structure is not None:
-                raise NotImplementedError(
-                    "the banded port needs stage-wise local-system parts "
-                    "(stagewise.build_stagewise_parts; ROADMAP Queue A6)"
-                )
+            # A banded solver on a stage structure takes only ``vectors``
+            # and ``stack_bounds`` from the dense parts.
             self._parts = build_local_system_parts(
                 self.f_fn, self.g_fn, self.n_x, self.n_p, self.n_g,
                 options.formulation, self.dtype, options.hessian_reg,
@@ -291,25 +342,20 @@ class SQPOptimizationSolver:
                 "ADMM method 'banded' requires a stage structure "
                 "(OptimalControlProblem.set_stage_structure)"
             )
-        self._qp_n = self.n_x
+        # Augmented: the QP variable is [dp; dx], dx from offset n_p on.
+        self._x_at = self.n_p if options.formulation == "augmented" else 0
+        self._qp_n = self._x_at + self.n_x
         self._qp_m = self._qp_n + self.n_g
 
         if options.line_search != "none":
-            raise NotImplementedError(
-                f"line_search={options.line_search!r} is not ported yet "
-                "(ROADMAP Queue A6: merit line search)"
-            )
-        if banded:
-            if options.shared_system:
-                raise NotImplementedError(
-                    "shared_system with method='banded' needs the stage-wise dense "
-                    "(H, A) assembly, which is not ported yet (ROADMAP Queue A8b)"
-                )
+            # The shared-factorization batch path takes the fixed reference
+            # update only; a line search runs per scenario.
             self.shared_system = False
-        elif options.shared_system is None:
+        elif options.shared_system is None and not banded:
             self.shared_system = self._detect_shared_system()
         else:
             self.shared_system = bool(options.shared_system)
+        self._step = self._make_step_rule()
 
         self.solve_fn = self._build_solve_banded_fn() if banded else self._build_solve_fn()
         # Shared-system (LTI) batch path: one factorization for the whole
@@ -358,19 +404,56 @@ class SQPOptimizationSolver:
         return enabled, float(opt.early_exit_tol)
 
     def _make_step_rule(self):
-        """``step(x, dx) -> (x_new, ||alpha*dx||)`` — the reference's fixed
-        damped update, batched over any leading dims."""
-        if self.options.line_search != "none":
-            raise NotImplementedError(
-                f"line_search={self.options.line_search!r} is not ported yet "
-                "(ROADMAP Queue A6: merit line search)"
-            )
-        alpha = self.options.alpha
+        """``step(x, dx, p, lbx, ubx, lbg, ubg) -> (x_new, step_norm)`` for
+        one scenario.
 
-        def step(x, dx):
-            return x + alpha * dx, torch.linalg.vector_norm(alpha * dx, dim=-1)
+        "none" is the reference's fixed damped update ``x + alpha * dx``;
+        "merit" evaluates ``ls_num`` geometric candidates ``ls_alpha_max *
+        2^-k`` against the L1 exact-penalty merit ``f + mu * violation`` in
+        one ``torch.func.vmap`` and takes the first smallest (``argmin``: a
+        NaN merit counts as smallest, as in JAX)."""
+        opt = self.options
+        if opt.line_search == "none":
+            alpha = opt.alpha
+
+            def step(x, dx, p, lbx, ubx, lbg, ubg):
+                return x + alpha * dx, torch.linalg.vector_norm(alpha * dx, dim=-1)
+
+            return step
+        if opt.line_search != "merit":
+            raise ValueError(
+                f"unknown line_search: {opt.line_search!r} (use 'none' or 'merit')"
+            )
+        f_fn, g_fn, n_g = self.f_fn, self.g_fn, self.n_g
+        mu = opt.ls_merit_mu
+        al = torch.as_tensor(opt.ls_alpha_max * (0.5 ** np.arange(opt.ls_num)),
+                             dtype=self.dtype, device=self.device)
+
+        def step(x, dx, p, lbx, ubx, lbg, ubg):
+            cand = x[None, :] + al[:, None] * dx[None, :]
+
+            def merit(xc):
+                # max(-inf, 0) = 0: infinite bounds contribute nothing.
+                viol = torch.sum(torch.clamp(lbx - xc, min=0.0) + torch.clamp(xc - ubx, min=0.0))
+                if n_g:
+                    gv = g_fn(xc, p)
+                    viol = viol + torch.sum(
+                        torch.clamp(lbg - gv, min=0.0) + torch.clamp(gv - ubg, min=0.0)
+                    )
+                return f_fn(xc, p) + mu * viol
+
+            a = al[torch.argmin(torch.func.vmap(merit)(cand))]
+            return x + a * dx, torch.linalg.vector_norm(a * dx)
 
         return step
+
+    def _step_batch(self):
+        """The step rule over a leading batch axis: the fixed update is
+        batched as it stands, the merit search mapped with
+        ``torch.func.vmap`` (candidates x scenarios in one nested map)."""
+        if self.options.line_search == "none":
+            return self._step
+        return torch.func.vmap(self._step)
 
     def _build_solve_fn(self):
         """Single-scenario solve on the dense local QP: per step the
@@ -379,7 +462,8 @@ class SQPOptimizationSolver:
         dtype = opt.dtype
         matrices, _, vectors, stack_bounds = self._parts
         f_fn = self.f_fn
-        step = self._make_step_rule()
+        step = self._step
+        x_at = self._x_at
         early, tol = self._early_exit()
 
         def solve(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
@@ -397,7 +481,7 @@ class SQPOptimizationSolver:
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
                 )
-                x_new, step_norm = step(x, sol.x)
+                x_new, step_norm = step(x, sol.x[x_at:], p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
                 took = not stop
                 if stop:
@@ -449,7 +533,8 @@ class SQPOptimizationSolver:
 
         vectors_b = torch.func.vmap(vectors)
         f_b = torch.func.vmap(self.f_fn)
-        step = self._make_step_rule()
+        step = self._step  # the fixed update: a line search turns this path off
+        x_at = self._x_at
         early, tol = self._early_exit()
 
         def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
@@ -472,7 +557,7 @@ class SQPOptimizationSolver:
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
                 )
-                x_new, step_norm = step(x, sol.x)
+                x_new, step_norm = step(x, sol.x[:, x_at:], p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
                 if early:
                     # Per-scenario freeze after ||alpha*dx|| < tol (the
@@ -512,7 +597,8 @@ class SQPOptimizationSolver:
         matrices_b = torch.func.vmap(matrices)
         vectors_b = torch.func.vmap(vectors)
         f_b = torch.func.vmap(self.f_fn)
-        step = self._make_step_rule()
+        step = self._step_batch()
+        x_at = self._x_at
         early, tol = self._early_exit()
 
         def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
@@ -530,7 +616,7 @@ class SQPOptimizationSolver:
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
                 )
-                x_new, step_norm = step(x, sol.x)
+                x_new, step_norm = step(x, sol.x[:, x_at:], p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
                 if early:
                     # Per-scenario freeze after ||alpha*dx|| < tol.
@@ -564,7 +650,7 @@ class SQPOptimizationSolver:
         _, _, vectors, stack_bounds = self._parts
         blocks = build_stage_blocks(self.stage_structure, dtype, opt.hessian_reg)
         f_fn = self.f_fn
-        step = self._make_step_rule()
+        step = self._step
         early, tol = self._early_exit()
 
         def solve(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
@@ -582,7 +668,7 @@ class SQPOptimizationSolver:
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
                 )
-                x_new, step_norm = step(x, sol.x)
+                x_new, step_norm = step(x, sol.x, p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
                 if early:
                     x_new = torch.where(stop, x, x_new)
@@ -620,7 +706,7 @@ class SQPOptimizationSolver:
         blocks_T = build_stage_blocks_batch(ss, dtype, opt.hessian_reg)
         vectors_T = build_stage_vectors_batch(ss, dtype)
         f_b = torch.func.vmap(self.f_fn)
-        step = self._make_step_rule()
+        step = self._step_batch()
         early, tol = self._early_exit()
 
         def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
@@ -663,7 +749,7 @@ class SQPOptimizationSolver:
                         scalingsT,
                     )
                 )
-                x_new, step_norm = step(x, sxT.T)
+                x_new, step_norm = step(x, sxT.T, p, lbx, ubx, lbg, ubg)
                 qp_it = s_iters
                 if early:
                     x_new = torch.where(stop[:, None], x, x_new)
@@ -711,9 +797,21 @@ class SQPOptimizationSolver:
             taken = int(res.steps_taken) or self.options.max_iter
             print("=== SQP done ===")
             print(f"  iterations: {taken}/{self.options.max_iter}, alpha: {self.options.alpha}")
+            if taken < self.options.max_iter:
+                print(f"  early exit: ||alpha*dx|| < {self.options.early_exit_tol}")
             print(f"  qp iters per step: {res.qp_iters.cpu().numpy()}")
             print(f"  f history: {res.f_history.cpu().numpy()}")
+            print(f"  x = {res.x.cpu().numpy()}")
         return {"x": res.x, "f": res.f}
+
+    def set_iterate(self, x) -> None:
+        """Seed the persistent iterate (``result_``), e.g. with a shifted
+        previous plan for receding-horizon warm starting (controller.py)."""
+        x = torch.as_tensor(np.asarray(x, dtype=np.float64).reshape(-1), dtype=self.dtype,
+                            device=self.device)
+        if x.shape[0] != self.n_x:
+            raise ValueError(f"iterate must have size {self.n_x}")
+        self._result_x = x
 
     def reset(self) -> None:
         """Clear the persistent iterate back to zeros (fresh ``result_``)."""
@@ -722,6 +820,23 @@ class SQPOptimizationSolver:
         self._result_f = z()
         self._qp_x = z(self._qp_n)
         self._qp_y = z(self._qp_m)
+
+    def get_local_system_function(self):
+        """The local-QP assembly ``(x, p, lbx, ubx, lbg, ubg) -> (H, grad,
+        A, l - c, u - c)``, the analog of the reference's
+        ``getSXLocalSystemFunction``."""
+        matrices, _, vectors, stack_bounds = self._parts
+
+        def local_system(x, p, lbx, ubx, lbg, ubg):
+            H, A = matrices(x, p)
+            grad, cval = vectors(x, p)
+            lower, upper = stack_bounds(p, lbx, ubx, lbg, ubg)
+            return H, grad, A, lower - cval, upper - cval
+
+        return local_system
+
+    def set_verbose(self, verbose: bool) -> None:
+        self._verbose = bool(verbose)
 
 
 def _result(x, qpx, qpy, hist) -> SQPResult:

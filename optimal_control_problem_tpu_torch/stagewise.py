@@ -13,9 +13,8 @@ under ``torch.func.vmap`` over stage x batch FLATTENED into one trailing
 axis (:func:`_vmap_batch_last`), so every per-stage intermediate is one
 ``(S*B,)`` tensor and every output is batch-last — the layout of the
 batched driver and the CUDA chunk kernel.  Per-scenario evaluators are the
-same code with a batch of one.  The dense ``(H_mat, A)`` assembly of the
-JAX ``build_stagewise_parts`` belongs to the dense QP path, which is not
-ported yet.
+same code with a batch of one.  ``build_stagewise_parts`` also embeds the
+blocks in the dense ``(H_mat, A)`` of the dense and shared-system QP paths.
 """
 
 from __future__ import annotations
@@ -127,15 +126,37 @@ def build_stagewise_fns(ss: StageStructure):
 
 def build_stagewise_parts(ss: StageStructure, dtype, hessian_reg="auto"):
     """Structured local-system pieces ``(matrices, matrices_raw, vectors,
-    stack_bounds)`` in the layout of the JAX ``build_stagewise_parts``.
+    stack_bounds)`` compatible with ``solvers/sqp.build_local_system_parts``
+    (reduced formulation), with every derivative taken stage-wise.
 
-    ``vectors(x, p) -> (grad (n,), cval (m,))`` and ``stack_bounds(p, lbx,
-    ubx, lbg, ubg) -> (lower, upper)`` (batched inputs work too: the bound
-    stack concatenates along the last axis).  The dense ``matrices`` /
-    ``matrices_raw`` assemblies feed only the dense QP path, which is not
-    ported: they are ``None``.
+    ``matrices(x, p) -> (H_mat, A)`` embeds the per-stage Hessian blocks
+    (regularized per ``hessian_reg``; ``matrices_raw`` without) on the block
+    diagonal and the dynamics / stage-constraint Jacobian blocks in the
+    block-bidiagonal rows of ``A = [I; J_dyn; J_sc]``: the dense operator
+    the dense and shared-system QP paths consume.  ``vectors(x, p) ->
+    (grad (n,), cval (m,))``; ``stack_bounds(p, lbx, ubx, lbg, ubg) ->
+    (lower, upper)`` (batched inputs work too: the bound stack concatenates
+    along the last axis).  Each piece maps under ``torch.func.vmap``.
     """
+    H, w = ss.horizon, ss.frame_size
+    n_x = H * w
     vectors_T = build_stage_vectors_batch(ss, dtype)
+    blocks = build_stage_blocks(ss, dtype, hessian_reg)
+    blocks_raw = build_stage_blocks(ss, dtype, 0.0)
+
+    def _assemble(Hb, J0, J1, Jc):
+        rows = [torch.eye(n_x, dtype=dtype, device=Hb.device)]
+        if J0.shape[1] and H > 1:
+            rows.append(_scatter_bidiagonal(J0, J1))
+        if Jc.shape[1]:
+            rows.append(_scatter_stage_rows(Jc))
+        return _scatter_block_diag(Hb), torch.cat(rows, dim=0)
+
+    def matrices(x, p):
+        return _assemble(*blocks(x, p))
+
+    def matrices_raw(x, p):
+        return _assemble(*blocks_raw(x, p))
 
     def vectors(x, p):
         gT, cT = vectors_T(x[:, None], p[:, None])
@@ -147,7 +168,35 @@ def build_stagewise_parts(ss: StageStructure, dtype, hessian_reg="auto"):
             torch.cat([ubx, ubg], dim=-1).to(dtype),
         )
 
-    return None, None, vectors, stack_bounds
+    return matrices, matrices_raw, vectors, stack_bounds
+
+
+# The dense embeddings are diagonal embeddings of the stacked blocks, so
+# every entry is a block's value or an exact zero; built out of place, they
+# map under torch.func.vmap.
+
+
+def _scatter_block_diag(Hb):
+    """(H, w, w) blocks -> the (H w, H w) block-diagonal matrix."""
+    H, w = Hb.shape[0], Hb.shape[1]
+    D = torch.diag_embed(Hb.permute(1, 2, 0))  # (w, w, H, H): [i, j, k, k] = Hb[k, i, j]
+    return D.permute(2, 0, 3, 1).reshape(H * w, H * w)
+
+
+def _scatter_bidiagonal(J0, J1):
+    """Dynamics rows ((H-1) r, H w): block row k holds J0[k] at frame k and
+    J1[k] at frame k + 1."""
+    Hm1, r, w = J0.shape
+    D0 = torch.nn.functional.pad(torch.diag_embed(J0.permute(1, 2, 0)), (0, 1))
+    D1 = torch.diag_embed(J1.permute(1, 2, 0), offset=1)[:, :, :Hm1, :]
+    return (D0 + D1).permute(2, 0, 3, 1).reshape(Hm1 * r, (Hm1 + 1) * w)
+
+
+def _scatter_stage_rows(Jc):
+    """Stage-constraint rows (H r2, H w): block row k touches frame k only."""
+    H, r2, w = Jc.shape
+    D = torch.diag_embed(Jc.permute(1, 2, 0))  # (r2, w, H, H)
+    return D.permute(2, 0, 3, 1).reshape(H * r2, H * w)
 
 
 # ----------------------------------------------------------------------

@@ -21,6 +21,7 @@ import torch
 from optimal_control_problem_tpu.solvers import admm as jadmm
 from optimal_control_problem_tpu_torch.solvers import admm as tadmm
 from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
+from torch_threads import one_torch_thread  # noqa: F401
 
 JSET = jadmm.ADMMSettings(eps_abs=1e-4, eps_rel=1e-4)
 TSET = ADMMSettings(eps_abs=1e-4, eps_rel=1e-4)

@@ -29,6 +29,7 @@ from optimal_control_problem_tpu_torch.solvers.admm_banded import (
 from tests.test_admm_banded import random_stage_qp
 
 import dataclasses
+from torch_threads import one_torch_thread  # noqa: F401
 
 SET = JSettings(eps_abs=1e-4, eps_rel=1e-4, method="banded", scaling_iters=10)
 

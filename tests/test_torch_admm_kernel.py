@@ -29,6 +29,7 @@ from optimal_control_problem_tpu_torch.interop import dense_prep_from_numpy
 from optimal_control_problem_tpu_torch.ops import admm_kernel as ak
 from optimal_control_problem_tpu_torch.solvers import admm as tadmm
 from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
+from torch_threads import one_torch_thread  # noqa: F401
 
 SCAL = dict(sigma=1e-6, alpha=1.6)
 

@@ -34,6 +34,7 @@ from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
 from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
 from optimal_control_problem_tpu_torch.solvers.admm_banded import BandedQP
 from tests.test_admm_banded import random_stage_qp
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-3
 SET = JSettings(eps_abs=1e-4, eps_rel=1e-4, method="banded", scaling_iters=10,

@@ -37,6 +37,7 @@ from tests.test_torch_banded_kernel import (
     run_jax_chunk,
     stacked,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 # At the quadrotor's width (w=16, r=12) random stage QPs are worse
 # conditioned still: each f32 program (the port's plain chunk, one-way or

@@ -11,6 +11,7 @@ import torch
 
 from optimal_control_problem_tpu.ops import block_tridiag as jbt
 from optimal_control_problem_tpu_torch.ops import block_tridiag as tbt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def spd_blocks(rng, lead, w):

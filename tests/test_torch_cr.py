@@ -51,6 +51,7 @@ from tests.test_torch_banded_kernel import (
     stacked,
 )
 from tests.test_torch_banded_rolled import WIDE_ATOL, WIDE_RTOL, to_f64
+from torch_threads import one_torch_thread  # noqa: F401
 
 CR = SET.replace(banded_solver="cr")
 

@@ -496,13 +496,14 @@ def emulate(emu_lib, monkeypatch):
 
 
 def stage_chunk_case(N, w, r, r2, B, eps=0.0, max_iter=40, check_every=2, near_budget=False,
-                     seed=0, nan_scenario=None):
+                     seed=0, nan_scenario=None, stage_bounds=(-1.0, np.inf)):
     """Chunk inputs of a random batch-last stage QP batch (the shape of
     ``tests/test_admm_banded.random_stage_qp``) through the port's driver
     prepare; ``near_budget``: entry counts near ``max_iter`` and every
     fifth scenario frozen at entry; ``nan_scenario``: that scenario's
     linear term is NaN (a diverged scenario: its iterates, residuals and
-    clipped ``z`` are NaN in the plain version)."""
+    clipped ``z`` are NaN in the plain version); ``stage_bounds``: the
+    stage rows' ``(lower, upper)``."""
     from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
     from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
     from optimal_control_problem_tpu_torch.solvers.admm_banded import BandedQP
@@ -515,8 +516,10 @@ def stage_chunk_case(N, w, r, r2, B, eps=0.0, max_iter=40, check_every=2, near_b
     Jc = 0.5 * rng.normal(size=(B, N, r2, w))
     n = N * w
     q = rng.normal(size=(B, n))
-    lo = np.concatenate([np.full(n, -2.0), np.zeros((N - 1) * r), np.full(N * r2, -1.0)])
-    hi = np.concatenate([np.full(n, 2.0), np.zeros((N - 1) * r), np.full(N * r2, np.inf)])
+    lo = np.concatenate([np.full(n, -2.0), np.zeros((N - 1) * r),
+                         np.full(N * r2, stage_bounds[0])])
+    hi = np.concatenate([np.full(n, 2.0), np.zeros((N - 1) * r),
+                         np.full(N * r2, stage_bounds[1])])
     m = lo.shape[0]
 
     def last(a):
@@ -587,6 +590,18 @@ def test_banded_chunk_emulated_matches_plain(emulate):
     assert emulate.rcs == [0] and int(out[8].max()) > 0 and bool(out[4][..., 1].isnan().all())
 
 
+@pytest.mark.parametrize("stage_bounds", [(0.5, np.inf), (-np.inf, np.inf)],
+                         ids=["active-halfspace", "free-row"])
+def test_banded_chunk_emulated_at_unicycle_shapes(emulate, stage_bounds):
+    """The unicycle's stage shapes (w=5, r=3, r2=1) with a half-space stage
+    row lb <= a^T x, ub = +inf that binds (lb 0.5 above the random rows'
+    values near 0), and a row free on both sides (+-inf): the projection
+    and its NaN-keeping clip against the plain version, bitwise."""
+    out = run_banded(bk, {}, stage_chunk_case(8, 5, 3, 1, 4, eps=1e-4, max_iter=60,
+                                              stage_bounds=stage_bounds))
+    assert emulate.rcs == [0] and int(out[8].max()) > 0
+
+
 def test_rolled_chunk_emulated_matches_plain(emulate):
     out = run_banded(brk, {"cr1": True}, stage_chunk_case(8, 4, 3, 1, 2, max_iter=6,
                                                           nan_scenario=0))
@@ -639,11 +654,13 @@ def test_device_loop_emulated_matches_plain(emulate, diverging):
 
 # (B, n, m, max_iter, check_every, diverging, eps): n=7, m=13 pad every row
 # stride and vector (row_stride 12 and 20, float4 tails of 3 and 1 terms);
-# B=1; a forced budget (eps 0) that is no multiple of check_every; a
+# n=9, m=17 odd both, as the augmented cart-pole's n=101, m=197 (every
+# chain ends in a tail of one term); B=1; a forced budget (eps 0) that is no multiple of check_every; a
 # diverging (NaN) batch; the cart-pole h20 QP's n=100, m=196 at a short
 # budget; n=104 and m=300 (more rows than a block has threads).
 DEVICE_LOOP_CASES = [
     (4, 7, 13, 200, 5, False, 1e-4),
+    (3, 9, 17, 200, 5, False, 1e-4),
     (1, 9, 6, 23, 4, False, 0.0),
     (3, 6, 9, 100, 5, True, 1e-4),
     (1, 100, 196, 3, 2, False, 0.0),

@@ -29,6 +29,7 @@ from optimal_control_problem_tpu_torch.interop import shared_factor_from_numpy
 from optimal_control_problem_tpu_torch.ops import shared_kernel as sk
 from optimal_control_problem_tpu_torch.solvers import admm_batched as tab
 from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
+from torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(eps_abs=1e-4, eps_rel=1e-4, method="condensed")
 KW = dict(check_every=25, sigma=1e-6, alpha=1.6, eps_abs=1e-4, eps_rel=1e-4)

@@ -62,6 +62,7 @@ from optimal_control_problem_tpu_torch.parallel import BatchedSolver
 from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
 from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
 from optimal_control_problem_tpu_torch.solvers.sqp import SQPOptions
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ADMM = {
@@ -213,9 +214,18 @@ def test_quadrotor_cr_tick_matches_jax(monkeypatch):
 
 
 def test_quadrotor_without_stage_structure_raises():
-    cfg = tqr.make_config(horizon=4, step_num=1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tqr.build(cfg, stagewise=False, device="cpu")
+    """Without a stage structure the quadrotor no longer raises: it builds
+    on the augmented default (QP n = n_p + n_x = 12 + 64) and ticks on the
+    dense path, as JAX's does (trajectory within 5e-3)."""
+    cfg_of = lambda m: m.make_config(horizon=4, step_num=1)  # noqa: E731
+    ocp = tqr.build(cfg_of(tqr), stagewise=False, device="cpu")
+    assert ocp.solver._qp_n == 12 + 64 and ocp.solver.solve_batch_banded_fn is None
+    jo = jqr.build(cfg_of(jqr), stagewise=False)
+    frame, ref = tqr.initial_state(), tqr.reference_hover(4)
+    ocp.compute_optimal_trajectory(frame, ref)
+    jo.compute_optimal_trajectory(frame, ref)
+    np.testing.assert_allclose(ocp.get_optimal_trajectory().numpy(),
+                               np.asarray(jo.get_optimal_trajectory()), atol=5e-3)
 
 
 def test_per_scenario_tick_matches_batched():
@@ -261,29 +271,46 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
+    """Only the host backends (MIXED/IPOPT/SQP, ROADMAP A9) still raise.
+    The augmented default, the parity preset, a dense method on a stage
+    structure and the merit search build and tick (finite)."""
     # The banded method needs a stage structure (a ValueError, as in JAX).
     with pytest.raises(ValueError, match="stage structure"):
         tcp.build(config(tcp, H=4, step_num=1), stagewise=False, device="cpu")
     mixed = tcp.make_config(horizon=4, solve_method="MIXED", formulation="reduced")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="A9"):
         tcp.build(mixed, stagewise=True, device="cpu")
-    # The augmented formulation (the default without a stage structure) and
-    # the parity preset built on it.
-    with pytest.raises(NotImplementedError, match="A8d"):
-        tcp.build(tcp.make_config(horizon=4, step_num=1), stagewise=False, device="cpu")
-    parity = tcp.make_config(horizon=4, step_num=1)
-    parity["solver_settings"]["SQP_settings"]["parity"] = True
-    with pytest.raises(NotImplementedError, match="A8d"):
-        tcp.build(parity, stagewise=False, device="cpu")
+    frame, ref = tcp.initial_state(th=0.2), np.array([np.pi])
+
+    def ticks(ocp):
+        ocp.compute_optimal_trajectory(frame, ref)
+        assert np.isfinite(ocp.get_optimal_trajectory().numpy()).all()
+        return ocp
+
+    # The augmented formulation (the default without a stage structure).
+    aug = ticks(tcp.build(tcp.make_config(horizon=4, step_num=1), stagewise=False,
+                          device="cpu"))
+    assert aug.solver.options.formulation == "augmented" and aug.solver._qp_n == 1 + 20
+    # The parity preset: augmented, raw Hessian, cold QPs (on the stage
+    # structure's NLP functions too, with the dense path solving).
+    for stagewise in (False, True):
+        parity = tcp.make_config(horizon=4, step_num=1, alpha=0.1)
+        parity["solver_settings"]["SQP_settings"]["parity"] = True
+        ocp = tcp.build(parity, stagewise=stagewise, device="cpu")
+        opt = ocp.solver.options
+        assert (opt.formulation, opt.hessian_reg, opt.qp_warm_start) == ("augmented", 0.0, False)
+        assert ocp.solver.solve_batch_banded_fn is None
+        ocp.compute_optimal_trajectory(tcp.initial_state(th=3.0), ref)
     # A dense method on a stage-structured problem, and the merit search.
     dense = tcp.make_config(horizon=4, step_num=1, formulation="reduced",
                             ADMM_settings={"method": "condensed"})
-    with pytest.raises(NotImplementedError, match="A8b"):
-        tcp.build(dense, stagewise=True, device="cpu")
+    assert ticks(tcp.build(dense, stagewise=True, device="cpu")).solver._parts[0] is not None
     merit = tdi.make_config(horizon=4, step_num=1, formulation="reduced")
     merit["solver_settings"]["SQP_settings"]["line_search"] = "merit"
-    with pytest.raises(NotImplementedError, match="A6"):
-        tdi.build(merit, device="cpu")
+    ocp = tdi.build(merit, device="cpu")
+    assert ocp.solver.shared_system is False
+    ocp.compute_optimal_trajectory(tdi.initial_state(pos=(0.1, 0.2)), np.zeros(8))
+    assert np.isfinite(ocp.get_optimal_trajectory().numpy()).all()
 
 
 def test_shared_system_detection_and_batch_routing():
@@ -499,6 +526,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "optimal_control_problem_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    pkg = ROOT / "optimal_control_problem_tpu_torch"
+    for name in ("sym.py", "controller.py", "models/unicycle.py"):
+        assert pkg / name in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -13,6 +13,7 @@ from optimal_control_problem_tpu import stagewise as jsw
 from optimal_control_problem_tpu.models import cartpole as jcp
 from optimal_control_problem_tpu_torch import stagewise as tsw
 from optimal_control_problem_tpu_torch.models import cartpole as tcp
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, B = 6, 3
 
