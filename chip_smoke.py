@@ -44,7 +44,12 @@ Phases:
      half-space stage row and with one free on both sides, the device loop
      at the augmented cart-pole's odd n=101, m=197 (its own cold tick, each
      tier forced, then converging), the shared chunk at the augmented double
-     integrator's n=160, m=236 (its own cold tick, in JAX's groups);
+     integrator's n=160, m=236 (its own cold tick, in JAX's groups); and
+     the shared chunk's tensor-core form (``iter_precision`` "high" and
+     "mixed", bf16_3x on the tensor cores) against its plain version at a
+     stated tolerance, at B=4096 and B=64, n=120, m=196 and at n=160,
+     m=236: one forced iteration and a forced budget (converging chunks:
+     4i's);
   4. the short-horizon main path: the batched cart-pole h20 MPC tick at
      B=1024 through ``BatchedSolver`` (2 warm-up + 5 timed ticks), checking
      the launch counts, finite trajectories, and that each warm tick lowers
@@ -80,6 +85,10 @@ Phases:
      checks, then the same with the merit line search;
   4h. the augmented LTI path: the double integrator tick of 4c with the
      formulation at its default (n=160, m=236), B=4096, 3 ticks;
+  4i. the double integrator B=4096 tick of 4c with ``iter_precision``
+     "high" and "mixed" (the tensor-core form), each tick beside the
+     "highest" tick from the same state: ms/tick, QP iterations, the
+     trajectories' gap;
   5. the cart-pole tick at B=64 on the card and on the CPU (plain chunk)
      agree; 5b. the quadrotor h100 tick at B=8 likewise; 5c. the double
      integrator tick at B=64 likewise; 5d. the dense cart-pole tick at B=4
@@ -87,7 +96,12 @@ Phases:
      ticks likewise; 5f-5h. the ticks of 4f (also under the parity preset:
      NaN, flags and iteration counts equal), 4g (both step rules) and 4h at
      B=4 likewise; 5i. ``MPCController`` on the double integrator h10, 40
-     closed-loop steps on the card and on the CPU;
+     closed-loop steps on the card and on the CPU; 5j. a ``MIXED`` dense
+     cart-pole h20 tick loop (tick 1 on the host backend, ticks 2+ through
+     the device loop); 5k. the parity oracle (f64 derivatives, native C++
+     QPs) against the port's product loop on the card, double integrator
+     and cart-pole; 5l. ``TpuQP`` solves on the card; 5m. an
+     ``export_solver``/``import_solver`` round trip on the card;
   6. time each kernel at its main path's own inputs beside its plain
      version and its bound, the banded ones with their prologue and the
      mean and largest iteration count per launch (the rolled one also
@@ -102,7 +116,9 @@ Phases:
      very same inputs; and at the new shapes: the one-way chunk on the
      unicycle tick's launches, the device loop on the augmented cart-pole's
      cold and steady ticks, the shared chunk on the augmented double
-     integrator's steady tick).
+     integrator's steady tick; the tensor-core form on 4i's steady ticks,
+     beside its plain version and a loop of torch.matmul bf16_3x
+     products).
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -117,7 +133,12 @@ import subprocess
 import sys
 import time
 
-import numpy as np
+# Phase 5j's host backend runs scipy on small matrices, where OpenBLAS's
+# threads spin (one trust-constr tick of the double integrator h8: 19.9 s
+# with eight threads, 3.0 s with one, on the CPU).  Set before numpy loads.
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import numpy as np  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
@@ -125,6 +146,7 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # NVIDIA H100 SXM data-sheet peaks (dense, no sparsity), used for bounds.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 
 CHUNK_REPLACES = "optimal_control_problem_tpu/ops/banded_kernel.py:403"
 CHUNK_SOURCE = "optimal_control_problem_tpu_torch/csrc/banded_chunk.cu"
@@ -324,6 +346,16 @@ def shared_chunk_flops(n, m, iters, checks):
     per_iter = 2 * (m * n + n * n + n * m) + 6 * n + 12 * m
     per_check = 2 * (n * m + n * n + m * n) + 4 * m + 6 * n
     return iters * per_iter + checks * per_check
+
+
+def shared_tc_flops(n, m, iters, checks, mode):
+    """(float32 operations, bf16 tensor-core operations) of one scenario's
+    chunk in the tensor-core form: each product at HIGH is three bf16
+    passes of 2 K J (hi hi, hi lo, lo hi; padding not counted), the rest
+    as :func:`shared_chunk_flops` (at "mixed" zt stays an f32 product)."""
+    tc_products = (m * n + n * n + n * m) if mode == "high" else (m * n + n * n)
+    f32 = shared_chunk_flops(n, m, iters, checks) - iters * 2 * tc_products
+    return f32, iters * 3 * 2 * tc_products
 
 
 def device_loop_flops(n, m, iters, checks):
@@ -642,6 +674,7 @@ def main(argv) -> int:
         bk.banded_admm_chunk.launches = 0
         brk.banded_admm_chunk_rolled.launches = 0
         sk.shared_admm_chunk.launches = 0
+        sk.shared_admm_chunk.tc_launches = 0
         tab._admm_iterate_fused.chunks = 0
         ak.admm_device_loop.launches = 0
         tadmm._iterate_dense.entries = 0
@@ -837,6 +870,120 @@ def main(argv) -> int:
         f"{a_args[12].shape[0] // tile_a} group(s) of {tile_a} (JAX's pick_shared_tile)")
     shared_cases(a_args, a_kw, "shared chunk, augmented double integrator cold tick")
     log(f"phase 3: largest gap kernel vs plain, shared chunk: {shared_err:.3g}")
+
+    # -- 3 (continued). the shared chunk's tensor-core form --------------
+    # iter_precision "high" / "mixed": bf16_3x products on the tensor
+    # cores.  Both versions split every operand into the same bf16 bits
+    # and sum exact products, the kernel in the tensor cores' order, the
+    # plain version in float32 through torch.matmul, so they are held at a
+    # tolerance, relative to each output's largest finite magnitude.  The
+    # scale of that gap is the data's: where dual updates multiply a
+    # cancelling difference by rho (1e3 x rho on the equality rows), the
+    # float32 sums alone move y by ~6e-4 of its largest value after one
+    # iteration.  So after one forced iteration and after a forced budget
+    # of 60 (75 iterations) each output is held to three times the plain
+    # version's own distance from the same computation with its products
+    # summed in float64 (at least 1e-5); a converging chunk (the first two
+    # of phase 4i's steady ticks: a cold tick's first chunk at its fixed
+    # rho does not converge in 1000 iterations) to iteration counts within
+    # one check block, conv equal except at the knife edge of eps (counted
+    # and reported: at most 1% of the batch, each with its residual within
+    # a factor 2 of its threshold: the two runs' residuals are differences
+    # of near-equal terms), and where the counts agree its iterates to the
+    # same rule as a forced budget (a converged step is small, so a fixed
+    # bound relative to it is not a scale).
+    tc_err = {"high": 0.0, "mixed": 0.0}
+
+    def rel_gap(a, b):
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            return float("inf")
+        if not bool(fin.any()):
+            return 0.0
+        return float((a[fin] - b[fin]).abs().max() / b[fin].abs().max().clamp(min=1e-30))
+
+    def at_knife_edge(out, kw):
+        """Scenarios whose larger residual-to-threshold ratio is in [0.5, 2]."""
+        rp, rd, rpr, rdr = out[5], out[6], out[7], out[8]
+        ep = kw["eps_abs"] + kw["eps_rel"] * rp / rpr
+        ed = kw["eps_abs"] + kw["eps_rel"] * rd / rdr
+        ratio = torch.maximum(rp / ep, rd / ed)
+        return (ratio >= 0.5) & (ratio <= 2.0)
+
+    def split_f64(a, w_split):
+        a_hi, a_lo = sk.split_bf16(a)
+        d = [t_.double() for t_ in (a_hi, a_lo, *w_split)]
+        return (d[0] @ d[2] + d[0] @ d[3] + d[1] @ d[2]).float()
+
+    def plain_f64_sums(args, kw):
+        """The plain version with its bf16_3x products summed in float64."""
+        real_split = sk.matmul_split
+        sk.matmul_split = split_f64
+        try:
+            return sk.shared_admm_chunk_plain(*args, **kw)
+        finally:
+            sk.matmul_split = real_split
+
+    def compare_tc(args, kw, mode, what, where, rows=None):
+        label = f"phase 3 [shared chunk tensor-core form, {mode}, {where}, {what}]"
+        kw = {**kw, "iter_precision": mode}
+        before = sk.shared_admm_chunk.tc_launches
+        out_k = sk.shared_admm_chunk(*args, **kw, rows_per_block=rows)
+        sync()
+        if sk.shared_admm_chunk.tc_launches != before + 1:
+            raise SystemExit(f"{label}: the tensor-core form was not launched")
+        out_p = sk.shared_admm_chunk_plain(*args, **kw)
+        sync()
+        gaps = {nm: rel_gap(a, b) for nm, a, b in zip(("x", "z", "y"), out_k[:3], out_p[:3])}
+        diff = out_k[3] != out_p[3]
+        edge = int(diff.sum())
+        it_gap = int((out_k[4] - out_p[4]).abs().max())
+        if it_gap == 0:
+            out_d = plain_f64_sums(args, kw)
+            limits = {nm: max(3 * rel_gap(b, d), 1e-5)
+                      for nm, b, d in zip(("x", "z", "y"), out_p[:3], out_d[:3])}
+        else:  # stopped a check block apart: the iterates are not comparable
+            limits = {nm: float("inf") for nm in gaps}
+        B_ = out_k[0].shape[0]
+        rows_k = rows or sk.shared_block_rows(B_, kw["batch_tile"], out_k[0].shape[1],
+                                               out_k[1].shape[1], sms, tensor_cores=True)
+        log(f"{label}: B={B_} n={out_k[0].shape[1]} m={out_k[1].shape[1]}, {rows_k} scenarios "
+            f"a block: max |kernel - plain| / max |plain| "
+            + ", ".join(f"{k}={v:.3g} (limit {limits[k]:.3g})" for k, v in gaps.items())
+            + f"; it_inc {sorted(set(out_k[4].tolist()))[:4]} vs "
+            f"{sorted(set(out_p[4].tolist()))[:4]}; converged {float(out_k[3].float().mean()):.4f}"
+            f"; scenarios whose conv differs (knife edge): {edge}")
+        ok = all(gaps[k] <= limits[k] for k in gaps)
+        if what == "converging":
+            ok &= (it_gap <= kw["check_every"] and edge <= max(1, B_ // 100)
+                   and bool(at_knife_edge(out_p, kw)[diff].all()))
+        else:
+            ok &= it_gap == 0 and edge == 0
+        if not ok:
+            raise SystemExit(f"{label}: the tensor-core form and its plain version disagree")
+        if it_gap == 0:
+            tc_err[mode] = max(tc_err[mode], max(gaps.values()))
+
+    def b64_slice(args, kw):
+        per = (0, 6, 7, 8, 12, 13, 14)  # done0, lb, ub, qb, x, z, y
+        cut = tuple(a[:64].contiguous() if i in per else a for i, a in enumerate(args))
+        return cut, {**kw, "batch_tile": 64}
+
+    for where, (t_args, t_kw) in (
+            ("double integrator cold tick", (di_args, di_kw)),
+            ("double integrator cold tick B=64", b64_slice(di_args, di_kw)),
+            ("augmented double integrator cold tick", (a_args, a_kw))):
+        for mode in ("high", "mixed"):
+            forced = {**t_kw, "eps_abs": 0.0, "eps_rel": 0.0}
+            compare_tc((t_args[0], 1) + t_args[2:], {**forced, "check_every": 1}, mode,
+                       "one iteration", where)
+            compare_tc((t_args[0], 60) + t_args[2:], forced, mode, "forced budget 60", where)
+    for rows in sk.ROWS_PER_BLOCK_TC:
+        compare_tc((di_args[0], 1) + di_args[2:], {**di_kw, "eps_abs": 0.0, "eps_rel": 0.0,
+                                                   "check_every": 1}, "high", "one iteration",
+                   "double integrator cold tick", rows=rows)
+    log(f"phase 3: largest relative gap kernel vs plain, shared chunk tensor-core form: "
+        f"high {tc_err['high']:.3g}, mixed {tc_err['mixed']:.3g}")
 
     # -- 3 (continued). the dense device loop vs its plain version --------
     B_cd, steps_cd = 256, 10
@@ -1498,6 +1645,75 @@ def main(argv) -> int:
         raise SystemExit(f"{label}: the recorded tick did not go through the shared chunk "
                          "in JAX's groups")
 
+    # -- 4i. the LTI main path with iter_precision "high" / "mixed" ---------
+    # The double integrator B=4096 of 4c through the shared chunk's
+    # tensor-core form, each tick beside the "highest" tick from the same
+    # state (so a difference stays within one tick).  Held like the JAX
+    # test of these variants (tests/test_shared_fused.py: rtol 1e-3, atol
+    # 2e-3) on positions and velocities; the accelerations (weighted 1e-3)
+    # to phase 4c's 0.1, the gap JAX's own two backends show at eps 1e-3.
+    def di_tc_solver(mode):
+        cfg_ = double_integrator.make_config(
+            horizon=H_di, dt=dt_di, solve_method="TPU_SQP", alpha=0.1, step_num=10,
+            ADMM_settings={**DI_ADMM, "backend": "pallas"}, formulation="reduced")
+        ocp_ = double_integrator.DoubleIntegratorOCP(cfg_, device="cuda")
+        st_ = ocp_.solver_settings
+        st_.admm = st_.admm.replace(iter_precision=mode)
+        ocp_.gen_solver()
+        return BatchedSolver(ocp_, device="cuda")
+
+    tc_rows_data = {}
+    for mode in ("high", "mixed"):
+        label = f"phase 4i double integrator h20 B={B_di} backend=pallas iter_precision={mode}"
+        tc_solver = di_tc_solver(mode)
+        _, _ = drive(tc_solver, di_frames, di_refs, ticks, label, lambda n: n == (
+            0, 0, 0, 0, 0) and sk.shared_admm_chunk.tc_launches == tab._admm_iterate_fused.chunks
+            >= di_steps * ticks, pinned=True)
+        tc_launches = sk.shared_admm_chunk.tc_launches
+        st_t = tc_solver.init_state(B_di)
+        tc_ms, hi_ms, it_t, it_h, gap_pv, gap_acc = [], [], [], [], 0.0, 0.0
+        for _ in range(ticks):
+            st_in = BatchState(*(a.clone() for a in st_t))
+            sync()
+            t0 = time.perf_counter()
+            tt, _, st_t = tc_solver.solve(di_frames, di_refs, st_t)
+            sync()
+            tc_ms.append((time.perf_counter() - t0) * 1e3)
+            it_t.append(float(tc_solver.last_result.qp_iters.float().mean()))
+            t0 = time.perf_counter()
+            th, _, _ = di_pallas.solve(di_frames, di_refs, st_in)
+            sync()
+            hi_ms.append((time.perf_counter() - t0) * 1e3)
+            it_h.append(float(di_pallas.last_result.qp_iters.float().mean()))
+            d = (tt - th).abs().reshape(B_di, H_di, double_integrator.FRAME)
+            ref_pv = th.abs().reshape(B_di, H_di, double_integrator.FRAME)[..., 0:4]
+            gap_pv = max(gap_pv, float((d[..., 0:4] - 1e-3 * ref_pv).max()))
+            gap_acc = max(gap_acc, float(d[..., 4:6].max()))
+        n_tc = len(captured["shared_admm_chunk"])
+        record(lambda: tc_solver.solve(di_frames, di_refs, st_t))
+        sync()
+        tc_calls = captured["shared_admm_chunk"][n_tc:]
+        del captured["shared_admm_chunk"][n_tc:]
+        log(f"{label}: ms/tick {', '.join(f'{t:.2f}' for t in tc_ms)} (median of timed "
+            f"{statistics.median(tc_ms[warm:]):.3f}) beside iter_precision=highest "
+            f"{', '.join(f'{t:.2f}' for t in hi_ms)} (median of timed "
+            f"{statistics.median(hi_ms[warm:]):.3f}); mean QP iterations per step by tick "
+            f"{', '.join(f'{v:.1f}' for v in it_t)} beside {', '.join(f'{v:.1f}' for v in it_h)}"
+            f"; max |{mode} - highest| - 1e-3 |highest| on positions and velocities "
+            f"{gap_pv:.3g} (limit 2e-3), accelerations {gap_acc:.3g} (limit 0.1)")
+        if not (gap_pv <= 2e-3 and gap_acc <= 0.1):
+            raise SystemExit(f"{label}: the variant's ticks disagree with iter_precision=highest")
+        if not tc_calls or any(k["iter_precision"] != mode for _, k in tc_calls):
+            raise SystemExit(f"{label}: the recorded tick did not go through the tensor-core form")
+        # Phase 3's converging check on chunks that do converge: the first
+        # two of this steady tick, kernel against plain.
+        for c_args, c_kw in tc_calls[:2]:
+            compare_tc(c_args, c_kw, mode, "converging", "4i steady tick")
+        tc_rows_data[mode] = {"launches": tc_launches, "calls": tc_calls,
+                              "ms_per_tick": statistics.median(tc_ms[warm:]),
+                              "highest_ms_per_tick": statistics.median(hi_ms[warm:]),
+                              "qp_iters": it_t[-1], "highest_qp_iters": it_h[-1]}
+
     # -- 5. card vs CPU ---------------------------------------------------
     def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None, n_ticks=2, nan_ok=False):
         """``n_ticks`` ticks on the card and on the CPU (plain kernels):
@@ -1615,6 +1831,127 @@ def main(argv) -> int:
                          "0.4x its start")
     if not (u_gap <= 0.5 and s_gap <= 2e-2 and end_gap <= 1e-3):
         raise SystemExit("phase 5i: the card's and the CPU's closed loops disagree")
+
+    # -- 5j. the host side: MIXED, the parity oracle, TpuQP, export ----------
+    from optimal_control_problem_tpu_torch.solvers import oracle
+    from optimal_control_problem_tpu_torch.solvers.qp_interface import TpuQP
+    from optimal_control_problem_tpu_torch.utils.serialization import export_solver, import_solver
+
+    # MIXED on the dense cart-pole h20 (the JAX bench's cartpole_h20_pallas
+    # settings, one scenario): tick 1 on the host backend (scipy over
+    # float64 CPU evaluations), ticks 2+ on the card's SQP engine, whose
+    # QPs go through the device loop.
+    mcfg = cartpole.make_config(horizon=20, dt=0.02, alpha=0.3, step_num=steps_cd,
+                                solve_method="MIXED", formulation="reduced",
+                                ADMM_settings={**DENSE_ADMM, "backend": "pallas"})
+    mocp = cartpole.build(mcfg, stagewise=False, device="cuda")
+    m_frame, m_ref = cartpole.initial_state(th=0.3), np.array([np.pi])
+    m_launches, m_ms = [], []
+    for t_ in range(4):
+        ak.admm_device_loop.launches = 0
+        t0 = time.perf_counter()
+        mocp.compute_optimal_trajectory(m_frame, m_ref)
+        sync()
+        m_ms.append((time.perf_counter() - t0) * 1e3)
+        m_launches.append(ak.admm_device_loop.launches)
+        if not bool(torch.isfinite(mocp.get_optimal_trajectory()).all()):
+            raise SystemExit(f"phase 5j: MIXED tick {t_ + 1} is not finite")
+    log(f"phase 5j MIXED dense cart-pole h20: ms/tick {', '.join(f'{v:.1f}' for v in m_ms)}, "
+        f"device-loop launches by tick {m_launches}, objective {mocp._last_f:.4f}")
+    if not (m_launches[0] == 0 and all(n_ >= steps_cd for n_ in m_launches[1:])):
+        raise SystemExit("phase 5j: MIXED did not take the host on tick 1 and the device loop "
+                         "after it")
+
+    # The parity oracle (the reference's loop: float64 derivatives on the
+    # host, cold native C++ QPs) against the port's product loop on the
+    # card, at JAX's bounds: controls within 1e-4 float64 against float64,
+    # within the f32 floor of 5e-3 float32 against float32.  Cart-pole's
+    # parity preset diverges to NaN in both (raw nonconvex Hessian; 1 tick,
+    # its QPs run the whole budget): NaN places must agree.
+    for model, cs, o_ticks in (("double_integrator", slice(4, 6), 3),
+                               ("cartpole", slice(4, 5), 1)):
+        t0 = time.perf_counter()
+        o32 = oracle.oracle_closed_loop(model, o_ticks)["trajectories"]
+        o64 = oracle.oracle_closed_loop(model, o_ticks, qp_internal_f64=True)["trajectories"]
+        p64 = oracle.product_closed_loop(model, o_ticks, precision="f64", device="cuda")
+        p32 = oracle.product_closed_loop(model, o_ticks, precision="f32", device="cuda")
+        o_cfg = oracle.build_parity_ocp(model, gen=False).ocp_config
+        ctrl = lambda tr: tr.reshape(o_ticks, o_cfg.get_horizon(),  # noqa: E731
+                                     o_cfg.get_frame_size())[..., cs]
+        nan_same = all(np.array_equal(np.isnan(a), np.isnan(b)) for a, b in ((p64, o64), (p32, o32)))
+        sem = np.abs(ctrl(p64) - ctrl(o64))
+        f32 = np.abs(ctrl(p32) - ctrl(o32))
+        nan_share = float(np.isnan(p32).mean())
+        sem_max = float(np.nanmax(sem)) if np.isfinite(sem).any() else 0.0
+        f32_max = float(np.nanmax(f32)) if np.isfinite(f32).any() else 0.0
+        log(f"phase 5k parity oracle {model} ({o_ticks} tick(s), {time.perf_counter() - t0:.1f} s):"
+            f" max control gap float64 product (card) vs float64 oracle {sem_max:.3g} (limit "
+            f"1e-4), float32 vs float32 {f32_max:.3g} (limit 5e-3); NaN share {nan_share:.4f}, "
+            f"NaN places equal: {nan_same}")
+        if not (nan_same and sem_max <= 1e-4 and f32_max <= 5e-3):
+            raise SystemExit(f"phase 5k: the product loop on the card and the oracle disagree "
+                             f"({model})")
+
+    # TpuQP on the card, through the "xla" loop and through the device loop.
+    tqp_x = {}
+    for backend in ("xla", "pallas"):
+        tqp = TpuQP(device="cuda")
+        tqp.set_dimension(3, 2)
+        tqp.set_system((np.diag([2.0, 2.0, 2.0]), np.array([-1.0, -2.0, 0.0]),
+                        np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 1.0]]), np.zeros(2),
+                        np.full(2, 10.0)))
+        tqp.set_settings(ADMMSettings(eps_abs=1e-4, eps_rel=1e-4, method="condensed",
+                                      backend=backend))
+        ak.admm_device_loop.launches = 0
+        if not tqp.solve():
+            raise SystemExit(f"phase 5l: TpuQP ({backend}) did not converge on the card")
+        tqp_x[backend] = tqp.get_solution()
+        if (backend == "pallas") != (ak.admm_device_loop.launches > 0):
+            raise SystemExit(f"phase 5l: TpuQP ({backend}) took the wrong path")
+    tqp_gap = max(float(np.abs(v - np.array([0.5, 1.0, 0.0])).max()) for v in tqp_x.values())
+    log(f"phase 5l TpuQP on the card: solution {tqp_x['pallas'].tolist()} (device loop), "
+        f"{tqp_x['xla'].tolist()} (xla); max gap to (0.5, 1, 0) {tqp_gap:.3g} (limit 2e-3)")
+    if not tqp_gap <= 2e-3:
+        raise SystemExit("phase 5l: TpuQP's solution is wrong")
+
+    # export_solver / import_solver on the card: the dense SQP solve of
+    # tests/test_serialization.py (2 SQP steps here, 5 there: the trace
+    # runs on the host, ~15 s a step on that machine), traced on CUDA
+    # tensors; the reloaded program equals the direct call to 1e-6.
+    from optimal_control_problem_tpu_torch import SQPOptimizationSolver, SQPOptions
+    from optimal_control_problem_tpu_torch import sym as S
+
+    xs_ = S.sym("x", 2)
+    e_solver = SQPOptimizationSolver(
+        {"x": xs_, "f": xs_[0] ** 2 + xs_[1] ** 2, "g": xs_[0] + xs_[1] - 1.0},
+        SQPOptions(max_iter=2, alpha=0.5, admm=ADMMSettings(eps_abs=1e-4, eps_rel=1e-4)),
+        device="cuda")
+    c32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    e_args = (c32([0.3, -0.2]), c32(np.zeros(0)), c32([-50.0, -100.0]), c32([50.0, 100.0]),
+              c32([0.0]), c32([0.0]), c32(np.zeros(2)), c32(np.zeros(3)))
+    e_dir = os.path.join(HERE, "build")  # git-ignored, inside the checkout
+    os.makedirs(e_dir, exist_ok=True)
+    e_path = os.path.join(e_dir, "chip_smoke_solver.pt2")
+    t0 = time.perf_counter()
+    export_solver(e_solver.solve_fn, e_args, e_path)
+    t_export = time.perf_counter() - t0
+    loaded = import_solver(e_path)
+    e_direct = e_solver.solve_fn(*e_args)
+    e_loaded = loaded(*e_args)
+    sync()
+    e_gap = float((e_direct.x - e_loaded[0]).abs().max())
+    log(f"phase 5m export_solver/import_solver on the card: traced in {t_export:.1f} s, "
+        f"{os.path.getsize(e_path)} bytes, loaded program on {e_loaded[0].device}; max |direct "
+        f"- loaded| {e_gap:.3g} (limit 1e-6), qp_iters equal: "
+        f"{torch.equal(e_direct.qp_iters, e_loaded[5])}")
+    if not (e_gap <= 1e-6 and e_loaded[0].device.type == "cuda"):
+        raise SystemExit("phase 5m: the exported solve differs from the direct call")
+    try:
+        export_solver(cd_pallas.solver.solve_fn, e_args, e_path + ".refused")
+    except ValueError as err:
+        log(f"phase 5m: export of a kernel path refused: {err}")
+    else:
+        raise SystemExit("phase 5m: export_solver traced a path that reaches a hand kernel")
 
     # -- 6. kernel timing at the main paths' inputs ------------------------
     def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces, calls=None):
@@ -1813,6 +2150,85 @@ def main(argv) -> int:
         "augmented_n160_m236": {**s160, "launches": dia_launches},
     }
 
+    # The tensor-core form on 4i's steady B=4096 tick of each mode, beside
+    # its plain version and a loop of torch.matmul bf16_3x products (the
+    # same split products, the residuals as f32 products).  Bound: the
+    # larger of bytes (each input, fragments included, read once and each
+    # output written once) and f32 operations at the f32 peak plus the
+    # tensor-core operations at the dense bf16 peak.
+    def tc_matmul_loop(args, kw, iters, checks, mode):
+        _, _, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y = args
+        sg, al = kw["sigma"], kw["alpha"]
+        AbT = Ab.T
+        ws = [sk.split_bf16(w) for w in (Ab, OP, AbT)]
+        zt_of = (lambda v: sk.matmul_split(v, ws[2])) if mode == "high" else (lambda v: v @ AbT)
+        per_block = iters // checks if checks else 0
+        for _ in range(checks):
+            for _ in range(per_block):
+                xt = sk.matmul_split(sg * x - qb + sk.matmul_split(rho * z - y, ws[0]), ws[1])
+                zt = zt_of(xt)
+                x = al * xt + (1 - al) * x
+                z_rel = al * zt + (1 - al) * z
+                z_new = torch.minimum(torch.maximum(z_rel + y / rho, lb), ub)
+                y = y + rho * (z_rel - z_new)
+                z = z_new
+            _ = (x @ AbT, x @ Pb, y @ Ab)
+        return x, z, y
+
+    tc_rows = []
+    for mode, data in tc_rows_data.items():
+        calls = data["calls"]
+        nc = len(calls)
+        its, nbytes, f32_ops, tc_ops = [], 0, 0, 0
+        for args, kw in calls:
+            outs = sk.shared_admm_chunk(*args, **kw)
+            its.append(int(outs[4].max()))
+            n_c, m_c = args[12].shape[1], args[13].shape[1]
+            # mma_fragments: 512 bytes per 16 x 8 tile of Ab, OP (and Ab^T).
+            tiles = lambda K, J: -(-K // 16) * -(-J // 8)  # noqa: E731
+            frag_bytes = 512 * (tiles(m_c, n_c) + tiles(n_c, n_c)
+                                + (tiles(n_c, m_c) if mode == "high" else 0))
+            tensors = [a for a in args if torch.is_tensor(a)]
+            nbytes += sum(t_.numel() * t_.element_size() for t_ in tensors + list(outs))
+            nbytes += frag_bytes
+            for it in outs[4].tolist():
+                f, t_ = shared_tc_flops(n_c, m_c, it, it // kw["check_every"], mode)
+                f32_ops += f
+                tc_ops += t_
+        bytes_ms = nbytes / nc / PEAK_BYTES_PER_S * 1e3
+        ops_ms = (f32_ops / PEAK_F32_FLOPS + tc_ops / PEAK_BF16_TC_FLOPS) / nc * 1e3
+        k_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in calls], 7, sync) / nc
+        hi_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **{**k, "iter_precision": "highest"})
+                                 for a, k in calls], 7, sync) / nc
+        p_ms = time_ms(lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in calls], 3,
+                       sync) / nc
+        mm_ms = time_ms(lambda: [tc_matmul_loop(a, k, it, it // k["check_every"], mode)
+                                 for (a, k), it in zip(calls, its)], 7, sync) / nc
+        by_rows = {str(r_): time_ms(lambda: [sk.shared_admm_chunk(*a, **k, rows_per_block=r_)
+                                             for a, k in calls], 5, sync) / nc
+                   for r_ in sk.ROWS_PER_BLOCK_TC}
+        log(f"phase 6: shared_admm_chunk tensor-core form ({mode}), steady double integrator "
+            f"tick ({nc} launches, B={calls[0][0][12].shape[0]}, iterations per launch: largest "
+            f"by launch {its}): {k_ms:.4f} ms/launch (16 / 32 scenarios a block: "
+            + " / ".join(f"{v:.4f}" for v in by_rows.values())
+            + f"), the FP32 form on the same inputs {hi_ms:.4f}, plain {p_ms:.3f}, torch.matmul "
+            f"bf16_3x loop {mm_ms:.4f}; bound {max(bytes_ms, ops_ms) * 1e3:.3f} us (bytes "
+            f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us)")
+        tc_rows.append({
+            "name": f"shared_admm_chunk[iter_precision={mode}]", "route": "cuda",
+            "source": SHARED_SOURCE, "replaces": SHARED_REPLACES,
+            "launches": data["launches"], "max_abs_err": tc_err[mode],
+            "max_abs_err_is": "relative to the output's largest magnitude",
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # No single PyTorch call computes an ADMM chunk; the loop of
+            # torch.matmul bf16_3x products is reported beside it.
+            "library_ms": None, "matmul_loop_ms": mm_ms, "highest_same_inputs_ms": hi_ms,
+            "by_rows_ms": by_rows, "max_it_inc": max(its),
+            "ms_per_tick": data["ms_per_tick"], "highest_ms_per_tick": data["highest_ms_per_tick"],
+            "qp_iters": data["qp_iters"], "highest_qp_iters": data["highest_qp_iters"],
+        })
+
     # The dense device loop on the recorded launches of one cold and one
     # steady-state B=256 tick of the cart-pole dense path.
     def loop_matmul(args, kw, iters):
@@ -1994,7 +2410,7 @@ def main(argv) -> int:
         "mean_it_inc", "max_it_inc")})
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [row1, row2, row3, row4, row5]}), flush=True)
+    print(json.dumps({"kernels": [row1, row2, row3, *tc_rows, row4, row5]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

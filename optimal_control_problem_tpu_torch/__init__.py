@@ -28,6 +28,7 @@ from .device import resolve_device  # noqa: E402
 from .config import Frame, OCPConfig, load_config  # noqa: E402
 from .problem import OptimalControlProblem, SolverSettings, SolverType  # noqa: E402
 from .solvers.admm import ADMMSettings, QPSolution  # noqa: E402
+from .solvers.qp_interface import CuCaQP, TpuQP  # noqa: E402
 from .solvers.sqp import SQPOptimizationSolver, SQPOptions, SQPResult  # noqa: E402
 from .stagewise import StageStructure  # noqa: E402
 
@@ -43,6 +44,8 @@ __all__ = [
     "SolverType",
     "ADMMSettings",
     "QPSolution",
+    "CuCaQP",
+    "TpuQP",
     "SQPOptimizationSolver",
     "SQPOptions",
     "SQPResult",

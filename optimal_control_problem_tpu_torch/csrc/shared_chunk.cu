@@ -61,10 +61,32 @@
 // With -fmad=false every term is a multiply and an add, two instructions,
 // so under the bitwise contract the kernel can reach at most half the
 // card's float32 peak (which counts a fused multiply-add as two).
+//
+// Tensor-core form (iter_precision "high" / "mixed", template kPrec 1 / 2).
+// The JAX kernel runs those iteration products at Precision.HIGH, the
+// TPU's bf16_3x: each f32 operand split into hi = bf16(a) and lo =
+// bf16(a - hi), the product hi hi + hi lo + lo hi with f32 accumulation.
+// Here they run on the tensor cores, mma.sync m16n8k16 bf16 -> f32 (one
+// device function, mma_bf16_16816).  The operators come split and in
+// B-fragment order from the wrapper (ops/shared_kernel.py::mma_fragments,
+// once per call: Ab for the rhs product, OP for the x product, Ab^T for zt
+// at "high"; one 16-byte load gives a lane its hi and lo registers).  The
+// panel operand of each such product is split per iteration into bf16 hi
+// and lo copies in shared memory, its width zero-padded to a multiple of
+// 16 (n=120 -> 128, m=196 -> 208) and the row stride 8 more, so the eight
+// row groups of a fragment load fall on distinct banks.  A block holds 16
+// or 32 scenarios (one or two m16 tiles); warp w takes the n8 column tiles
+// w, w + 8, ... for every m tile and keeps two accumulators per tile, hi hi
+// and hi lo + lo hi, added in the epilogue (the plain version's two sums).
+// "mixed" runs zt, and both forms run every residual product, as the FP32
+// chains above: a scenario that stops is certified in true f32.  Tensor
+// cores sum in their own order, so this form agrees with its plain version
+// to f32 roundoff of the products, not bitwise; kPrec 0 is untouched.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 #include <string.h>
 
 namespace {
@@ -77,7 +99,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxCols = 7;  // columns per lane and pass: 224 columns per pass
 constexpr int kStages = 3;   // operator slices in flight
 constexpr long long kSmemLimit = 232448;  // dynamic shared memory a block may opt into
-constexpr int kNumPtrs = 25;
+constexpr int kNumPtrs = 25;    // the FP32 form's pointers
+constexpr int kNumPtrsTc = 28;  // and the tensor-core form's three fragment arrays
 
 struct Args {
   const int* done0;   // (B,) 1 = enters converged or certified
@@ -105,13 +128,103 @@ struct Args {
   float* rpr;
   float* rdr;
   int* votes;  // (groups, n_checks): the group's blocks that held an unconverged scenario
+  // Tensor-core form only: bf16 hi/lo B fragments (mma_fragments), each
+  // (J / 8, K / 16, 32, 4) words.
+  const uint4* f_ab;   // Ab  (K = m, J = n): the rhs product
+  const uint4* f_op;   // OP  (K = n, J = n): the x product
+  const uint4* f_abt;  // Ab^T (K = n, J = m): zt at "high"
 };
 
 struct Dims {
   int B, n, m, tile, bpg, bound, check_every, n_checks, groups;
   int ks;  // operator slice rows (0: the operators are read through L1)
+  int kpn, kpm, sstride;  // tensor-core form: n and m padded to 16, split row stride
   float sigma, alpha, one_m_alpha, eps_abs, eps_rel;
 };
+
+// Round to nearest even bf16 bits, NaN as 0x7fc0: torch's float -> bfloat16.
+__device__ __forceinline__ unsigned bf16_rn(float f) {
+  const unsigned u = static_cast<unsigned>(__float_as_int(f));
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+
+// d += a b for one warp: A 16x16 bf16 (row), B 16x8 bf16 (col), f32 D.
+// Lane l (g = l / 4, t = l % 4) holds A rows g, g + 8 at columns 2t, 2t + 1
+// (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); B column g at rows 2t,
+// 2t + 1 (b[0]) and 2t + 8, 2t + 9 (b[1]); D rows g (d[0], d[1]) and g + 8
+// (d[2], d[3]) at columns 2t, 2t + 1; the lower index in the low half.
+#ifndef OCP_MMA_EMULATED
+__device__ __forceinline__ void mma_bf16_16816(float d[4], const unsigned a[4],
+                                               const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
+// The block's R rows of `a` (shared memory, row stride K) as bf16 hi and
+// lo (row stride S halves), columns K .. Kp - 1 zero.
+template <int R>
+__device__ __forceinline__ void split_panel(const float* a, int K, int Kp, int S,
+                                            unsigned short* hi, unsigned short* lo) {
+  for (int idx = threadIdx.x; idx < R * Kp; idx += kThreads) {
+    const int r = idx / Kp, k = idx - r * Kp;
+    const float v = k < K ? a[r * K + k] : 0.0f;
+    const unsigned h = bf16_rn(v);
+    hi[r * S + k] = static_cast<unsigned short>(h);
+    lo[r * S + k] = static_cast<unsigned short>(bf16_rn(v - __int_as_float(static_cast<int>(h << 16))));
+  }
+}
+
+// out[r, j] = (a W)[r, j] at bf16_3x for the block's rows: `hi`/`lo` the
+// split panel (row stride S, Kp columns), `frag` W's fragments; calls
+// epi(0, r, j, value) once per element with j < J.
+template <int TR, class Epi>
+__device__ __forceinline__ void tc_product(const unsigned short* hi, const unsigned short* lo,
+                                           int S, int Kp, const uint4* __restrict__ frag, int J,
+                                           Epi epi) {
+  constexpr int MT = kWarps * TR / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int Jt = (J + 7) >> 3, Kt = Kp >> 4;
+  for (int nt = warp; nt < Jt; nt += kWarps) {
+    float big[MT][4], small[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[mt][e] = small[mt][e] = 0.0f;
+    const uint4* f = frag + static_cast<size_t>(nt) * Kt * 32 + lane;
+    for (int kt = 0; kt < Kt; ++kt) {
+      const uint4 w = __ldg(f + kt * 32);
+      const unsigned bh[2] = {w.x, w.y}, bl[2] = {w.z, w.w};
+      const int c = kt * 16 + 2 * t;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = mt * 16 + g;
+        unsigned ah[4], al[4];
+        const int o[4] = {r * S + c, (r + 8) * S + c, r * S + c + 8, (r + 8) * S + c + 8};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[e] = *reinterpret_cast<const unsigned*>(hi + o[e]);
+          al[e] = *reinterpret_cast<const unsigned*>(lo + o[e]);
+        }
+        mma_bf16_16816(small[mt], ah, bl);
+        mma_bf16_16816(small[mt], al, bh);
+        mma_bf16_16816(big[mt], ah, bh);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = mt * 16 + g + 8 * (e >> 1), j = nt * 8 + 2 * t + (e & 1);
+        if (j < J) epi(0, r, j, big[mt][e] + small[mt][e]);
+      }
+  }
+}
 
 // out[r, j] = sum_k a[r, k] * W[k, j] for the block's rows; `a` in shared
 // memory with row stride K, W (K, J) row-major in global memory, streamed
@@ -235,9 +348,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int TR>
+// kPrec: 0 FP32 chains everywhere ("highest"); 1 ("high") and 2 ("mixed")
+// the tensor-core form.
+template <int TR, int kPrec>
 __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, int chk) {
   constexpr int R = kWarps * TR;
+  static_assert(kPrec == 0 || R % 16 == 0, "the tensor-core form takes whole m16 tiles");
   extern __shared__ float smem[];
   const int n = d.n, m = d.m;
   float* sx = smem;           // (R, n) x
@@ -246,7 +362,10 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   float* sw = sy + R * m;     // (R, m) rho z - y
   float* srhs = sw + R * m;   // (R, n) rhs; Px during a check
   float* sxt = srhs + R * n;  // (R, n) xt
-  float* stage = sxt + R * n;  // [kStages][ks][max(n, m)] operator slices
+  // Tensor-core form: the split panel, hi then lo, (R, sstride) halves each.
+  unsigned short* const shi = reinterpret_cast<unsigned short*>(sxt + R * n);
+  unsigned short* const slo = shi + (kPrec ? R * d.sstride : 0);
+  float* stage = sxt + R * n + (kPrec ? R * d.sstride : 0);  // [kStages][ks][max(n, m)] operator slices
   const int ks = d.ks;
   __shared__ int s_conv[R];
   __shared__ float s_rp[R], s_rd[R], s_rpr[R], s_rdr[R];
@@ -315,31 +434,53 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   const float sigma = d.sigma, alpha = d.alpha, oma = d.one_m_alpha;
   const float ci = __ldg(a.cinv);
   {
+    // rhs = sigma x - qb + (rho z - y) @ Ab
+    auto rhs_epi = [&](int, int r, int j, float v) {
+      const float qv = __ldg(a.qb + static_cast<size_t>(grow(r)) * n + j);
+      srhs[r * n + j] = (sigma * sx[r * n + j] - qv) + v;
+    };
+    // xt = rhs @ OP;  x = alpha xt + (1 - alpha) x
+    auto x_epi = [&](int, int r, int j, float v) {
+      sxt[r * n + j] = v;
+      sx[r * n + j] = alpha * v + oma * sx[r * n + j];
+    };
+    // zt = xt @ Ab^T;  relaxation, projection onto [lb, ub], dual update
+    auto z_epi = [&](int, int r, int j, float v) {
+      const size_t gi = static_cast<size_t>(grow(r)) * m + j;
+      const float rho = __ldg(a.rho + j);
+      const float zo = sz[r * m + j], yo = sy[r * m + j];
+      const float z_rel = alpha * v + oma * zo;
+      const float z_n = clip_nan(z_rel + div_rn(yo, rho), __ldg(a.lb + gi), __ldg(a.ub + gi));
+      const float y_n = yo + rho * (z_rel - z_n);
+      sz[r * m + j] = z_n;
+      sy[r * m + j] = y_n;
+      sw[r * m + j] = rho * z_n - y_n;
+    };
     for (int t = 0; t < d.check_every; ++t) {
-      // rhs = sigma x - qb + (rho z - y) @ Ab
-      panel_product<TR>(sw, a.Ab, m, n, stage, ks, [&](int, int r, int j, float v) {
-        const float qv = __ldg(a.qb + static_cast<size_t>(grow(r)) * n + j);
-        srhs[r * n + j] = (sigma * sx[r * n + j] - qv) + v;
-      });
-      __syncthreads();
-      // xt = rhs @ OP;  x = alpha xt + (1 - alpha) x
-      panel_product<TR>(srhs, a.OP, n, n, stage, ks, [&](int, int r, int j, float v) {
-        sxt[r * n + j] = v;
-        sx[r * n + j] = alpha * v + oma * sx[r * n + j];
-      });
-      __syncthreads();
-      // zt = xt @ Ab^T;  relaxation, projection onto [lb, ub], dual update
-      panel_product<TR>(sxt, a.AbT, n, m, stage, ks, [&](int, int r, int j, float v) {
-        const size_t gi = static_cast<size_t>(grow(r)) * m + j;
-        const float rho = __ldg(a.rho + j);
-        const float zo = sz[r * m + j], yo = sy[r * m + j];
-        const float z_rel = alpha * v + oma * zo;
-        const float z_n = clip_nan(z_rel + div_rn(yo, rho), __ldg(a.lb + gi), __ldg(a.ub + gi));
-        const float y_n = yo + rho * (z_rel - z_n);
-        sz[r * m + j] = z_n;
-        sy[r * m + j] = y_n;
-        sw[r * m + j] = rho * z_n - y_n;
-      });
+      if constexpr (kPrec == 0) {
+        panel_product<TR>(sw, a.Ab, m, n, stage, ks, rhs_epi);
+        __syncthreads();
+        panel_product<TR>(srhs, a.OP, n, n, stage, ks, x_epi);
+        __syncthreads();
+        panel_product<TR>(sxt, a.AbT, n, m, stage, ks, z_epi);
+      } else {
+        const int S = d.sstride;
+        split_panel<R>(sw, m, d.kpm, S, shi, slo);
+        __syncthreads();
+        tc_product<TR>(shi, slo, S, d.kpm, a.f_ab, n, rhs_epi);
+        __syncthreads();
+        split_panel<R>(srhs, n, d.kpn, S, shi, slo);
+        __syncthreads();
+        tc_product<TR>(shi, slo, S, d.kpn, a.f_op, n, x_epi);
+        __syncthreads();
+        if constexpr (kPrec == 1) {
+          split_panel<R>(sxt, n, d.kpn, S, shi, slo);
+          __syncthreads();
+          tc_product<TR>(shi, slo, S, d.kpn, a.f_abt, m, z_epi);
+        } else {
+          panel_product<TR>(sxt, a.AbT, n, m, stage, ks, z_epi);
+        }
+      }
       __syncthreads();
     }
 
@@ -419,76 +560,71 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   }
 }
 
+constexpr int pad16(int v) { return (v + 15) / 16 * 16; }
+// Halves per row of the tensor-core form's split panel (each of hi, lo):
+// the widest product operand padded to 16, and 8 more.
+int split_stride(int n, int m) { return (pad16(n) > pad16(m) ? pad16(n) : pad16(m)) + 8; }
+
 // Shared memory of a block of R scenarios with ks-row operator slices:
-// the six panels, kStages slices, the per-row results (static).
-long long smem_floats(int R, int n, int m, int ks) {
+// the six panels, the tensor-core form's split panel (tc), kStages
+// slices, the per-row results (static).
+long long smem_floats(int R, int n, int m, int ks, bool tc) {
   const int J = n > m ? n : m;
-  return static_cast<long long>(R) * (3 * n + 3 * m) + static_cast<long long>(kStages) * ks * J;
+  return static_cast<long long>(R) * (3 * n + 3 * m + (tc ? split_stride(n, m) : 0)) +
+         static_cast<long long>(kStages) * ks * J;
 }
 constexpr int kStaticFloats(int R) { return 5 * R; }
 
 // The most slice rows that fit beside the panels of R scenarios (32, 16, 8
 // or 4; 0: read the operators through L1; -1: not even the panels fit).
-int stage_rows(int R, int n, int m) {
+int stage_rows(int R, int n, int m, bool tc) {
   const int J = n > m ? n : m;
-  if ((smem_floats(R, n, m, 0) + kStaticFloats(R)) * 4 > kSmemLimit) return -1;
+  if ((smem_floats(R, n, m, 0, tc) + kStaticFloats(R)) * 4 > kSmemLimit) return -1;
   if (J % 4 == 0)
     for (int ks = 32; ks >= 4; ks /= 2)
-      if ((smem_floats(R, n, m, ks) + kStaticFloats(R)) * 4 <= kSmemLimit) return ks;
+      if ((smem_floats(R, n, m, ks, tc) + kStaticFloats(R)) * 4 <= kSmemLimit) return ks;
   return 0;
 }
 
 // One launch per check block of the chunk's budget, on `stream`.
-template <int TR>
+template <int TR, int kPrec>
 cudaError_t launch_checks(const Args& a, Dims d, cudaStream_t stream) {
   constexpr int R = kWarps * TR;
+  constexpr bool tc = kPrec != 0;
   d.bpg = (d.tile + R - 1) / R;
-  d.ks = stage_rows(R, d.n, d.m);
+  d.ks = stage_rows(R, d.n, d.m, tc);
   if (d.ks < 0) return cudaErrorInvalidValue;
   // cp.async copies 16 bytes from 16-byte aligned operators only.
   for (const float* op : {a.OP, a.Ab, a.AbT, a.Pb})
     if (reinterpret_cast<size_t>(op) % 16 != 0) d.ks = 0;
+  if (tc) {
+    for (const uint4* f : {a.f_ab, a.f_op, a.f_abt})
+      if (f == nullptr || reinterpret_cast<size_t>(f) % 16 != 0) return cudaErrorInvalidValue;
+    d.kpn = pad16(d.n);
+    d.kpm = pad16(d.m);
+    d.sstride = split_stride(d.n, d.m);
+  }
   const dim3 grid(d.groups * d.bpg);
-  const size_t smem = static_cast<size_t>(smem_floats(R, d.n, d.m, d.ks)) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(shared_chunk_kernel<TR>,
+  const size_t smem = static_cast<size_t>(smem_floats(R, d.n, d.m, d.ks, tc)) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(shared_chunk_kernel<TR, kPrec>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   for (int c = 0; c < d.n_checks; ++c) {
-    shared_chunk_kernel<TR><<<grid, kThreads, smem, stream>>>(a, d, c);
+    shared_chunk_kernel<TR, kPrec><<<grid, kThreads, smem, stream>>>(a, d, c);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-// The slice rows stage_rows gives a block of `rows` scenarios (8, 16 or
-// 32) at (n, m): 32, 16, 8, 4, 0 (operators through L1) or -1 (the panels
-// do not fit).
-int ocp_shared_stage_rows(int rows, int n, int m) { return stage_rows(rows, n, m); }
-
-// ptrs: the kNumPtrs device pointers in Args order; `rows` scenarios per
-// thread block: 8, 16 or 32 (the wrapper's ops/shared_kernel.py::
-// shared_block_rows).  Enqueues n_checks launches.  Returns the
-// cudaError_t of the launches (0 on success; cudaErrorInvalidValue for
-// sizes the kernel does not take, e.g. panels of `rows` scenarios beyond
-// shared memory); the kernels run on `stream` and are not synchronised.
-int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, int m, int tile,
-                              int rows, int bound, int check_every, int n_checks, double sigma,
-                              double alpha, double eps_abs, double eps_rel, void* stream) {
-  if (nptrs != kNumPtrs || B < 1 || n < 1 || m < 1 || tile < 1 || B % tile != 0 ||
-      check_every < 1 || n_checks < 1 ||
-      static_cast<long long>(n_checks) * check_every < bound)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rows != 8 && rows != 16 && rows != 32) return static_cast<int>(cudaErrorInvalidValue);
-  static_assert(sizeof(Args) == kNumPtrs * sizeof(void*), "Args layout");
-  Args a;
-  memcpy(&a, ptrs, sizeof(Args));
-  Dims d;
+// The entry points' shared checks and Dims; false for sizes the kernel
+// does not take.
+bool make_dims(Dims& d, int B, int n, int m, int tile, int bound, int check_every,
+               int n_checks, double sigma, double alpha, double eps_abs, double eps_rel) {
+  if (B < 1 || n < 1 || m < 1 || tile < 1 || B % tile != 0 || check_every < 1 ||
+      n_checks < 1 || static_cast<long long>(n_checks) * check_every < bound)
+    return false;
   d.B = B;
   d.n = n;
   d.m = m;
@@ -499,16 +635,76 @@ int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, 
   d.groups = B / tile;
   d.bpg = 0;
   d.ks = 0;
+  d.kpn = d.kpm = d.sstride = 0;
   d.sigma = static_cast<float>(sigma);
   d.alpha = static_cast<float>(alpha);
   d.one_m_alpha = static_cast<float>(1.0 - alpha);
   d.eps_abs = static_cast<float>(eps_abs);
   d.eps_rel = static_cast<float>(eps_rel);
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The slice rows stage_rows gives a block of `rows` scenarios (8, 16 or
+// 32) at (n, m): 32, 16, 8, 4, 0 (operators through L1) or -1 (the panels
+// do not fit).
+int ocp_shared_stage_rows(int rows, int n, int m) { return stage_rows(rows, n, m, false); }
+
+// The same for the tensor-core form (16 or 32 rows), beside its split panel.
+int ocp_shared_tc_stage_rows(int rows, int n, int m) { return stage_rows(rows, n, m, true); }
+
+// ptrs: the kNumPtrs device pointers in Args order; `rows` scenarios per
+// thread block: 8, 16 or 32 (the wrapper's ops/shared_kernel.py::
+// shared_block_rows).  Enqueues n_checks launches.  Returns the
+// cudaError_t of the launches (0 on success; cudaErrorInvalidValue for
+// sizes the kernel does not take, e.g. panels of `rows` scenarios beyond
+// shared memory); the kernels run on `stream` and are not synchronised.
+int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, int m, int tile,
+                              int rows, int bound, int check_every, int n_checks, double sigma,
+                              double alpha, double eps_abs, double eps_rel, void* stream) {
+  Dims d;
+  if (nptrs != kNumPtrs || !make_dims(d, B, n, m, tile, bound, check_every, n_checks, sigma,
+                                      alpha, eps_abs, eps_rel))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows != 8 && rows != 16 && rows != 32) return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(sizeof(Args) == kNumPtrsTc * sizeof(void*), "Args layout");
+  Args a;
+  memset(&a, 0, sizeof(Args));
+  memcpy(&a, ptrs, kNumPtrs * sizeof(void*));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = rows == 4 * kWarps   ? launch_checks<4>(a, d, s)
-                        : rows == 2 * kWarps ? launch_checks<2>(a, d, s)
-                        : rows == kWarps     ? launch_checks<1>(a, d, s)
+  const cudaError_t e = rows == 4 * kWarps   ? launch_checks<4, 0>(a, d, s)
+                        : rows == 2 * kWarps ? launch_checks<2, 0>(a, d, s)
+                        : rows == kWarps     ? launch_checks<1, 0>(a, d, s)
                                              : cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The tensor-core form: ptrs the kNumPtrsTc pointers in Args order (the
+// FP32 form's, then the fragments of Ab, OP and Ab^T; the last is not read
+// at "mixed"); `rows` 16 or 32; `mode` 1 ("high": all three iteration
+// products on the tensor cores) or 2 ("mixed": zt an FP32 chain).  Returns
+// as ocp_shared_admm_chunk_f32.
+int ocp_shared_admm_chunk_tc_f32(const void* const* ptrs, int nptrs, int B, int n, int m,
+                                 int tile, int rows, int bound, int check_every, int n_checks,
+                                 int mode, double sigma, double alpha, double eps_abs,
+                                 double eps_rel, void* stream) {
+  Dims d;
+  if (nptrs != kNumPtrsTc || !make_dims(d, B, n, m, tile, bound, check_every, n_checks, sigma,
+                                        alpha, eps_abs, eps_rel))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  memcpy(&a, ptrs, sizeof(Args));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (mode == 1)
+    e = rows == 4 * kWarps ? launch_checks<4, 1>(a, d, s)
+        : rows == 2 * kWarps ? launch_checks<2, 1>(a, d, s) : cudaErrorInvalidValue;
+  else if (mode == 2)
+    e = rows == 4 * kWarps ? launch_checks<4, 2>(a, d, s)
+        : rows == 2 * kWarps ? launch_checks<2, 2>(a, d, s) : cudaErrorInvalidValue;
   return static_cast<int>(e);
 }
 

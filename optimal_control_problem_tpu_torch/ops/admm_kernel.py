@@ -51,7 +51,7 @@ import ctypes
 
 import torch
 
-from .banded_kernel import _check, launch_chunk
+from .banded_kernel import _check, launch_chunk, refuse_export
 from .build import load_library
 
 __all__ = [
@@ -200,6 +200,7 @@ def admm_device_loop(
     block per scenario, in the tier :func:`kernel_tier` picks, or raise if
     the launch is refused.
     """
+    refuse_export("admm_device_loop")
     B, n, m = _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
     kw = dict(max_iter=max_iter, check_every=check_every)
     dev = x0.device

@@ -47,6 +47,7 @@ from .banded_kernel import (
     chunk_contract,
     chunk_outputs,
     launch_chunk,
+    refuse_export,
     mm,
     mtv,
     mv,
@@ -252,6 +253,7 @@ def banded_admm_chunk_cr(
     the current stream (f32, contiguous, ``w <= MAX_CR_WIDTH``,
     ``r, r2 >= 1``) or raise.
     """
+    refuse_export("banded_admm_chunk_cr")
     kw = dict(
         interval=interval, check_every=check_every, max_iter=max_iter,
         sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,

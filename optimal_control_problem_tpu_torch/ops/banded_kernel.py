@@ -453,6 +453,17 @@ def _lib_fn(lib_name: str, symbol: str, n_int: int):
     return _LIB_FNS[key]
 
 
+def refuse_export(label: str) -> None:
+    """Raise inside a ``torch.export`` trace: a hand-written CUDA kernel
+    cannot be traced, and its plain version is never traced in its place
+    (``utils/serialization.export_solver`` refuses such functions)."""
+    if torch.compiler.is_exporting():
+        raise RuntimeError(
+            f"{label} is a hand-written CUDA kernel: torch.export cannot trace it, and "
+            "the port never traces its plain version in its place"
+        )
+
+
 def launch_chunk(
     label: str, lib_name: str, symbol: str, tensors: Sequence[torch.Tensor],
     ints: Sequence[int], floats: Sequence[float], dev,
@@ -507,6 +518,7 @@ def banded_admm_chunk(
     current stream (f32, contiguous, ``w`` in :data:`KERNEL_WIDTHS`,
     ``r, r2 >= 1``) or raise.
     """
+    refuse_export("banded_admm_chunk")
     kw = dict(
         interval=interval, check_every=check_every, max_iter=max_iter,
         sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,

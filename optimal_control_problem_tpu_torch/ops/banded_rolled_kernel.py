@@ -45,6 +45,7 @@ from .banded_kernel import (
     chunk_contract,
     chunk_outputs,
     launch_chunk,
+    refuse_export,
     mm,
     mmt,
     mtm,
@@ -253,6 +254,7 @@ def banded_admm_chunk_rolled(
     ``csrc/banded_rolled_chunk.cu`` on the current stream (f32,
     contiguous, ``w <= MAX_ROLLED_WIDTH``, ``r, r2 >= 1``) or raise.
     """
+    refuse_export("banded_admm_chunk_rolled")
     kw = dict(
         interval=interval, check_every=check_every, max_iter=max_iter,
         sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,

@@ -41,8 +41,23 @@ On the card one thread block holds 8, 16 or 32 scenarios, and a group's
 vote crosses thread blocks: the kernel runs one check block per launch and
 the wrapper's one call enqueues a launch per check block of the budget,
 each reading its group's last vote from global memory, so a group of any
-size runs (see the note in ``csrc/shared_chunk.cu``).  The
-``iter_precision`` variants are not ported (``ROADMAP.md`` A8).
+size runs (see the note in ``csrc/shared_chunk.cu``).
+
+``iter_precision`` (``"highest"``, ``"high"``, ``"mixed"``) is the JAX
+kernel's precision of the three iteration products.  ``"highest"`` is the
+FP32 chains above.  At ``"high"`` all three, at ``"mixed"`` the rhs and x
+products (``zt`` stays ``"highest"``), run as the TPU's ``HIGH``: bf16_3x,
+each f32 operand split into ``hi = bf16(a)`` and ``lo = bf16(a - hi)``
+(:func:`split_bf16`) and the product summed as ``hi hi + (hi lo + lo hi)``
+with f32 accumulation.  The termination residuals stay FP32 chains in
+every mode, so a scenario that stops is certified in true f32.  On the
+card those products run on the tensor cores (``mma.sync`` m16n8k16 bf16,
+the operators' hi/lo split into fragment order once per call by
+:func:`mma_fragments`); the plain version sums the same split products
+with ``torch.matmul``.  Tensor cores accumulate in their own order, so
+the variant agrees with its plain version to f32 roundoff of the
+products, not bitwise.  TF32 plays no part: the variant is the
+reference's bf16_3x.
 """
 
 from __future__ import annotations
@@ -51,45 +66,72 @@ from typing import Optional
 
 import torch
 
-from .banded_kernel import _check, launch_chunk
+from .banded_kernel import _check, launch_chunk, refuse_export
 
 __all__ = [
     "shared_admm_chunk",
     "shared_admm_chunk_plain",
     "chain_matmul",
+    "split_bf16",
+    "matmul_split",
+    "precision_matmul",
+    "mma_fragments",
     "pick_shared_tile",
     "shared_block_rows",
     "ROWS_PER_BLOCK",
+    "ROWS_PER_BLOCK_TC",
+    "ITER_PRECISIONS",
+    "PRECISION_NAMES",
 ]
 
-# Scenarios per thread block the CUDA kernel is instantiated for.
+# Scenarios per thread block the CUDA kernel is instantiated for, in its
+# FP32 form and in its tensor-core form (one or two m16 tiles).
 ROWS_PER_BLOCK = (8, 16, 32)
+ROWS_PER_BLOCK_TC = (16, 32)
+ITER_PRECISIONS = ("highest", "high", "mixed")
 # Dynamic shared memory a thread block may opt into on an H100.
 SMEM_LIMIT = 232448
 
 
-def shared_block_rows(B: int, batch_tile: int, n: int, m: int, sms: int) -> int:
+def _pad(v: int, k: int) -> int:
+    return -(-v // k) * k
+
+
+def tc_split_floats(n: int, m: int) -> int:
+    """Floats per scenario row of the tensor-core form's split panel: the
+    hi and lo bf16 copies of the widest product operand, its width padded
+    to a multiple of 16 and 8 more (the row stride that keeps a warp's
+    fragment loads off each other's banks)."""
+    return max(_pad(n, 16), _pad(m, 16)) + 8
+
+
+def shared_block_rows(B: int, batch_tile: int, n: int, m: int, sms: int,
+                      tensor_cores: bool = False) -> int:
     """Scenarios per thread block for a launch over ``B`` scenarios in
     termination groups of ``batch_tile`` on a card with ``sms`` SMs: of
-    the ``ROWS_PER_BLOCK`` whose panels fit in shared memory (six of
-    ``rows`` by ``n`` or ``m`` floats and five per row; the C entry point
-    refuses the others), the one that puts the fewest scenario rows on
-    the busiest SM (``ceil(blocks / sms) * rows``: an SM's float pipes are
-    shared by the blocks it holds), then the most
-    rows (each block streams the operators once).  At n=120, m=196: 32 at
-    B=4096 (128 blocks), 8 at B=64 (8 blocks, where 32 would leave 130 of
-    132 SMs idle).  Raises where no block of 8 fits."""
+    the ``ROWS_PER_BLOCK`` (``ROWS_PER_BLOCK_TC`` for the tensor-core
+    form) whose panels fit in shared memory (six of ``rows`` by ``n`` or
+    ``m`` floats and five per row, and the tensor-core form's split panel,
+    :func:`tc_split_floats`; the C entry point refuses the others), the
+    one that puts the fewest scenario rows on the busiest SM
+    (``ceil(blocks / sms) * rows``: an SM's float pipes are shared by the
+    blocks it holds), then the most rows (each block streams the operators
+    once).  At n=120, m=196: 32 at B=4096 (128 blocks), 8 at B=64 (8
+    blocks, where 32 would leave 130 of 132 SMs idle; 16 for the
+    tensor-core form).  Raises where no block fits."""
     best = None
-    for rows in sorted(ROWS_PER_BLOCK, reverse=True):
-        if rows * (3 * n + 3 * m + 5) * 4 > SMEM_LIMIT:
+    per_row = 3 * n + 3 * m + 5 + (tc_split_floats(n, m) if tensor_cores else 0)
+    for rows in sorted(ROWS_PER_BLOCK_TC if tensor_cores else ROWS_PER_BLOCK, reverse=True):
+        if rows * per_row * 4 > SMEM_LIMIT:
             continue
         blocks = (B // batch_tile) * -(-batch_tile // rows)
         load = -(-blocks // sms) * rows
         if best is None or load < best[0]:
             best = (load, rows)
     if best is None:
+        rows = min(ROWS_PER_BLOCK_TC if tensor_cores else ROWS_PER_BLOCK)
         raise ValueError(
-            f"shared_admm_chunk: the panels of {min(ROWS_PER_BLOCK)} scenarios at n={n}, "
+            f"shared_admm_chunk: the panels of {rows} scenarios at n={n}, "
             f"m={m} exceed the {SMEM_LIMIT} bytes of shared memory a block can have"
         )
     return best[1]
@@ -126,6 +168,75 @@ def chain_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def split_bf16(a: torch.Tensor):
+    """``a`` as ``hi + lo`` for a bf16_3x product: ``hi = bf16(a)`` and
+    ``lo = bf16(a - hi)``, each rounded to nearest even, returned in
+    ``a``'s dtype (the values are exact bf16 numbers).  A NaN stays NaN in
+    both; an infinite entry has a NaN ``lo``, as the TPU's split."""
+    hi = a.to(torch.bfloat16).to(a.dtype)
+    return hi, (a - hi).to(torch.bfloat16).to(a.dtype)
+
+
+def matmul_split(a: torch.Tensor, w_split) -> torch.Tensor:
+    """``a @ w`` at the TPU's ``HIGH`` (bf16_3x) against an operator split
+    once by :func:`split_bf16`: ``a`` is split here, each product of two
+    bf16 numbers is exact in float32, and the three products are summed
+    in float32 as ``hi hi + (hi lo + lo hi)`` (the tensor-core kernel
+    keeps the same two sums).  ``lo lo`` is dropped."""
+    a_hi, a_lo = split_bf16(a)
+    w_hi, w_lo = w_split
+    return a_hi @ w_hi + (a_hi @ w_lo + a_lo @ w_hi)
+
+
+# JAX's names of a matmul precision (``jax.default_matmul_precision``) and
+# what each means on the TPU: one bf16 pass, bf16_3x, or true f32.
+PRECISION_NAMES = {
+    "default": "default", "fastest": "default", "bfloat16": "default",
+    "high": "high", "bfloat16_3x": "high", "tensorfloat32": "high",
+    "highest": "highest", "float32": "highest",
+}
+
+
+def precision_matmul(a: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
+    """``a @ w`` at one of JAX's matmul precisions (:data:`PRECISION_NAMES`),
+    for float32 operands: ``"highest"`` the float32 product (TF32 is off),
+    ``"high"`` bf16_3x (:func:`matmul_split`; the TPU's meaning, never the
+    card's TF32), ``"default"`` one bf16 pass (both operands rounded to
+    bf16, float32 accumulation).  Other dtypes (the float64 problems) take
+    the plain product at every precision, as JAX's CPU does."""
+    if precision not in PRECISION_NAMES:
+        raise ValueError(f"precision must be one of {sorted(PRECISION_NAMES)}, got {precision!r}")
+    precision = PRECISION_NAMES[precision]
+    if precision == "highest" or a.dtype != torch.float32:
+        return a @ w
+    if precision == "high":
+        return matmul_split(a, split_bf16(w))
+    bf = lambda t: t.to(torch.bfloat16).to(t.dtype)  # noqa: E731
+    return bf(a) @ bf(w)
+
+
+def mma_fragments(w: torch.Tensor) -> torch.Tensor:
+    """The operator ``w (K, J)`` of a product ``a @ w`` as the tensor-core
+    kernel reads it: split by :func:`split_bf16`, zero-padded to ``K`` a
+    multiple of 16 and ``J`` of 8, in the B-fragment order of
+    ``mma.sync.aligned.m16n8k16.row.col`` (lane ``l`` of a warp holds
+    column ``8 nt + l // 4`` at rows ``16 kt + 2 (l % 4) + {0, 1}`` in its
+    first register and ``+ {8, 9}`` in its second, the lower row in the low
+    half).  Returns int32 words ``(J / 8, K / 16, 32 lanes, 4)``: hi's two
+    registers, then lo's, so one 16-byte load gives a lane both."""
+    K, J = w.shape
+    Kp, Jp = _pad(K, 16), _pad(J, 8)
+    wp = torch.zeros((Kp, Jp), dtype=torch.float32, device=w.device)
+    wp[:K, :J] = w
+    hi = wp.to(torch.bfloat16)
+    lo = (wp - hi.to(torch.float32)).to(torch.bfloat16)
+    # Row 16 kt + 8 half + 2 t + pair, column 8 nt + g.
+    parts = torch.stack([hi, lo]).reshape(2, Kp // 16, 2, 4, 2, Jp // 8, 8)
+    # -> (nt, kt, g, t, hi/lo, half, pair): lane g * 4 + t, word (hi/lo, half).
+    frag = parts.permute(5, 1, 6, 3, 0, 2, 4).contiguous()
+    return frag.view(torch.int32).reshape(Jp // 8, Kp // 16, 32, 4)
+
+
 def _contract(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
               check_every, batch_tile):
     """Check a chunk call on either device; returns ``(B, n, m, bound,
@@ -157,6 +268,13 @@ def _contract(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z,
     return B, n, m, int(bound), done0, cinv
 
 
+def _check_iter_precision(iter_precision: str) -> None:
+    if iter_precision not in ITER_PRECISIONS:
+        raise ValueError(
+            f"iter_precision must be 'highest', 'high' or 'mixed', got {iter_precision!r}"
+        )
+
+
 def shared_admm_chunk_plain(
     done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
     *,
@@ -166,6 +284,7 @@ def shared_admm_chunk_plain(
     eps_abs: float,
     eps_rel: float,
     batch_tile: int,
+    iter_precision: str = "highest",
 ):
     """Plain PyTorch version of the shared-operator chunk, op for op the
     JAX ``_kernel``.
@@ -174,20 +293,30 @@ def shared_admm_chunk_plain(
     ``bound``: the chunk's iteration budget (an int; need not be a multiple
     of ``check_every``, the last check block still runs whole); panels and
     operators as in the module docstring; ``Dinv (n,)``, ``Einv (m,)``,
-    ``cinv`` (scalar) unscale the residuals.  Returns ``(x, z, y, conv
-    (B,) bool, it_inc (B,) int32, rp, rd, rp_rel, rd_rel (B,))``.
+    ``cinv`` (scalar) unscale the residuals; ``iter_precision`` as in the
+    module docstring (products at ``HIGH`` through :func:`matmul_split`,
+    every other product an FP32 chain).  Returns ``(x, z, y, conv (B,)
+    bool, it_inc (B,) int32, rp, rd, rp_rel, rd_rel (B,))``.
     """
+    _check_iter_precision(iter_precision)
     B, n, m, bound, done0, cinv = _contract(
         done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
         check_every, batch_tile,
     )
     AbT = Ab.T.contiguous()
     one_m_alpha = 1.0 - alpha
+    high_x = iter_precision != "highest"
+    high_z = iter_precision == "high"
+    Ab_s, OP_s = (split_bf16(Ab), split_bf16(OP)) if high_x else (None, None)
+    AbT_s = split_bf16(AbT) if high_z else None
+
+    def prod(a, w, w_split):
+        return chain_matmul(a, w) if w_split is None else matmul_split(a, w_split)
 
     def one_iter(x, z, y, qb, lb, ub):
-        rhs = sigma * x - qb + chain_matmul(rho * z - y, Ab)
-        xt = chain_matmul(rhs, OP)
-        zt = chain_matmul(xt, AbT)
+        rhs = sigma * x - qb + prod(rho * z - y, Ab, Ab_s)
+        xt = prod(rhs, OP, OP_s)
+        zt = prod(xt, AbT, AbT_s)
         x_n = alpha * xt + one_m_alpha * x
         z_rel = alpha * zt + one_m_alpha * z
         z_n = torch.minimum(torch.maximum(z_rel + y / rho, lb), ub)
@@ -243,6 +372,7 @@ def shared_admm_chunk(
     eps_abs: float,
     eps_rel: float,
     batch_tile: int,
+    iter_precision: str = "highest",
     rows_per_block: Optional[int] = None,
 ):
     """Run one rho-constant shared-operator ADMM chunk; same contract as
@@ -253,11 +383,18 @@ def shared_admm_chunk(
     check block of ``bound`` (the termination vote of a group crosses
     thread blocks through global memory between launches), or raise: a
     panel width whose rows do not fit in shared memory is refused.
-    ``rows_per_block`` (one of ``ROWS_PER_BLOCK``) forces the scenarios per
-    thread block, for timing; by default :func:`shared_block_rows` picks
-    it for the card.  Results do not depend on it.  One call counts one
-    launch in ``shared_admm_chunk.launches`` (one chunk of the driver).
+    ``iter_precision="highest"`` runs the FP32 kernel, bitwise its plain
+    version, and counts one launch in ``shared_admm_chunk.launches`` (one
+    chunk of the batch loop); ``"high"`` and ``"mixed"`` run its tensor-core
+    form and count in ``shared_admm_chunk.tc_launches``.
+    ``rows_per_block`` (one of ``ROWS_PER_BLOCK``, or ``ROWS_PER_BLOCK_TC``
+    for the tensor-core form) forces the scenarios per thread block, for
+    timing; by default :func:`shared_block_rows` picks it for the card.
+    Results do not depend on it (the FP32 form's bits; the tensor-core
+    form's up to the order of its sums).
     """
+    refuse_export("shared_admm_chunk")
+    _check_iter_precision(iter_precision)
     B, n, m, bound, done0, cinv = _contract(
         done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
         check_every, batch_tile,
@@ -267,37 +404,88 @@ def shared_admm_chunk(
     dev = x.device
     if dev.type == "cpu":
         return shared_admm_chunk_plain(
-            done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, **kw
+            done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, **kw,
+            iter_precision=iter_precision,
         )
+    if iter_precision != "highest":
+        return _launch_tc(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z,
+                          y, rows_per_block, **kw, iter_precision=iter_precision)
     return _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
                    rows_per_block, **kw)
 
 
-def _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
-            rows_per_block, *, check_every, sigma, alpha, eps_abs, eps_rel, batch_tile):
-    """The wrapper's kernel path: outputs, votes and the launches of
-    ``csrc/shared_chunk.cu`` on inputs checked by ``_contract``."""
-    B, n = x.shape
-    m = z.shape[1]
-    dev = x.device
-
+def _outputs(B, n, m, dev):
+    """Empty outputs of a chunk: ``x z y conv it_inc rp rd rp_rel rd_rel``."""
     def empty(*shape, dt=torch.float32):
         return torch.empty(shape, dtype=dt, device=dev)
 
-    outs = (
+    return (
         empty(B, n), empty(B, m), empty(B, m),  # x z y
         empty(B, dt=torch.int32), empty(B, dt=torch.int32),  # conv it_inc
         empty(B), empty(B), empty(B), empty(B),  # rp rd rp_rel rd_rel
     )
+
+
+def _block_rows(rows_per_block, B, batch_tile, n, m, dev, tensor_cores):
+    allowed = ROWS_PER_BLOCK_TC if tensor_cores else ROWS_PER_BLOCK
+    if rows_per_block is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return shared_block_rows(B, batch_tile, n, m, sms, tensor_cores)
+    if rows_per_block not in allowed:
+        raise ValueError(f"rows_per_block must be one of {allowed}, got {rows_per_block}")
+    return rows_per_block
+
+
+def _launch_tc(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+               rows_per_block, *, check_every, sigma, alpha, eps_abs, eps_rel, batch_tile,
+               iter_precision):
+    """The wrapper's path to the tensor-core form of ``csrc/shared_chunk.cu``
+    on inputs checked by ``_contract``: the operators' bf16 hi/lo
+    fragments (:func:`mma_fragments`: ``Ab`` for the rhs product, ``OP``
+    for the x product, ``Ab^T`` for ``zt`` at ``"high"``), outputs, votes
+    and the launches."""
+    B, n = x.shape
+    m = z.shape[1]
+    dev = x.device
+    outs = _outputs(B, n, m, dev)
+    if B == 0:
+        return outs[:3] + (outs[3].bool(),) + outs[4:]
+    rows = _block_rows(rows_per_block, B, batch_tile, n, m, dev, True)
+    AbT = Ab.T.contiguous()
+    f_ab, f_op = mma_fragments(Ab), mma_fragments(OP)
+    # "mixed" runs zt as an FP32 chain and never reads the third.
+    f_abt = mma_fragments(AbT) if iter_precision == "high" else f_op
+    n_checks = max(1, -(-bound // check_every))
+    votes = torch.zeros((B // batch_tile, n_checks), dtype=torch.int32, device=dev)
+    launch_chunk(
+        "shared_admm_chunk", "shared_chunk", "ocp_shared_admm_chunk_tc_f32",
+        [done0, OP, Ab, AbT, Pb, rho, lb, ub, qb, Dinv, Einv, cinv,
+         x, z, y, *outs, votes, f_ab, f_op, f_abt],
+        (B, n, m, batch_tile, rows, bound, check_every, n_checks,
+         ITER_PRECISIONS.index(iter_precision)),
+        (sigma, alpha, eps_abs, eps_rel), dev,
+    )
+    shared_admm_chunk.tc_launches += 1
+    return outs[:3] + (outs[3].bool(),) + outs[4:]
+
+
+def _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+            rows_per_block, *, check_every, sigma, alpha, eps_abs, eps_rel, batch_tile,
+            iter_precision="highest"):
+    """The wrapper's kernel path: outputs, votes and the launches of
+    ``csrc/shared_chunk.cu``'s FP32 form on inputs checked by
+    ``_contract`` (``iter_precision`` must be ``"highest"``)."""
+    if iter_precision != "highest":
+        raise ValueError("the FP32 form runs iter_precision='highest' only")
+    B, n = x.shape
+    m = z.shape[1]
+    dev = x.device
+
+    outs = _outputs(B, n, m, dev)
     if B == 0:
         return outs[:3] + (outs[3].bool(),) + outs[4:]
     groups = B // batch_tile
-    rows = rows_per_block
-    if rows is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        rows = shared_block_rows(B, batch_tile, n, m, sms)
-    elif rows not in ROWS_PER_BLOCK:
-        raise ValueError(f"rows_per_block must be one of {ROWS_PER_BLOCK}, got {rows}")
+    rows = _block_rows(rows_per_block, B, batch_tile, n, m, dev, False)
     n_checks = max(1, -(-bound // check_every))
     # Per group and check block: how many of the group's thread blocks
     # still held an unconverged scenario (read by the next check's launch).
@@ -314,3 +502,4 @@ def _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y
 
 
 shared_admm_chunk.launches = 0
+shared_admm_chunk.tc_launches = 0

@@ -10,13 +10,16 @@ torch callables ``fn(X, P)``, the stage structure and ``gen_solver``'s
 automatic switch to the banded QP method, the reference-parity preset
 (``SQP_settings.parity``: the dense augmented path, cold QPs), the per-tick
 solve with first-frame pinning and cross-tick warm start, input validation
-and the per-tick solver statistics.
+and the per-tick solver statistics; and the solver menu: ``TPU_SQP`` (the
+device SQP engine), the host backends ``IPOPT`` and ``SQP``
+(:func:`.solvers.reference.solve_nlp_host`, scipy over float64 CPU
+evaluations of the same functions) and ``MIXED`` (the host on the first
+tick, the device engine after it, per ``mixed_dispatch``).
 
 The problem lives on one device, chosen at construction: ``cuda`` unless
-the caller passes ``device="cpu"`` (:func:`..device.resolve_device`).
-
-Not ported yet (ROADMAP Queue A9): the MIXED/IPOPT/SQP host backends —
-``gen_solver`` raises ``NotImplementedError`` for them.
+the caller passes ``device="cpu"`` (:func:`..device.resolve_device`).  The
+host backends evaluate the problem's functions on float64 CPU copies
+whatever that device is, and hand their solution back to it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from .config import OCPConfig, load_config
 from .device import resolve_device
 from .solvers.admm import ADMMSettings
+from .solvers.reference import solve_nlp_host
 from .solvers.sqp import SQPOptimizationSolver, SQPOptions
 from .sym import Sym, evaluate, sym
 from .utils.logging import ocp_warn
@@ -86,6 +90,16 @@ class SolverSettings:
         ee = sqp_node.get("early_exit", None)
         self.early_exit = None if ee is None else bool(ee)
         self.early_exit_tol = float(sqp_node.get("early_exit_tol", 1e-6))
+        # MIXED tick-2+ dispatch: "reference" = always SQP after the first
+        # tick (what the reference's OptimalControlProblem.cpp:92,153-161
+        # does: `res` is freshly default-constructed each call, so the
+        # f-based IPOPT branch never fires); "intent" = the comment's
+        # intent (IPOPT whenever the previous objective stayed above 1e-6).
+        self.mixed_dispatch = str(node.get("mixed_dispatch", "reference"))
+        if self.mixed_dispatch not in ("reference", "intent"):
+            raise ValueError(
+                f"mixed_dispatch must be 'reference' or 'intent', got {self.mixed_dispatch!r}"
+            )
 
         method = str(node["solve_method"])
         if method == "CUDA_SQP":  # accepted alias (readme.md:58)
@@ -355,11 +369,6 @@ class OptimalControlProblem:
         st = self.solver_settings
         if self._stage_structure is None and not self._constraints:
             raise RuntimeError("Constraints are empty")  # cpp:230-233
-        if st.solver_type != SolverType.TPU_SQP:
-            raise NotImplementedError(
-                f"solve_method {st.solver_type.value} (host backends / MIXED "
-                "dispatch) is not ported yet (ROADMAP Queue A9)"
-            )
         ss = self._stage_structure
         parts = None
         if ss is not None:
@@ -381,7 +390,21 @@ class OptimalControlProblem:
         else:
             f_fn, g_fn = self._build_nlp_fns()
         self._nlp_fns = (f_fn, g_fn)
+        # IPOPT is the host backend alone: no device engine to build.
+        if st.solver_type != SolverType.IPOPT:
+            self._build_engine(st, f_fn, g_fn, parts, ss)
+        self._generated = True
+        if st.verbose:
+            print(
+                "Problem dimensions:\n"
+                f"Variables: {self.ocp_config.num_variables}\n"
+                f"Constraints: {self.num_constraints}\n"
+                f"Parameters: {self.reference_size}"
+            )
 
+    def _build_engine(self, st, f_fn, g_fn, parts, ss) -> None:
+        """The device SQP engine (TPU_SQP, and MIXED's later ticks; SQP
+        builds it too, as JAX does)."""
         nlp = {
             "x": self.ocp_config.get_variables(),
             "f": f_fn,
@@ -420,14 +443,6 @@ class OptimalControlProblem:
             nlp, options, local_system_parts=parts, stage_structure=ss,
             device=self.device,
         )
-        self._generated = True
-        if st.verbose:
-            print(
-                "Problem dimensions:\n"
-                f"Variables: {self.ocp_config.num_variables}\n"
-                f"Constraints: {self.num_constraints}\n"
-                f"Parameters: {self.reference_size}"
-            )
 
     # ------------------------------------------------------------------
     def solver_input_check(self, arg: Dict[str, Any]) -> bool:
@@ -487,10 +502,34 @@ class OptimalControlProblem:
         }
         if not self.solver_input_check(arg):
             raise RuntimeError("Solver input validation failed")
-        res = self._solver.get_optimal_solution(arg)
+        st = self.solver_settings
+        stype = st.solver_type
+        if stype == SolverType.MIXED:
+            # "reference": the host on the first tick, the device engine on
+            # every later one; "intent": the host also while the last
+            # objective stayed above 1e-6 (a debugging aid, not a hot path).
+            host = self._first_time or self._optimal_trajectory is None or (
+                st.mixed_dispatch == "intent" and self._last_f is not None
+                and self._last_f > 1e-6
+            )
+            stype = SolverType.IPOPT if host else SolverType.TPU_SQP
+        if stype == SolverType.TPU_SQP:
+            res = self._solver.get_optimal_solution(arg)
+            x_sol, f_sol = res["x"], float(res["f"])
+        else:
+            f_fn, g_fn = self._nlp_fns
+            method = "trust-constr" if stype == SolverType.IPOPT else "SLSQP"
+            res = solve_nlp_host(f_fn, g_fn, x0, reference, lbx, ubx, arg["lbg"], arg["ubg"],
+                                 method=method)
+            x_sol = torch.as_tensor(res["x"], dtype=st.dtype, device=self.device)
+            f_sol = float(res["f"])
+            if self._solver is not None:
+                # Seed the device engine's persistent iterate so a MIXED
+                # hand-off continues from the host solution.
+                self._solver._result_x = x_sol
         self._first_time = False
-        self._optimal_trajectory = res["x"]
-        self._last_f = float(res["f"])
+        self._optimal_trajectory = x_sol
+        self._last_f = f_sol
         if self.solver_settings.verbose:
             print("=================== result ===================")
             print(f"objective: {self._last_f}")

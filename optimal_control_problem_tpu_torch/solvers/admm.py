@@ -20,12 +20,17 @@ check block (``backend="xla"``) or kernel entry (``backend="pallas"``, the
 device-loop kernel of ``ops/admm_kernel.py``), where the JAX version runs a
 ``lax.while_loop``.
 
-Not ported yet, raising ``NotImplementedError``: the ``precision`` /
-``iter_precision`` variants (``ROADMAP.md`` Queue A8c).
+``settings.precision`` is JAX's ``jax.default_matmul_precision`` around
+the whole solve: every product here (the factorization's ``A^T R A``, the
+iterations, residuals, certificates and polish) runs at it through
+:func:`..ops.shared_kernel.precision_matmul` (``"highest"`` true f32,
+``"high"`` bf16_3x, ``"default"`` one bf16 pass); the explicit inverses
+stay ``torch.linalg.inv`` and the device-loop kernel stays f32, as JAX's
+Pallas kernel does.
 
 The JAX module's ``f32_matmuls`` has no counterpart here: the package
 switches TF32 off once at import (``__init__.py``), so every product is
-true float32.
+true float32 unless a setting asks for less.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.admm_kernel import admm_device_loop
+from ..ops.shared_kernel import PRECISION_NAMES, precision_matmul
 
 __all__ = [
     "ADMMSettings",
@@ -104,14 +110,21 @@ class ADMMSettings:
     #              dense path (condensed only) it is ops/admm_kernel.py, one
     #              kernel entry per adaptive-rho round.
     backend: str = "xla"
-    # Matmul precision for solver-internal linear algebra.  Only "highest"
-    # (true f32 everywhere) is ported; the JAX package's lower settings map
-    # to a tensor-core decision on this card that is still open (ROADMAP
-    # Queue A8c), so any other value raises NotImplementedError.
+    # Matmul precision for solver-internal linear algebra (JAX's
+    # jax.default_matmul_precision around the dense and shared solves):
+    # "highest" true f32 (TF32 stays off), "high" the TPU's bf16_3x (each
+    # f32 operand split into bf16 hi + lo, hi hi + hi lo + lo hi summed in
+    # f32), "default" one bf16 pass.  The hand kernels compute at
+    # "highest"; with another value the shared path takes the "xla" loop,
+    # as JAX's does.
     precision: str = "highest"
     # Precision of the ITERATION GEMMs only (shared-factorization condensed
-    # path): "highest" | "high" | "mixed" in the JAX package.  Only
-    # "highest" is ported (ROADMAP Queue A8c).
+    # path, both backends): "highest"; "high" (all three iteration
+    # products at bf16_3x); "mixed" (the rhs and x products at bf16_3x,
+    # ``zt = xt @ A^T`` at "highest").  The termination residuals and
+    # certificates stay at ``precision``, so a scenario that stops is
+    # certified at it.  On the card "pallas" runs them on the tensor cores
+    # (ops/shared_kernel.py).
     iter_precision: str = "highest"
     # Single-GEMM condensed iteration (shared-factorization batched path
     # only): algebraically fold the three per-iteration products
@@ -149,6 +162,11 @@ class ADMMSettings:
                 f"banded_solver must be 'thomas' or 'cr', got "
                 f"{self.banded_solver!r}"
             )
+        if self.precision not in PRECISION_NAMES:
+            raise ValueError(
+                f"precision must be one of {sorted(PRECISION_NAMES)}, got "
+                f"{self.precision!r}"
+            )
         if self.iter_precision not in ("highest", "high", "mixed"):
             raise ValueError(
                 f"iter_precision must be 'highest', 'high' or 'mixed', "
@@ -182,19 +200,10 @@ def _limit_scaling(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v, max=_MAX_SCALING)
 
 
-def require_highest_precision(st: ADMMSettings) -> None:
-    """Only true-f32 products are ported; see ``ADMMSettings.precision``."""
-    if st.precision != "highest" or st.iter_precision != "highest":
-        raise NotImplementedError(
-            f"precision={st.precision!r} / iter_precision={st.iter_precision!r} are "
-            "not ported yet: the port computes in true float32 only "
-            "(ROADMAP Queue A8c: precision variants)"
-        )
-
-
-def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``M @ v`` over any leading batch dims: ``M (..., r, c)``, ``v (..., c)``."""
-    return (M @ v.unsqueeze(-1)).squeeze(-1)
+def _mv(M: torch.Tensor, v: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """``M @ v`` over any leading batch dims: ``M (..., r, c)``, ``v (..., c)``,
+    at ``precision`` (:func:`..ops.shared_kernel.precision_matmul`)."""
+    return precision_matmul(M, v.unsqueeze(-1), precision).squeeze(-1)
 
 
 def ruiz_equilibrate(P, q, A, iters: int):
@@ -249,16 +258,25 @@ def _rho_vec(l, u, rho):
     return torch.where(loose, torch.full_like(rho_v, _RHO_MIN), rho_v)
 
 
-def _factor(Pb, Ab, rho_v, sigma, method: str):
+def _inv(M: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.inv`` that, like ``jnp.linalg.inv``, never raises: a
+    singular operator (a diverged nonconvex QP of the parity preset) gives
+    non-finite entries, and the solve goes on to NaN as JAX's does.  The
+    values are ``torch.linalg.inv``'s wherever that succeeds."""
+    return torch.linalg.inv_ex(M)[0]
+
+
+def _factor(Pb, Ab, rho_v, sigma, method: str, precision: str = "highest"):
     """Precompute the per-iteration solve operator as an explicit inverse
-    (of each problem, over any leading batch dims)."""
+    (of each problem, over any leading batch dims); ``A^T R A`` at
+    ``precision``."""
     n = Pb.shape[-1]
     m = Ab.shape[-2]
     eye = torch.eye(n, dtype=Pb.dtype, device=Pb.device)
     AbT = Ab.transpose(-1, -2)
     if method == "condensed":
-        M = Pb + sigma * eye + (AbT * rho_v[..., None, :]) @ Ab
-        return torch.linalg.inv(M)
+        M = Pb + sigma * eye + precision_matmul(AbT * rho_v[..., None, :], Ab, precision)
+        return _inv(M)
     # Quasi-definite KKT matrix [[P + sigma I, A^T], [A, -diag(1/rho)]]:
     # always invertible, tolerates indefinite P.
     K = torch.zeros(Pb.shape[:-2] + (n + m, n + m), dtype=Pb.dtype, device=Pb.device)
@@ -266,7 +284,7 @@ def _factor(Pb, Ab, rho_v, sigma, method: str):
     K[..., :n, n:] = AbT
     K[..., n:, :n] = Ab
     K[..., n:, n:] = torch.diag_embed(-1.0 / rho_v)
-    return torch.linalg.inv(K)
+    return _inv(K)
 
 
 class DensePrep(NamedTuple):
@@ -294,7 +312,8 @@ def prepare_dense(P, q, A, l, u, settings: ADMMSettings) -> DensePrep:
     lb = E * l
     ub = E * u
     rho_v = _rho_vec(lb, ub, torch.as_tensor(st.rho, dtype=dtype, device=dev))
-    OP = _factor(Pb, Ab, rho_v, torch.as_tensor(st.sigma, dtype=dtype, device=dev), st.method)
+    OP = _factor(Pb, Ab, rho_v, torch.as_tensor(st.sigma, dtype=dtype, device=dev), st.method,
+                 st.precision)
     return DensePrep(Pb, qb, Ab, lb, ub, D, E, c, rho_v, OP)
 
 
@@ -321,14 +340,16 @@ def admm_solve(
     settings: ADMMSettings = ADMMSettings(),
     x0: Optional[torch.Tensor] = None,
     y0: Optional[torch.Tensor] = None,
+    on_device: bool = False,
 ) -> QPSolution:
     """Solve one QP on the device of ``P``.  All arrays dense; use IEEE
     +-inf for absent bounds.  ``x0``/``y0`` warm-start the iteration (OSQP
     ``warm_start``).  A batch of one through :func:`admm_solve_batch`
-    (with ``backend="pallas"``, one scenario in the device-loop kernel)."""
+    (with ``backend="pallas"``, one scenario in the device-loop kernel;
+    ``on_device`` as there)."""
     one = lambda a: None if a is None else a[None]  # noqa: E731
     sol = admm_solve_batch(P[None], q[None], A[None], l[None], u[None], settings,
-                           one(x0), one(y0))
+                           one(x0), one(y0), on_device)
     return QPSolution(*(f[0] for f in sol))
 
 
@@ -341,6 +362,7 @@ def admm_solve_batch(
     settings: ADMMSettings = ADMMSettings(),
     x0: Optional[torch.Tensor] = None,
     y0: Optional[torch.Tensor] = None,
+    on_device: bool = False,
 ) -> QPSolution:
     """Solve B independent QPs, ``P (B, n, n)``, ``q (B, n)``, ``A (B, m, n)``,
     ``l``/``u (B, m)``, warm starts ``x0 (B, n)``/``y0 (B, m)``: the port's
@@ -352,10 +374,13 @@ def admm_solve_batch(
     are refactored) and polish; a scenario that has stopped keeps its
     iterates while the loop runs until every scenario has stopped.  The
     loop conditions are read on the host once per check block
-    (``backend="xla"``) or kernel entry (``"pallas"``).
+    (``backend="xla"``) or kernel entry (``"pallas"``); ``on_device``
+    (``"xla"`` only) keeps them on the device instead (``torch.while_loop``;
+    the same results), the form ``torch.export`` traces.
     """
     st = settings
-    require_highest_precision(st)
+    if on_device and st.backend != "xla":
+        raise ValueError("on_device takes the 'xla' backend (the device loop is a hand kernel)")
     if st.backend == "pallas":
         if st.method != "condensed":
             raise ValueError("backend='pallas' requires method='condensed'")
@@ -365,17 +390,27 @@ def admm_solve_batch(
     # Guard against inverted bounds from float noise.
     l = torch.minimum(l.to(dtype), u)
     prep = prepare_dense(P, q, A, l, u, st)
-    return _iterate_dense(prep, P, q, A, l, u, st, x0, y0)
+    return _iterate_dense(prep, P, q, A, l, u, st, x0, y0, on_device)
 
 
-def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> QPSolution:
+def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0,
+                   on_device: bool = False) -> QPSolution:
     """The iteration loops of :func:`admm_solve_batch` on prepared problems;
-    ``P, q, A, l, u`` are the unscaled problems, for the certificates."""
+    ``P, q, A, l, u`` are the unscaled problems, for the certificates.
+
+    ``on_device`` (the ``"xla"`` backend only): the loop conditions stay
+    on the device (one ``torch.while_loop``, an ADMM iteration a trip, the
+    adaptive-rho refactorization applied by mask) instead of being read on
+    the host; the same results, and a form ``torch.export`` can trace."""
     Pb, qb, Ab, lb, ub, D, E, c, rho_v, OP = prep
     dtype, dev = Pb.dtype, Pb.device
     B, n = qb.shape
     m = Ab.shape[-2]
     inf = float("inf")
+    prec = st.precision
+
+    def mv(M, v):
+        return _mv(M, v, prec)
 
     def scalar(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
@@ -383,6 +418,10 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> 
     sigma = scalar(st.sigma)
     alpha = scalar(st.alpha)
     AbT = Ab.transpose(-1, -2)
+    if on_device:
+        # A transposed copy with the view's strides (the same products):
+        # torch.while_loop takes no two captured tensors that alias.
+        AbT = AbT.clone()
     Einv = 1.0 / E
     Dinv = 1.0 / D
     cinv = 1.0 / c
@@ -390,15 +429,15 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> 
     x = torch.zeros((B, n), dtype=dtype, device=dev) if x0 is None else x0.to(dtype) / D
     y = (torch.zeros((B, m), dtype=dtype, device=dev) if y0 is None
          else c[:, None] * y0.to(dtype) / E)
-    z = torch.minimum(torch.maximum(_mv(Ab, x), lb), ub)
+    z = torch.minimum(torch.maximum(mv(Ab, x), lb), ub)
 
     def amax(v):
         return v.abs().amax(dim=-1)
 
     def residuals(x, z, y):
-        Ax = _mv(Ab, x)
-        Px = _mv(Pb, x)
-        Aty = _mv(AbT, y)
+        Ax = mv(Ab, x)
+        Px = mv(Pb, x)
+        Aty = mv(AbT, y)
         zero = torch.zeros((B,), dtype=dtype, device=dev)
         r_prim = amax((Ax - z) * Einv) if m else zero
         r_dual = cinv * amax((Px + qb + Aty) * Dinv)
@@ -425,7 +464,7 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> 
             t_u = torch.where(dy_p > 0, u * dy_p, torch.zeros_like(u))
             t_l = torch.where(dy_m < 0, l * dy_m, torch.zeros_like(l))
             support = torch.sum(t_u + t_l, dim=-1)
-            n_Atdy = amax(_mv(A.transpose(-1, -2), dy_u))
+            n_Atdy = amax(mv(A.transpose(-1, -2), dy_u))
             prim_inf = (
                 (ndy > tiny)
                 & (support < -st.eps_prim_inf * ndy)
@@ -438,10 +477,10 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> 
         dual_inf = (
             (ndx > tiny)
             & (torch.sum(q * dx_u, dim=-1) < -thr)
-            & (amax(_mv(P, dx_u)) < thr)
+            & (amax(mv(P, dx_u)) < thr)
         )
         if m:
-            Adx = _mv(A, dx_u)
+            Adx = mv(A, dx_u)
             t = thr[:, None]
             dual_inf = (dual_inf & torch.all((u >= inf) | (Adx < t), dim=-1)
                         & torch.all((l <= -inf) | (Adx > -t), dim=-1))
@@ -467,11 +506,17 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> 
         trigger = may & (
             (scale > st.adaptive_rho_tolerance) | (scale < 1.0 / st.adaptive_rho_tolerance)
         )
+        if on_device:
+            # Every scenario refactored, the triggered ones kept: the same
+            # values without a host read (each inverse is its own).
+            new_rho = torch.clamp(rho_v * scale[:, None], _RHO_MIN, _RHO_MAX)
+            new_OP = _factor(Pb, Ab, new_rho, sigma, st.method, prec)
+            return pick(trigger, new_rho, rho_v), pick(trigger, new_OP, OP)
         if bool(trigger.any()):
             idx = trigger.nonzero().squeeze(1)
             new_rho = torch.clamp(rho_v[idx] * scale[idx, None], _RHO_MIN, _RHO_MAX)
             rho_v = rho_v.index_put((idx,), new_rho)
-            OP = OP.index_put((idx,), _factor(Pb[idx], Ab[idx], new_rho, sigma, st.method))
+            OP = OP.index_put((idx,), _factor(Pb[idx], Ab[idx], new_rho, sigma, st.method, prec))
         return rho_v, OP
 
     # Rho (and the factorization) are constant for one adaptation
@@ -525,12 +570,12 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> 
     else:
         def one_iter(x, z, y, rho_v, OP):
             if st.method == "condensed":
-                rhs = sigma * x - qb + _mv(AbT, rho_v * z - y)
-                xt = _mv(OP, rhs)
-                zt = _mv(Ab, xt)
+                rhs = sigma * x - qb + mv(AbT, rho_v * z - y)
+                xt = mv(OP, rhs)
+                zt = mv(Ab, xt)
             else:
                 rhs = torch.cat([sigma * x - qb, z - y / rho_v], dim=-1)
-                sol = _mv(OP, rhs)
+                sol = mv(OP, rhs)
                 xt = sol[:, :n]
                 zt = z + (sol[:, n:] - y) / rho_v
             x_new = alpha * xt + (1 - alpha) * x
@@ -539,36 +584,107 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0) -> 
             y_new = y + rho_v * (z_relaxed - z_new)
             return x_new, z_new, y_new
 
-        while True:
-            outer = (it < st.max_iter) & ~(done | pinf | dinf)
-            if not bool(outer.any()):
-                break
+        def outer_mask(it, done, pinf, dinf):
+            return (it < st.max_iter) & ~(done | pinf | dinf)
+
+        def inner_mask(outer, it, k, done, pinf, dinf):
             # One round per scenario: whole check blocks while k < interval,
             # it + k < max_iter and the scenario has not stopped.
-            k = torch.zeros_like(it)
-            rp = torch.full((B,), inf, dtype=dtype, device=dev)
-            rd, mp, md = rp.clone(), rp.clone(), rp.clone()
-            while True:
-                inner = outer & (k < interval) & (it + k < st.max_iter) & ~(done | pinf | dinf)
-                if not bool(inner.any()):
-                    break
+            return outer & (k < interval) & (it + k < st.max_iter) & ~(done | pinf | dinf)
+
+        def check_block(inner, rho_v, OP, k, x, z, y, done, pinf, dinf, rp, rd, mp, md,
+                        block=None):
+            """A check block from ``x, z, y`` (its iterations given as
+            ``block``, or run here), its check, kept where ``inner``."""
+            if block is None:
                 xs, zs, ys = x, z, y
                 for _ in range(ce):
                     xs, zs, ys = one_iter(xs, zs, ys, rho_v, OP)
-                rp_n, rd_n, eps_pri, eps_dua, mp_n, md_n = residuals(xs, zs, ys)
-                done_n = (rp_n <= eps_pri) & (rd_n <= eps_dua)
-                certs = certify(xs, ys, x, y, done_n)
-                if certs is not None:
-                    pinf, dinf = pick(inner, certs[0], pinf), pick(inner, certs[1], dinf)
-                x, z, y = pick(inner, xs, x), pick(inner, zs, z), pick(inner, ys, y)
-                done = pick(inner, done_n, done)
-                rp, rd = pick(inner, rp_n, rp), pick(inner, rd_n, rd)
-                mp, md = pick(inner, mp_n, mp), pick(inner, md_n, md)
-                k = k + ce * inner.to(k.dtype)
-            it = it + k
+            else:
+                xs, zs, ys = block
+            rp_n, rd_n, eps_pri, eps_dua, mp_n, md_n = residuals(xs, zs, ys)
+            done_n = (rp_n <= eps_pri) & (rd_n <= eps_dua)
+            certs = certify(xs, ys, x, y, done_n)
+            if certs is not None:
+                pinf, dinf = pick(inner, certs[0], pinf), pick(inner, certs[1], dinf)
+            x, z, y = pick(inner, xs, x), pick(inner, zs, z), pick(inner, ys, y)
+            done = pick(inner, done_n, done)
+            rp, rd = pick(inner, rp_n, rp), pick(inner, rd_n, rd)
+            mp, md = pick(inner, mp_n, mp), pick(inner, md_n, md)
+            return k + ce * inner.to(k.dtype), x, z, y, done, pinf, dinf, rp, rd, mp, md
+
+        def end_round(it, k, outer, x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual,
+                      rp, rd, mp, md):
             r_prim, r_dual = pick(outer, rp, r_prim), pick(outer, rd, r_dual)
             if adaptive:
                 rho_v, OP = adapt_rho(rho_v, OP, rp, rd, mp, md, outer & ~done)
+            return it + k, x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual
+
+        def inf_b():
+            return torch.full((B,), inf, dtype=dtype, device=dev)
+
+        if not on_device:
+            s = (it, x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual)
+            while True:
+                it, x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual = s
+                outer = outer_mask(it, done, pinf, dinf)
+                if not bool(outer.any()):
+                    break
+                b = (torch.zeros_like(it), x, z, y, done, pinf, dinf,
+                     inf_b(), inf_b(), inf_b(), inf_b())
+                while True:
+                    inner = inner_mask(outer, it, b[0], *b[4:7])
+                    if not bool(inner.any()):
+                        break
+                    b = check_block(inner, rho_v, OP, *b)
+                k, x, z, y, done, pinf, dinf, rp, rd, mp, md = b
+                s = end_round(it, k, outer, x, z, y, rho_v, OP, done, pinf, dinf, r_prim,
+                              r_dual, rp, rd, mp, md)
+        else:
+            # One torch.while_loop (nested ones do not export beside the
+            # derivative code's grad-mode regions), one ADMM iteration per
+            # trip, the host loops' order exactly: a trip that starts a
+            # round takes its outer mask, a trip that starts a check block
+            # its inner mask (an empty one ends the round: that trip
+            # changes nothing else), and the trip that ends a block checks
+            # it.  `xs` carries the block's iterates, `x` the last check's.
+            def trip(in_round, j, inner, outer, it, k, xs, zs, ys, x, z, y, rho_v, OP, done,
+                     pinf, dinf, r_prim, r_dual, rp, rd, mp, md):
+                start = ~in_round
+                outer = torch.where(start, outer_mask(it, done, pinf, dinf), outer)
+                k = torch.where(start, torch.zeros_like(k), k)
+                rp, rd, mp, md = (torch.where(start, inf_b(), v) for v in (rp, rd, mp, md))
+                first = j == 0
+                inner = torch.where(first, inner_mask(outer, it, k, done, pinf, dinf), inner)
+                end = first & ~inner.any()
+                xs, zs, ys = (torch.where(first, a, b) for a, b in ((x, xs), (z, zs), (y, ys)))
+                xs, zs, ys = one_iter(xs, zs, ys, rho_v, OP)
+                last = j == ce - 1
+                checked = check_block(inner, rho_v, OP, k, x, z, y, done, pinf, dinf,
+                                      rp, rd, mp, md, (xs, zs, ys))
+                k, x, z, y, done, pinf, dinf, rp, rd, mp, md = (
+                    torch.where(last, a, b) for a, b in zip(
+                        checked, (k, x, z, y, done, pinf, dinf, rp, rd, mp, md)))
+                ended = end_round(it, k, outer, x, z, y, rho_v, OP, done, pinf, dinf, r_prim,
+                                  r_dual, rp, rd, mp, md)
+                kept = (it, x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual)
+                it, x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual = (
+                    torch.where(end, e, c) for e, c in zip(ended, kept))
+                j = torch.where(end | last, torch.zeros_like(j), j + 1)
+                return tuple(t.clone() for t in (
+                    ~end, j, inner, outer, it, k, xs, zs, ys, x, z, y, rho_v, OP, done, pinf,
+                    dinf, r_prim, r_dual, rp, rd, mp, md))
+
+            false_b = torch.zeros((B,), dtype=torch.bool, device=dev)
+            s = (torch.zeros((), dtype=torch.bool, device=dev),
+                 torch.zeros((), dtype=torch.int64, device=dev), false_b, false_b, it,
+                 torch.zeros_like(it), x, z, y, x, z, y, rho_v, OP, done, pinf, dinf, r_prim,
+                 r_dual, inf_b(), inf_b(), inf_b(), inf_b())
+            s = torch.while_loop(
+                lambda *s: s[0] | outer_mask(s[4], *s[14:17]).any(), trip,
+                tuple(t.clone() for t in s))
+            it = s[4]
+            x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual = s[9:19]
 
     if st.polish and m:
         x, y, z, r_prim, r_dual = _polish(
@@ -625,15 +741,19 @@ def _polish(Pb, qb, Ab, lb, ub, x, y, z, r_prim, r_dual, residuals, st):
     K[..., n:, :n] = SA
     K[..., n:, n:] = torch.diag_embed(S - 1.0 - delta)
     rhs = torch.cat([-qb, S * b_act], dim=-1)
-    Kinv = torch.linalg.inv(K)
-    sol = _mv(Kinv, rhs)
+    Kinv = _inv(K)
+
+    def mv(M, v):
+        return _mv(M, v, st.precision)
+
+    sol = mv(Kinv, rhs)
     # One iterative-refinement step vs the unregularized KKT operator.
     K0 = K - delta * torch.eye(n + m, dtype=dtype, device=dev)
-    sol = sol + _mv(Kinv, rhs - _mv(K0, sol))
+    sol = sol + mv(Kinv, rhs - mv(K0, sol))
 
     x_p = sol[..., :n]
     y_p = torch.where(active, sol[..., n:], torch.zeros_like(y))
-    z_p = torch.minimum(torch.maximum(_mv(Ab, x_p), lb), ub)
+    z_p = torch.minimum(torch.maximum(mv(Ab, x_p), lb), ub)
     rp_p, rd_p, _, _, _, _ = residuals(x_p, z_p, y_p)
     better = (rp_p <= r_prim) & (rd_p <= r_dual)
     b1 = better[..., None]

@@ -23,12 +23,21 @@ The API is split prepare/iterate:
   valid for every SQP iteration).
 * :func:`admm_iterate_prepared` — the iteration loop.
   ``settings.backend`` picks it: ``"xla"`` is :func:`_admm_iterate_impl`,
-  the loop in PyTorch ops whose products are ``torch.matmul`` (true f32);
-  ``"pallas"`` (condensed method) is :func:`_admm_iterate_fused`, the
-  chunk driver around the hand-written CUDA kernel of
-  :mod:`..ops.shared_kernel`.  Both are eager: the loop conditions (all
-  scenarios done, the adaptive-rho trigger) are read on the host once per
-  check block or chunk.
+  the loop in PyTorch ops whose products are ``torch.matmul``;
+  ``"pallas"`` (condensed method, ``precision="highest"``) is
+  :func:`_admm_iterate_fused`, the chunk driver around the hand-written
+  CUDA kernel of :mod:`..ops.shared_kernel`.  Both are eager: the loop
+  conditions (all scenarios done, the adaptive-rho trigger) are read on
+  the host once per check block or chunk.
+
+Precision, as in JAX: ``settings.precision`` is the ambient precision of
+every product (prepare, residuals, certificates, refactorizations; see
+:func:`..ops.shared_kernel.precision_matmul`), and the condensed
+iteration products run at ``settings.iter_precision`` whatever it is
+(``"highest"``, or ``HIGH``: bf16_3x for the rhs and x products, and for
+``zt`` at ``"high"``).  The fused-GEMM form computes its one product at
+the x products' precision, ``zt`` included, even at ``"mixed"`` (JAX's
+quirk, kept).
 
 Semantics match :mod:`.admm` (OSQP as configured by the reference): Ruiz
 equilibration, per-row rho with equality scaling, relaxation alpha, sigma
@@ -42,7 +51,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.shared_kernel import pick_shared_tile, shared_admm_chunk
+from ..ops.shared_kernel import (
+    matmul_split,
+    pick_shared_tile,
+    precision_matmul,
+    shared_admm_chunk,
+    split_bf16,
+)
 from .admm import (
     ADMMSettings,
     _RHO_EQ_OVER_RHO_INEQ,
@@ -51,7 +66,6 @@ from .admm import (
     _RHO_TOL,
     _factor,
     _limit_scaling,
-    require_highest_precision,
     ruiz_equilibrate,
 )
 
@@ -108,16 +122,18 @@ def _shared_rho_vec(l, u, rho):
     return torch.where(loose, torch.full_like(rho_v, _RHO_MIN), rho_v)
 
 
-def _fused_operator(OP, Ab):
+def _fused_operator(OP, Ab, precision="highest"):
     """Block operator for the single-GEMM condensed iteration.
 
     ``[xt | zt] = [sigma*x - qb | rho*z - y] @ M2`` with
     ``M2 = [[OP, OP A^T], [A OP, A OP A^T]]`` reproduces the 3-GEMM
     iteration's fixed point exactly; see ``ADMMSettings.fused_gemm``.
+    Its products at ``precision``.
     """
-    top = torch.cat([OP, OP @ Ab.T], dim=1)
-    AbOP = Ab @ OP
-    bottom = torch.cat([AbOP, AbOP @ Ab.T], dim=1)
+    mm = lambda a, w: precision_matmul(a, w, precision)  # noqa: E731
+    top = torch.cat([OP, mm(OP, Ab.T)], dim=1)
+    AbOP = mm(Ab, OP)
+    bottom = torch.cat([AbOP, mm(AbOP, Ab.T)], dim=1)
     return torch.cat([top, bottom], dim=0)
 
 
@@ -133,9 +149,9 @@ def prepare_shared(
     q_typical: Optional[torch.Tensor],  # (B, n) representative linear terms
     settings: ADMMSettings,
 ) -> SharedQPFactor:
-    """Equilibrate, choose per-row rho, and factorize — once per solve."""
+    """Equilibrate, choose per-row rho, and factorize — once per solve
+    (``A^T R A`` at ``settings.precision``)."""
     st = settings
-    require_highest_precision(st)
     dtype, dev = P.dtype, P.device
     n = P.shape[0]
     Pb0, _, Ab, D, E, c0 = ruiz_equilibrate(
@@ -153,7 +169,7 @@ def prepare_shared(
     rho0 = torch.as_tensor(st.rho, dtype=dtype, device=dev)
     rho_v = _shared_rho_vec(l * E[None, :], u * E[None, :], rho0)
     sigma = torch.as_tensor(st.sigma, dtype=dtype, device=dev)
-    OP = _factor_shared(Pb, Ab, rho_v, sigma, st.method)
+    OP = _factor_shared(Pb, Ab, rho_v, sigma, st.method, st.precision)
     return SharedQPFactor(Pb=Pb, Ab=Ab, D=D, E=E, c=c, rho_v=rho_v, OP=OP)
 
 
@@ -171,18 +187,21 @@ def admm_iterate_prepared(
 
     With ``settings.backend == "pallas"`` and the condensed method the
     loop runs as rho-constant chunks of the fused kernel
-    (:mod:`..ops.shared_kernel`); semantics match the ``"xla"`` loop,
-    except that infeasibility certificates are evaluated once per chunk
-    instead of once per check block (as on the banded batch path) and
-    that a batch above the JAX package's tile limit votes on termination
-    per tile (``pick_shared_tile``).  The KKT method, ``m == 0`` and a
-    problem whose working set fits at no tile take the ``"xla"`` loop, as
-    in the JAX package.
+    (:mod:`..ops.shared_kernel`, its tensor-core form at
+    ``iter_precision`` ``"high"``/``"mixed"``); semantics match the
+    ``"xla"`` loop, except that infeasibility certificates are evaluated
+    once per chunk instead of once per check block (as on the banded batch
+    path) and that a batch above the JAX package's tile limit votes on
+    termination per tile (``pick_shared_tile``).  The KKT method,
+    ``m == 0``, ``precision != "highest"`` (the kernel computes at f32;
+    JAX takes its XLA loop so the backends cannot differ) and a problem
+    whose working set fits at no tile take the ``"xla"`` loop, as in the
+    JAX package.
     """
-    require_highest_precision(settings)
     if (
         settings.backend == "pallas"
         and settings.method == "condensed"
+        and settings.precision == "highest"
         and fac.Ab.shape[0] > 0
     ):
         return _admm_iterate_fused(fac, q, l, u, settings, x0, y0)
@@ -200,6 +219,10 @@ def _shared_certificates(dx_b, dy_b, Pb, Ab, D, E, cinv, q_orig, l, u, st):
     Einv = 1.0 / E
     inf = float("inf")
     tiny = 1e-12
+
+    def mm(a, w):
+        return precision_matmul(a, w, st.precision)
+
     dx_u = dx_b * D[None, :]
     dy_u = dy_b * E[None, :] * cinv
     # -- primal infeasibility: delta_y with A^T dy ~ 0 and support
@@ -214,7 +237,7 @@ def _shared_certificates(dx_b, dy_b, Pb, Ab, D, E, cinv, q_orig, l, u, st):
     t_l = torch.where(dy_m < 0, l * dy_m, torch.zeros_like(l))
     support = torch.sum(t_u + t_l, dim=1)
     # A^T dy_u = c^-1 D^-1 (Ab^T dy_scaled): feed the scaled delta.
-    n_Atdy = (((dy_b @ Ab) * Dinv[None, :]).abs() * cinv).amax(dim=1)
+    n_Atdy = ((mm(dy_b, Ab) * Dinv[None, :]).abs() * cinv).amax(dim=1)
     pinf = (
         (ndy > tiny)
         & (support < -st.eps_prim_inf * ndy)
@@ -225,9 +248,9 @@ def _shared_certificates(dx_b, dy_b, Pb, Ab, D, E, cinv, q_orig, l, u, st):
     ndx = dx_u.abs().amax(dim=1)
     thr = st.eps_dual_inf * ndx
     cond_q = torch.sum(q_orig * dx_u, dim=1) < -thr
-    Pdx = cinv * (dx_b @ Pb) * Dinv[None, :]
+    Pdx = cinv * mm(dx_b, Pb) * Dinv[None, :]
     cond_P = Pdx.abs().amax(dim=1) < thr
-    Adx = (dx_b @ Ab.T) * Einv[None, :]
+    Adx = mm(dx_b, Ab.T) * Einv[None, :]
     cond_A = torch.all((u >= inf) | (Adx < thr[:, None]), dim=1) & torch.all(
         (l <= -inf) | (Adx > -thr[:, None]), dim=1
     )
@@ -235,7 +258,7 @@ def _shared_certificates(dx_b, dy_b, Pb, Ab, D, E, cinv, q_orig, l, u, st):
     return pinf, dinf
 
 
-def _scaled_start(fac, q, l, u, x0, y0):
+def _scaled_start(fac, q, l, u, x0, y0, precision):
     """The scaled problem data and starting iterates of one solve."""
     dtype = fac.Pb.dtype
     B, n = q.shape
@@ -250,7 +273,7 @@ def _scaled_start(fac, q, l, u, x0, y0):
     dev = q.device
     x = torch.zeros((B, n), dtype=dtype, device=dev) if x0 is None else x0.to(dtype) / D[None, :]
     y = torch.zeros((B, m), dtype=dtype, device=dev) if y0 is None else c * y0.to(dtype) / E[None, :]
-    z = torch.minimum(torch.maximum(x @ Ab.T, lb), ub)
+    z = torch.minimum(torch.maximum(precision_matmul(x, Ab.T, precision), lb), ub)
     return l, u, q_orig, qb, lb, ub, x, z, y
 
 
@@ -294,7 +317,7 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
         # The JAX driver's working set fits at no tile: its XLA loop.
         return _admm_iterate_impl(fac, q, l, u, settings, x0, y0)
 
-    l, u, q_orig, qb, lb, ub, x, z, y = _scaled_start(fac, q, l, u, x0, y0)
+    l, u, q_orig, qb, lb, ub, x, z, y = _scaled_start(fac, q, l, u, x0, y0, st.precision)
 
     pad_b = (-B) % batch_tile
     Bp = B + pad_b
@@ -342,6 +365,7 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
             eps_abs=float(st.eps_abs),
             eps_rel=float(st.eps_rel),
             batch_tile=batch_tile,
+            iter_precision=st.iter_precision,
         )
         _admm_iterate_fused.chunks += 1
         ran = it_inc > 0
@@ -374,7 +398,7 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
             ) & act.any()
             if bool(trigger):
                 rho = torch.clamp(rho * scale, _RHO_MIN, _RHO_MAX)
-                OP = _factor_shared(Pb, Ab, rho, sigma, st.method).contiguous()
+                OP = _factor_shared(Pb, Ab, rho, sigma, st.method, st.precision).contiguous()
     return BatchQPSolution(
         x=(x * D[None, :])[:B],
         y=(y * E[None, :] * cinv)[:B],
@@ -395,7 +419,8 @@ _admm_iterate_fused.chunks = 0
 def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
     """The ``"xla"`` backend: the whole loop in PyTorch ops.  Its products
     are outside any kernel of the JAX package, so they are ``torch.matmul``
-    here (TF32 off)."""
+    here (TF32 off), on bf16 hi/lo splits where a precision asks for
+    ``HIGH`` (the operators split once per factorization)."""
     dtype = fac.Pb.dtype
     st = settings
     B, n = q.shape
@@ -409,26 +434,44 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
         # The loop carries the (n+m, n+m) block operator instead of OP;
         # a rho adaptation refactors OP and rebuilds it (rare).  The JAX
         # package computes this branch's zt at the x-update's precision
-        # even under iter_precision="mixed"; with only "highest" ported
-        # the two coincide.
-        OP = _fused_operator(OP, Ab)
+        # even under iter_precision="mixed", and so does the port.
+        OP = _fused_operator(OP, Ab, st.precision)
 
-    l, u, q_orig, qb, lb, ub, x, z, y = _scaled_start(fac, q, l, u, x0, y0)
+    l, u, q_orig, qb, lb, ub, x, z, y = _scaled_start(fac, q, l, u, x0, y0, st.precision)
     AbT = Ab.T
+
+    def mm(a, w):
+        return precision_matmul(a, w, st.precision)
+
+    # The iteration products' precision (ADMMSettings.iter_precision): at
+    # HIGH each takes its operator's bf16 hi/lo split, made once per
+    # factorization.
+    high_x = st.iter_precision != "highest"
+    high_z = st.iter_precision == "high"
+    Ab_s = split_bf16(Ab) if high_x else None
+    AbT_s = split_bf16(AbT) if high_z else None
+
+    def op_split(OP):
+        return split_bf16(OP) if high_x else None
+
+    def prod(a, w, w_split):
+        return a @ w if w_split is None else matmul_split(a, w_split)
+
+    OP_s = op_split(OP)
 
     def one_iter(x, z, y, rho, OP):
         if fused:
             # One (B, n+m) @ (n+m, n+m) GEMM per iteration.
-            xtzt = torch.cat([sigma * x - qb, rho[None, :] * z - y], dim=1) @ OP
+            xtzt = prod(torch.cat([sigma * x - qb, rho[None, :] * z - y], dim=1), OP, OP_s)
             xt = xtzt[:, :n]
             zt = xtzt[:, n:]
         elif st.method == "condensed":
-            rhs = sigma * x - qb + (rho[None, :] * z - y) @ Ab
-            xt = rhs @ OP
-            zt = xt @ AbT
+            rhs = sigma * x - qb + prod(rho[None, :] * z - y, Ab, Ab_s)
+            xt = prod(rhs, OP, OP_s)
+            zt = prod(xt, AbT, AbT_s)
         else:
             rhs = torch.cat([sigma * x - qb, z - y / rho[None, :]], dim=1)
-            sol = rhs @ OP  # OP symmetric (quasi-definite KKT inverse)
+            sol = mm(rhs, OP)  # OP symmetric (quasi-definite KKT inverse)
             xt = sol[:, :n]
             zt = z + (sol[:, n:] - y) / rho[None, :]
         x_new = alpha * xt + (1 - alpha) * x
@@ -445,9 +488,9 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
         return a.abs().amax(dim=1)
 
     def residuals(x, z, y):
-        Ax = x @ AbT
-        Px = x @ Pb  # Pb symmetric
-        Aty = y @ Ab
+        Ax = mm(x, AbT)
+        Px = mm(x, Pb)  # Pb symmetric
+        Aty = mm(y, Ab)
         r_prim = rowmax((Ax - z) * Einv[None, :])
         r_dual = cinv * rowmax((Px + qb + Aty) * Dinv[None, :])
         max_prim = torch.maximum(rowmax(Ax * Einv[None, :]), rowmax(z * Einv[None, :]))
@@ -503,9 +546,10 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
             )
             if not all_done and bool(trigger):
                 rho = torch.clamp(rho * scale, _RHO_MIN, _RHO_MAX)
-                OP = _factor_shared(Pb, Ab, rho, sigma, st.method)
+                OP = _factor_shared(Pb, Ab, rho, sigma, st.method, st.precision)
                 if fused:
-                    OP = _fused_operator(OP, Ab)
+                    OP = _fused_operator(OP, Ab, st.precision)
+                OP_s = op_split(OP)
 
     return BatchQPSolution(
         x=x * D[None, :],

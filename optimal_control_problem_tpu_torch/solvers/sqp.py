@@ -189,6 +189,7 @@ def build_local_system_parts(
     formulation: str,
     dtype,
     hessian_reg="auto",
+    autograd: bool = False,
 ):
     """Composable pieces of the dense local-QP assembly.
 
@@ -212,10 +213,24 @@ def build_local_system_parts(
 
     Derivatives come from ``torch.func``; every output is cast back to
     ``dtype`` (forward mode promotes ``tensor / python_float`` tangents to
-    float64).
+    float64).  ``autograd=True`` takes them from ``torch.autograd.functional``
+    instead, the form ``torch.export`` traces (its trace of the
+    ``torch.func`` transforms fails); the values are the same derivatives.
     """
     if formulation not in ("augmented", "reduced"):
         raise ValueError(f"unknown formulation {formulation!r}")
+    if autograd:
+        fn = torch.autograd.functional
+
+        def hessian(f):
+            return lambda z: fn.hessian(f, z)
+
+        def jacfwd(f):
+            return lambda z: fn.jacobian(f, z)
+
+        grad = jacfwd
+    else:
+        hessian, jacfwd, grad = torch.func.hessian, torch.func.jacfwd, torch.func.grad
 
     def _regularize(H):
         """Convexify an indefinite objective Hessian (SQPOptions.hessian_reg):
@@ -246,16 +261,16 @@ def build_local_system_parts(
 
         def matrices_raw(x, p):
             z = torch.cat([p, x]).to(dtype)
-            H = torch.func.hessian(f_z)(z).to(dtype)
+            H = hessian(f_z)(z).to(dtype)
             if g_fn is None:
                 A = torch.eye(nz, dtype=dtype, device=z.device)
             else:
-                A = torch.func.jacfwd(c_z)(z).to(dtype)
+                A = jacfwd(c_z)(z).to(dtype)
             return H, A
 
         def vectors(x, p):
             z = torch.cat([p, x]).to(dtype)
-            return torch.func.grad(f_z)(z).to(dtype), c_z(z).to(dtype)
+            return grad(f_z)(z).to(dtype), c_z(z).to(dtype)
 
         def stack_bounds(p, lbx, ubx, lbg, ubg):
             return (
@@ -267,18 +282,18 @@ def build_local_system_parts(
 
         def matrices_raw(x, p):
             x = x.to(dtype)
-            H = torch.func.hessian(lambda xx: f_fn(xx, p))(x).to(dtype)
+            H = hessian(lambda xx: f_fn(xx, p))(x).to(dtype)
             A = torch.eye(n_x, dtype=dtype, device=x.device)
             if g_fn is not None:
-                J = torch.func.jacfwd(lambda xx: g_fn(xx, p))(x).to(dtype)
+                J = jacfwd(lambda xx: g_fn(xx, p))(x).to(dtype)
                 A = torch.cat([A, J], dim=0)
             return H, A
 
         def vectors(x, p):
             x = x.to(dtype)
-            grad = torch.func.grad(lambda xx: f_fn(xx, p))(x).to(dtype)
+            g = grad(lambda xx: f_fn(xx, p))(x).to(dtype)
             cval = x if g_fn is None else torch.cat([x, g_fn(x, p).to(dtype)])
-            return grad, cval
+            return g, cval
 
         def stack_bounds(p, lbx, ubx, lbg, ubg):
             return (
@@ -323,6 +338,7 @@ class SQPOptimizationSolver:
         self._verbose = options.verbose
         banded = options.admm.method == "banded"
 
+        self._custom_parts = local_system_parts is not None
         if local_system_parts is not None:
             # Structured override (stagewise.py): the caller supplies the
             # (matrices, matrices_raw, vectors, stack_bounds) tuple.
@@ -455,12 +471,27 @@ class SQPOptimizationSolver:
             return self._step
         return torch.func.vmap(self._step)
 
-    def _build_solve_fn(self):
+    def _build_solve_fn(self, export: bool = False):
         """Single-scenario solve on the dense local QP: per step the
-        ``torch.func`` assembly, then :func:`.admm.admm_solve`."""
+        ``torch.func`` assembly, then :func:`.admm.admm_solve`.
+
+        The function carries ``kernel`` (the hand kernel it reaches, the
+        dense device loop at ``backend="pallas"``, else None) and
+        ``export_form``: its twin for ``torch.export``
+        (``utils/serialization.export_solver``), built with ``export=True``
+        — derivatives through ``torch.autograd.functional``, the ADMM loop
+        and the early exit decided on the device, the :class:`SQPResult`
+        fields returned as a tuple; the same results.  Solvers on custom
+        (stage-wise) local-system parts have no export form."""
         opt = self.options
         dtype = opt.dtype
-        matrices, _, vectors, stack_bounds = self._parts
+        if export:
+            matrices, _, vectors, stack_bounds = build_local_system_parts(
+                self.f_fn, self.g_fn, self.n_x, self.n_p, self.n_g,
+                opt.formulation, dtype, opt.hessian_reg, autograd=True,
+            )
+        else:
+            matrices, _, vectors, stack_bounds = self._parts
         f_fn = self.f_fn
         step = self._step
         x_at = self._x_at
@@ -471,7 +502,7 @@ class SQPOptimizationSolver:
             p = p.to(dtype)
             lower, upper = stack_bounds(p, lbx, ubx, lbg, ubg)
             qpx, qpy = qp_x0, qp_y0
-            stop = False
+            stop = torch.zeros((), dtype=torch.bool, device=x.device) if export else False
             hist = []
             for _ in range(opt.max_iter):
                 H, A = matrices(x, p)
@@ -480,22 +511,39 @@ class SQPOptimizationSolver:
                     H, grad, A, lower - cval, upper - cval, opt.admm,
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
+                    on_device=export,
                 )
                 x_new, step_norm = step(x, sol.x[x_at:], p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
-                took = not stop
-                if stop:
-                    # Frozen after the ||alpha*dx|| < tol break: the same
-                    # results as the reference's loop `break`.
-                    x_new, qp_it, step_norm = x, torch.zeros_like(qp_it), torch.zeros_like(step_norm)
+                if export:
+                    # The host `break` below as a freeze on the device.
+                    took = ~stop
+                    x_new = torch.where(stop, x, x_new)
+                    qp_it = torch.where(stop, torch.zeros_like(qp_it), qp_it)
+                    step_norm = torch.where(stop, torch.zeros_like(step_norm), step_norm)
+                    qpx = torch.where(stop, qpx, sol.x)
+                    qpy = torch.where(stop, qpy, sol.y)
+                    if early:
+                        stop = stop | (step_norm < tol)
                 else:
-                    qpx, qpy = sol.x, sol.y
-                    stop = early and bool(step_norm < tol)
+                    took = torch.as_tensor(not stop, device=x.device)
+                    if stop:
+                        # Frozen after the ||alpha*dx|| < tol break: the
+                        # same results as the reference's loop `break`.
+                        x_new, qp_it = x, torch.zeros_like(qp_it)
+                        step_norm = torch.zeros_like(step_norm)
+                    else:
+                        qpx, qpy = sol.x, sol.y
+                        stop = early and bool(step_norm < tol)
                 x = x_new
                 hist.append((f_fn(x, p), qp_it, step_norm, sol.converged, sol.prim_inf,
-                             sol.dual_inf, torch.as_tensor(took, device=x.device)))
-            return _result(x, qpx, qpy, hist)
+                             sol.dual_inf, took))
+            res = _result(x, qpx, qpy, hist)
+            return tuple(res) if export else res
 
+        solve.kernel = "admm_device_loop" if opt.admm.backend == "pallas" else None
+        if not export:
+            solve.export_form = None if self._custom_parts else self._build_solve_fn(export=True)
         return solve
 
     def _build_solve_batch_fn(self):
@@ -578,6 +626,7 @@ class SQPOptimizationSolver:
                              sol.dual_inf, took))
             return _result(x, qpx, qpy, hist)
 
+        solve_batch.kernel = "shared_admm_chunk" if opt.admm.backend == "pallas" else None
         return solve_batch
 
     def _build_solve_dense_batch_fn(self):
@@ -638,6 +687,7 @@ class SQPOptimizationSolver:
                         "qp_prim_inf", "qp_dual_inf")
             return res._replace(**{k: getattr(res, k).T for k in per_step})
 
+        solve_batch.kernel = "admm_device_loop" if opt.admm.backend == "pallas" else None
         return solve_batch
 
     def _build_solve_banded_fn(self):
@@ -686,6 +736,8 @@ class SQPOptimizationSolver:
                              sol.prim_inf, sol.dual_inf, took))
             return _result(x, qpx, qpy, hist)
 
+        solve.kernel = None
+        solve.export_form = None
         return solve
 
     def _build_solve_banded_batch_fn(self):
@@ -766,6 +818,7 @@ class SQPOptimizationSolver:
                 hist.append((f_b(x, p), qp_it, step_norm, s_conv, s_pinf, s_dinf, took))
             return _result(x, qpxT.T, qpyT.T, hist)
 
+        solve_batch.kernel = "banded_admm_chunk / banded_admm_chunk_rolled / banded_admm_chunk_cr"
         return solve_batch
 
     # -- reference-parity stateful API ----------------------------------

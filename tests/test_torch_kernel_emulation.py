@@ -1,5 +1,6 @@
 """The port's five CUDA kernels run on the CPU through a thread emulation of
-CUDA, each held bitwise to its plain PyTorch version.
+CUDA, each held bitwise to its plain PyTorch version (B3's tensor-core form
+at a tolerance: see its test).
 
 There is no GPU or ``nvcc`` here, so each ``csrc/*.cu`` is compiled with
 ``g++ -std=c++20 -ffp-contract=off`` (no FMA contraction, as ``nvcc
@@ -16,6 +17,13 @@ for the CUDA runtime:
   not exited waits at it, ``__syncwarp()`` likewise over the warp;
   ``__syncthreads_or/and``, ``__any_sync`` and the shuffles go through
   exchange arrays between two barriers;
+* ``mma_bf16_16816`` (the one device function that issues ``mma.sync``
+  m16n8k16 bf16) is a warp-collective stand-in: each lane hands its A, B
+  and C fragment registers to an exchange array, every lane rebuilds the
+  warp's 16x16 A, 16x8 B and C from them by the PTX fragment layout and
+  computes its own D elements (the exact dot product of the bf16 values,
+  plus C, rounded once to float32), so a fragment-layout error in the
+  kernel shows here;
 * ``__shared__`` arrays are ``static``, ``extern __shared__`` is a buffer of
   the launch's size, ``__ldg`` a plain load, the ``cuda_pipeline.h`` copies
   synchronous ones, and the attribute and occupancy calls are stubs with
@@ -92,6 +100,9 @@ struct uint3 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 typedef int cudaError_t;
 typedef struct CUstream_st* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
@@ -121,6 +132,7 @@ struct Block {
   std::vector<int> warp_live, at_warp;
   std::vector<int> xi;            // per-thread exchange slots (votes)
   std::vector<std::uint32_t> xw;  // per-thread exchange slots (shuffles)
+  std::vector<std::uint32_t> xm;  // per-thread exchange slots (mma fragments, 10 words)
   std::vector<unsigned char> dyn;
   std::function<void()> body;
   ucontext_t sched;
@@ -199,6 +211,7 @@ void launch(K kernel, Cfg c, A... args) {
         }
         b.xi.assign(nt, 0);
         b.xw.assign(nt, 0);
+        b.xm.assign(10 * nt, 0);
         b.dyn.assign(c.smem + 16, 0);
         b.body = [&] { kernel(args...); };
         b.f.resize(nt);
@@ -297,6 +310,51 @@ inline int __any_sync(unsigned, int p) {
   for (int i = 0; i < emu::nwarp_threads(base / 32); ++i) r |= emu::blk->xi[base + i];
   __syncwarp();
   return r;
+}
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 for the warp, by
+// the PTX fragment layout (lane l: g = l / 4, t = l % 4; the lower index in
+// the low 16 bits): a[e] holds A row g + 8 (e & 1) at columns
+// 2t + 8 (e >> 1) + {0, 1}; b[e] B rows 2t + 8 e + {0, 1} of column g;
+// d[e] D row g + 8 (e >> 1), column 2t + (e & 1).
+#define OCP_MMA_EMULATED 1
+inline float emu_bf16(std::uint32_t h) {
+  const std::uint32_t u = (h & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline void mma_bf16_16816(float d[4], const unsigned a[4], const unsigned b[2]) {
+  const int base = emu::ltid & ~31, lane = emu::ltid & 31;
+  std::uint32_t* const x = emu::blk->xm.data();
+  std::uint32_t* const me = x + 10 * emu::ltid;
+  for (int e = 0; e < 4; ++e) me[e] = a[e];
+  me[4] = b[0];
+  me[5] = b[1];
+  std::memcpy(me + 6, d, 16);
+  __syncwarp();
+  float A[16][16], Bm[16][8], C[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const std::uint32_t* f = x + 10 * (base + l);
+    const int g = l >> 2, t = l & 3;
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + 8 * (e & 1), col = 2 * t + 8 * (e >> 1);
+      A[row][col] = emu_bf16(f[e]);
+      A[row][col + 1] = emu_bf16(f[e] >> 16);
+    }
+    for (int e = 0; e < 2; ++e) {
+      Bm[2 * t + 8 * e][g] = emu_bf16(f[4 + e]);
+      Bm[2 * t + 8 * e + 1][g] = emu_bf16(f[4 + e] >> 16);
+    }
+    for (int e = 0; e < 4; ++e) std::memcpy(&C[g + 8 * (e >> 1)][2 * t + (e & 1)], f + 6 + e, 4);
+  }
+  __syncwarp();
+  const int g = lane >> 2, t = lane & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    double acc = C[row][col];
+    for (int k = 0; k < 16; ++k) acc += static_cast<double>(A[row][k]) * Bm[k][col];
+    d[e] = static_cast<float>(acc);
+  }
 }
 inline int __all_sync(unsigned, int p) {
   const int base = emu::ltid & ~31;
@@ -983,3 +1041,139 @@ def test_block_rows_rule_takes_only_shapes_the_entry_point_takes(stage_rows):
                 assert stage_rows(8, n, m) == -1, (n, m)
             else:
                 assert stage_rows(rows, n, m) >= 0, (n, m, rows)
+
+
+# ---- B3's tensor-core form (iter_precision "high" / "mixed") ----------------
+
+
+def rel_gap(a, b):
+    """Largest |a - b| over the finite entries of ``b``, relative to the
+    largest of them (NaN and infinite places must agree)."""
+    fin = torch.isfinite(b)
+    assert torch.equal(torch.isfinite(a), fin) and torch.equal(torch.isnan(a), torch.isnan(b))
+    if not bool(fin.any()):
+        return 0.0
+    return float((a[fin] - b[fin]).abs().max() / b[fin].abs().max().clamp(min=1e-30))
+
+
+# (B, n, m, rows, mode, variation).  n=40, m=36: the rhs product's K = m
+# pads to 48, the x and z products' to 48; n=232, m=12: fifteen n8 tiles
+# for a warp's 29 in the x product, two m16 tiles at 32 rows.  Variations:
+# one forced iteration (check_every 1), a forced budget of 10 iterations,
+# converging, four termination groups with one done at entry, a NaN
+# scenario.
+TC_CASES = [
+    (16, 40, 36, 16, "high", "one"),
+    (32, 40, 36, 32, "mixed", "one"),
+    (16, 40, 36, 16, "mixed", "forced"),
+    (32, 40, 36, 32, "high", "converging"),
+    (64, 40, 36, 16, "high", "groups"),
+    (16, 40, 36, 16, "high", "nan"),
+    (16, 40, 36, 16, "mixed", "nan"),
+    (32, 232, 12, 32, "high", "one"),
+]
+
+# Tolerances of the tensor-core form against its plain version, relative to
+# each output's largest finite magnitude.  Both split every operand into
+# the same bf16 hi/lo bits and sum exact products in float32; they differ
+# only in the order of the sums (the tensor core's, here the emulation's
+# one rounding per mma, against torch.matmul's).  That is f32 roundoff of
+# the products' terms, which exceed their result by the operator's
+# cancellation: measured after one iteration 2.7e-6 at n=40 (terms 6x the
+# result) and 4.6e-5 at n=232 (158x; FP32 chains and torch.matmul already
+# differ by 5.1e-6 there), so 1e-4; over a forced chunk of ten iterations
+# up to 7.3e-5 (n=40), so 5e-4.  A converging chunk may stop one check
+# block apart (the knife edge of the termination test: 295 against 300
+# iterations at eps 1e-4 here); its iterates agree to the tolerance's
+# scale, 1e-3.
+TC_ONE_ITER = 1e-4
+TC_CHUNK = 5e-4
+TC_CONVERGED = 1e-3
+
+
+@pytest.mark.parametrize("B,n,m,rows,mode,variation", TC_CASES,
+                         ids=[f"B{c[0]}-n{c[1]}-m{c[2]}-rows{c[3]}-{c[4]}-{c[5]}" for c in TC_CASES])
+def test_shared_chunk_tc_emulated_matches_plain(emulate, B, n, m, rows, mode, variation):
+    args, kw = shared_chunk_case(B, n, m)
+    args = list(args)
+    kw = {**kw, "iter_precision": mode}
+    if variation == "one":
+        kw = {**kw, "eps_abs": 0.0, "eps_rel": 0.0, "check_every": 1}
+        args[1] = 1
+    elif variation == "forced":
+        kw = {**kw, "eps_abs": 0.0, "eps_rel": 0.0}
+        args[1] = 7
+    elif variation == "converging":
+        args[1] = 1000
+    elif variation == "nan":
+        args[8] = args[8].clone()
+        args[8][1] = float("nan")
+        args[1] = 10
+    else:
+        kw = {**kw, "eps_abs": 0.0, "eps_rel": 0.0, "batch_tile": B // 4}
+        args[0] = torch.zeros(B, dtype=torch.bool)
+        args[0][B // 2:3 * B // 4] = True
+        args[1] = 10
+    out_p = sk.shared_admm_chunk_plain(*args, **kw)
+    run_kw = {k: v for k, v in kw.items() if k != "iter_precision"}
+    B_, n_, m_, bound, done0, cinv = sk._contract(
+        *args[:11], args[11], *args[12:], kw["check_every"], kw["batch_tile"])
+    out_k = sk._launch_tc(done0, bound, *args[2:11], cinv, *args[12:], rows, **run_kw,
+                          iter_precision=mode)
+    assert emulate.rcs == [0]
+    if variation == "converging":
+        assert int((out_k[4] - out_p[4]).abs().max()) <= kw["check_every"]
+    else:
+        assert torch.equal(out_k[4], out_p[4])
+    limit = {"one": TC_ONE_ITER, "converging": TC_CONVERGED}.get(variation, TC_CHUNK)
+    gaps = {nm: rel_gap(a, b) for nm, a, b in zip(("x", "z", "y"), out_k[:3], out_p[:3])}
+    assert max(gaps.values()) <= limit, gaps
+    # The residuals are FP32 chains of iterates that differ by the above;
+    # a residual is a difference of nearly equal terms, so its gap is held
+    # against the magnitude it is relative to (max_prim = rp / rp_rel).
+    for i in (5, 6):
+        fin = torch.isfinite(out_p[i]) & (out_p[i + 2] > 0)
+        assert torch.equal(torch.isfinite(out_k[i]), torch.isfinite(out_p[i]))
+        scale = (out_p[i] / out_p[i + 2])[fin]
+        assert bool(((out_k[i][fin] - out_p[i][fin]).abs() <= 10 * limit * scale).all())
+        assert bool(((out_k[i + 2][fin] - out_p[i + 2][fin]).abs() <= 10 * limit).all())
+    if variation == "converging":
+        assert bool(out_k[3].all()) and bool(out_p[3].all())
+        assert 0 < int(out_k[4][0]) < 1000
+    elif variation == "nan":
+        assert not bool(out_k[3][1]) and bool((out_k[4] == 10).all())
+        assert bool(torch.isnan(out_k[0][1]).all())
+    elif variation == "groups":
+        g = slice(B // 2, 3 * B // 4)
+        assert bool((out_k[4][g] == 0).all()) and bool((out_k[4][:B // 2] == 10).all())
+        assert all(torch.equal(out_k[i][g], args[12 + i][g]) for i in range(3))
+    else:
+        assert torch.equal(out_k[3], out_p[3])
+
+
+@pytest.fixture(scope="module")
+def tc_stage_rows(emu_lib):
+    """The C entry point's ``ocp_shared_tc_stage_rows``."""
+    fn = ctypes.CDLL(str(emu_lib("shared_chunk"))).ocp_shared_tc_stage_rows
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn
+
+
+@pytest.mark.parametrize("n,m", [(120, 196), (160, 236), (40, 36), (232, 12), (600, 1200)])
+def test_tc_block_rows_rule_takes_only_shapes_the_entry_point_takes(tc_stage_rows, n, m):
+    """The tensor-core form's block-shape rule (its split panel in the
+    per-row bytes) agrees with the C entry point: a shape it picks fits
+    there, and it raises only where not even 16 rows fit.  At the main
+    path's n=120, m=196 (B=4096) it takes 32 rows with slices of 32
+    operator rows (224,896 of 232,448 bytes), at the augmented n=160,
+    m=236 32 rows with slices of 16."""
+    try:
+        rows = sk.shared_block_rows(4096, 4096, n, m, 132, tensor_cores=True)
+    except ValueError:
+        assert tc_stage_rows(16, n, m) == -1
+        return
+    assert tc_stage_rows(rows, n, m) >= 0
+    if (n, m) == (120, 196):
+        assert (rows, tc_stage_rows(rows, n, m)) == (32, 32)
+    if (n, m) == (160, 236):
+        assert (rows, tc_stage_rows(rows, n, m)) == (32, 16)

@@ -1,0 +1,129 @@
+"""The port's checkpoint/resume and solver export (``utils/serialization.py``)
+against the JAX package's — mirrors ``tests/test_serialization.py``.
+
+* The warm-start checkpoint is the same ``.npz`` (same keys) in both
+  packages, and a resumed solver continues exactly where the first would
+  (1e-6, JAX's bound; here it is bitwise).
+* ``export_solver`` traces the solver's ``export_form`` (its loop
+  conditions on the device) with ``torch.export``; the reloaded program
+  equals the direct ``solve_fn`` call to JAX's 1e-6, and both equal JAX's
+  exported artifact's answer at the SQP's converged tolerance (2e-3).  A
+  function that reaches a hand kernel is refused, its plain version never
+  traced.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from optimal_control_problem_tpu import SQPOptimizationSolver as JSolver
+from optimal_control_problem_tpu import SQPOptions as JOptions
+from optimal_control_problem_tpu import sym as JS
+from optimal_control_problem_tpu.solvers.admm import ADMMSettings as JSettings
+from optimal_control_problem_tpu.utils import serialization as jser
+from optimal_control_problem_tpu_torch import SQPOptimizationSolver, SQPOptions
+from optimal_control_problem_tpu_torch import sym as S
+from optimal_control_problem_tpu_torch.ops import build
+from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
+from optimal_control_problem_tpu_torch.utils.serialization import (
+    enable_compilation_cache,
+    export_solver,
+    import_solver,
+    load_solver_state,
+    save_solver_state,
+)
+from torch_threads import one_torch_thread  # noqa: F401
+
+ARG = {
+    "lbx": np.array([-50.0, -100.0]),
+    "ubx": np.array([50.0, 100.0]),
+    "lbg": np.array([0.0]),
+    "ubg": np.array([0.0]),
+}
+
+
+def make_solver(**admm):
+    x = S.sym("x", 2)
+    nlp = {"x": x, "f": x[0] ** 2 + x[1] ** 2, "g": x[0] + x[1] - 1.0}
+    return SQPOptimizationSolver(
+        nlp, SQPOptions(max_iter=5, alpha=0.5,
+                        admm=ADMMSettings(eps_abs=1e-4, eps_rel=1e-4, **admm)),
+        device="cpu")
+
+
+def make_jax_solver():
+    x = JS.sym("x", 2)
+    nlp = {"x": x, "f": x[0] ** 2 + x[1] ** 2, "g": x[0] + x[1] - 1.0}
+    return JSolver(nlp, JOptions(max_iter=5, alpha=0.5,
+                                 admm=JSettings(eps_abs=1e-4, eps_rel=1e-4)))
+
+
+def test_warm_start_checkpoint_roundtrip(tmp_path):
+    s1 = make_solver()
+    s1.get_optimal_solution(ARG)
+    ckpt = tmp_path / "state.npz"
+    save_solver_state(s1, str(ckpt))
+    j1 = make_jax_solver()
+    j1.get_optimal_solution(ARG)
+    jckpt = tmp_path / "jstate.npz"
+    jser.save_solver_state(j1, str(jckpt))
+    with np.load(ckpt) as a, np.load(jckpt) as b:
+        assert set(a.files) == set(b.files)
+        for k in a.files:
+            assert a[k].shape == b[k].shape
+            np.testing.assert_allclose(a[k], b[k], atol=2e-3)
+    s2 = make_solver()
+    load_solver_state(s2, str(ckpt))
+    r1 = s1.get_optimal_solution(ARG)
+    r2 = s2.get_optimal_solution(ARG)
+    np.testing.assert_allclose(r1["x"].numpy(), r2["x"].numpy(), atol=1e-6)
+
+
+def test_export_import_solver_artifact(tmp_path):
+    s = make_solver()
+    path = tmp_path / "solver.pt2"
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    args = (torch.zeros(2), torch.zeros(0), f32(ARG["lbx"]), f32(ARG["ubx"]),
+            f32(ARG["lbg"]), f32(ARG["ubg"]), torch.zeros(2), torch.zeros(3))
+    export_solver(s.solve_fn, args, str(path))
+    assert path.stat().st_size > 0
+    loaded = import_solver(str(path))
+    res_direct = s.solve_fn(*args)
+    res_loaded = loaded(*args)
+    np.testing.assert_allclose(res_direct.x.numpy(), res_loaded[0].numpy(), atol=1e-6)
+    assert torch.equal(res_direct.qp_iters, res_loaded[5])
+    # Other inputs through the same program (no re-trace).
+    args2 = (f32([0.3, -0.2]),) + args[1:]
+    np.testing.assert_allclose(s.solve_fn(*args2).x.numpy(), loaded(*args2)[0].numpy(),
+                               atol=1e-6)
+    # JAX's exported artifact on the same inputs.
+    js = make_jax_solver()
+    jargs = tuple(jnp.asarray(a.numpy()) for a in args)
+    jpath = tmp_path / "solver.bin"
+    jser.export_solver(js.solve_fn, jargs, str(jpath))
+    jres = jser.import_solver(str(jpath))(*jargs)
+    np.testing.assert_allclose(res_loaded[0].numpy(), np.asarray(jres[0]), atol=2e-3)
+
+
+def test_export_refuses_hand_kernels(tmp_path):
+    """``backend="pallas"`` reaches the dense device loop: refused up front;
+    a function that calls a kernel wrapper directly is refused inside the
+    trace (the plain version is never traced in its place)."""
+    s = make_solver(method="condensed", backend="pallas")
+    with pytest.raises(ValueError, match="admm_device_loop"):
+        export_solver(s.solve_fn, (torch.zeros(2),) * 8, str(tmp_path / "x.pt2"))
+    from optimal_control_problem_tpu_torch.ops.admm_kernel import admm_device_loop
+
+    def direct(OP):
+        return admm_device_loop(OP, *([OP] * 9), 1e-6, 1.6, 1e-3, 1e-3, OP[0], OP[0],
+                                max_iter=25, check_every=25)
+
+    with pytest.raises(RuntimeError, match="hand-written CUDA kernel"):
+        export_solver(direct, (torch.eye(2)[None],), str(tmp_path / "y.pt2"))
+
+
+def test_enable_compilation_cache_moves_the_build_dir(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    enable_compilation_cache(str(tmp_path / "kernels"))
+    assert build.BUILD_DIR == (tmp_path / "kernels").resolve() and build.BUILD_DIR.is_dir()

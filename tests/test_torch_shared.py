@@ -353,9 +353,14 @@ def test_one_shot_solve_and_unported_precisions():
     # Each package factors on its own here: solver tolerance, not roundoff.
     assert bool(ts.converged.all())
     np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x), atol=2e-3)
+    # The precision variants are ported (they raised before): each solves
+    # and lands on JAX's solution at the converged tolerance of
+    # tests/test_shared_fused.py (JAX's CPU computes them in f32).
     for kw in (dict(precision="high"), dict(iter_precision="high")):
-        with pytest.raises(NotImplementedError, match="A8c"):
-            tab.admm_solve_shared(*map(t, (P, A, qs, ls, us)), ADMMSettings(**BASE, **kw))
+        js = jab.admm_solve_shared(*map(jnp.asarray, (P, A, qs, ls, us)), JSettings(**BASE, **kw))
+        ts = tab.admm_solve_shared(*map(t, (P, A, qs, ls, us)), ADMMSettings(**BASE, **kw))
+        assert bool(ts.converged.all()) and bool(js.converged.all())
+        np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x), rtol=1e-3, atol=2e-3)
 
 
 # ---- the termination group: JAX's pick_shared_tile -------------------------

@@ -271,21 +271,26 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    """Only the host backends (MIXED/IPOPT/SQP, ROADMAP A9) still raise.
-    The augmented default, the parity preset, a dense method on a stage
-    structure and the merit search build and tick (finite)."""
+    """Nothing of the problem front end raises any more: MIXED (the host
+    backend on the first tick, the banded device engine after it, ROADMAP
+    A9) builds and ticks finite, and so do the augmented default, the
+    parity preset, a dense method on a stage structure and the merit
+    search."""
     # The banded method needs a stage structure (a ValueError, as in JAX).
     with pytest.raises(ValueError, match="stage structure"):
         tcp.build(config(tcp, H=4, step_num=1), stagewise=False, device="cpu")
-    mixed = tcp.make_config(horizon=4, solve_method="MIXED", formulation="reduced")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcp.build(mixed, stagewise=True, device="cpu")
     frame, ref = tcp.initial_state(th=0.2), np.array([np.pi])
 
     def ticks(ocp):
         ocp.compute_optimal_trajectory(frame, ref)
         assert np.isfinite(ocp.get_optimal_trajectory().numpy()).all()
         return ocp
+
+    mixed = tcp.make_config(horizon=4, solve_method="MIXED", formulation="reduced")
+    ocp = ticks(tcp.build(mixed, stagewise=True, device="cpu"))
+    assert ocp.get_solver_stats() == {}  # tick 1: the host backend
+    assert ticks(ocp).get_solver_stats() != {}  # tick 2: the banded engine
+    assert ocp.solver.solve_batch_banded_fn is not None
 
     # The augmented formulation (the default without a stage structure).
     aug = ticks(tcp.build(tcp.make_config(horizon=4, step_num=1), stagewise=False,
