@@ -118,7 +118,13 @@ Phases:
      cold and steady ticks, the shared chunk on the augmented double
      integrator's steady tick; the tensor-core form on 4i's steady ticks,
      beside its plain version and a loop of torch.matmul bf16_3x
-     products).
+     products);
+  7. the multi-device paths of ``parallel/`` on the card (see ``phase7``):
+     ``DistributedSolver`` in-process over the cart-pole B=1024 batch
+     (kernel B1), ``HorizonShardedSolver`` on the cart-pole YAML h20 over
+     4 shards (3 ticks) and on a (2, 4) scenario x horizon mesh, the
+     quadrotor h100 over 4 shards, a world-size-1 NCCL group against the
+     in-process mesh, and the solves' bits with the caller's TF32 on.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -409,6 +415,274 @@ def time_ms(fn, reps, sync):
         sync()
         out.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(out)
+
+
+def phase7(dev) -> dict:
+    """Phase 7: the multi-device paths of ``parallel/`` on one card, each
+    part timed.  Returns the parts' seconds and findings.
+
+    (a) ``DistributedSolver`` in-process over ``"batch"`` of 4: the
+        cart-pole h20 banded batch of phase 4 in one call (kernel B1,
+        counted), equal to ``BatchedSolver`` within 1e-5; the consensus
+        first control equal to the mean taken by hand.
+    (b) ``HorizonShardedSolver`` on the shipped cart-pole YAML (h20) over
+        ``"h"`` of 4, 3 warm-started ticks, against the single-device front
+        end (5e-2), no infeasibility certificate, first-frame pinning; then
+        the ``("b", "h")`` mesh (2, 4): each scenario equals its 1-D solve
+        within 5e-3.
+    (c) The quadrotor h100 over ``"h"`` of 4 (25 stages a shard), a cold
+        and a warm tick: finite, pinned, no certificate; its gap to the
+        single-device banded tick (``BatchedSolver`` at B=1) is a finding.
+    (d) A world-size-1 NCCL group through ``initialize_distributed``: its
+        ``psum``, ``consensus_mean`` and ``horizon_sharded_solve`` equal
+        the in-process D=1 results bitwise.
+    (e) True f32 under a caller's TF32: a dense cart-pole tick and a
+        double-integrator tick with ``backend="xla"`` (cuBLAS loops) give
+        the same bits with TF32 switched on globally as without.
+
+    On the CPU (a rehearsal) no kernel launch is counted and gloo stands in
+    for NCCL.
+    """
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+
+    from optimal_control_problem_tpu_torch.config import load_config
+    from optimal_control_problem_tpu_torch.models import cartpole, double_integrator, quadrotor
+    from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
+    from optimal_control_problem_tpu_torch.parallel import (
+        BatchedSolver,
+        DistributedSolver,
+        HorizonShardedSolver,
+        consensus_mean,
+        horizon_sharded_solve,
+        initialize_distributed,
+        make_mesh,
+    )
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        return res
+
+    # (a) -----------------------------------------------------------------
+    def part_a():
+        B = 1024
+        cfg = cartpole.make_config(horizon=20, dt=0.04, alpha=0.3, step_num=10,
+                                   formulation="reduced", ADMM_settings=dict(MAIN_ADMM))
+        batched = BatchedSolver(cartpole.build(cfg, stagewise=True, device=dev), device=dev)
+        rng = np.random.default_rng(0)
+        frames = np.zeros((B, cartpole.FRAME), np.float32)
+        frames[:, 2] = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+        refs = np.full((B, 1), np.pi, np.float32)
+        dist = DistributedSolver(batched, make_mesh(("batch",), shape=(4,), devices=dev))
+        bk.banded_admm_chunk.launches = 0
+        trajs, _, _ = dist.solve(frames, refs, dist.init_state(B))
+        sync()
+        launches = bk.banded_admm_chunk.launches
+        ref, _, _ = batched.solve(frames, refs, batched.init_state(B))
+        gap = float((trajs - ref).abs().max())
+        u = dist.consensus_first_control(trajs, slice(4, 5))
+        u_gap = float((u - trajs[:, 4:5].mean(dim=0)).abs().max())
+        log(f"phase 7a DistributedSolver in-process over 'batch' of 4, cart-pole h20 banded "
+            f"B={B}: one-way chunk launches {launches}; max |sharded - BatchedSolver| {gap:.3g} "
+            f"(limit 1e-5); consensus first control {u.tolist()}, gap to the mean by hand "
+            f"{u_gap:.3g} (limit 1e-6)")
+        if on_card and launches != 10:
+            raise SystemExit("phase 7a: the sharded tick did not go through the one-way chunk")
+        if not (gap <= 1e-5 and u_gap <= 1e-6 and bool(torch.isfinite(trajs).all())):
+            raise SystemExit("phase 7a: the sharded batch differs from the unsharded one")
+        out["a_launches"], out["a_gap"] = launches, gap
+
+    timed("a", part_a)
+
+    # (b) -----------------------------------------------------------------
+    def yaml_cartpole(step_num, max_iter):
+        node = load_config(os.path.join(HERE, "configs", "cartpole.yaml"))
+        node["solver_settings"]["SQP_settings"] = {"alpha": 0.3, "step_num": step_num}
+        node["solver_settings"]["ADMM_settings"] = {
+            "method": "banded", "max_iter": max_iter, "adaptive_rho": False, "rho": 0.05,
+            "eps_abs": 1e-4, "eps_rel": 1e-4,
+        }
+        return cartpole.build(node, stagewise=True, device=dev)
+
+    def part_b():
+        frame = cartpole.initial_state(th=0.4)
+        ref = np.array([np.pi])
+        h4 = make_mesh(("h",), shape=(4,), devices=dev)
+        sharded = HorizonShardedSolver(yaml_cartpole(6, 800), h4)
+        single = yaml_cartpole(6, 800)
+        gaps, tick_s = [], []
+        for t in range(3):
+            sync()
+            t0 = time.perf_counter()
+            traj = sharded.compute_optimal_trajectory(frame, ref)
+            sync()
+            tick_s.append(time.perf_counter() - t0)
+            single.compute_optimal_trajectory(frame, ref)
+            traj = traj.cpu().numpy()
+            gaps.append(float(np.abs(traj - single.get_optimal_frames()).max()))
+            stats = sharded.get_solver_stats()
+            pin_tol = (1 - 0.3) ** (6 * (t + 1)) * np.abs(frame).max() * 1.5 + 1e-3
+            pin = float(np.abs(traj[0] - frame).max())
+            log(f"phase 7b HorizonShardedSolver cart-pole YAML h20 over 'h' of 4, tick {t + 1}: "
+                f"{tick_s[-1]:.3f} s, ADMM iterations {stats['qp_iters'].tolist()}, max |sharded "
+                f"- single-device| {gaps[-1]:.3g} (limit 5e-2), first-frame gap {pin:.3g} "
+                f"(limit {pin_tol:.3g})")
+            if not (np.isfinite(traj).all() and gaps[-1] <= 5e-2 and pin <= pin_tol):
+                raise SystemExit(f"phase 7b: the horizon-sharded tick {t + 1} is wrong")
+            if stats["qp_status"][:, 1:].any():
+                raise SystemExit("phase 7b: an infeasibility certificate on cart-pole")
+        mesh2 = make_mesh(("b", "h"), shape=(2, 4), devices=dev)
+        sharded2 = HorizonShardedSolver(yaml_cartpole(3, 400), mesh2, batch_axis="b")
+        frames = np.stack([cartpole.initial_state(th=0.2 + 0.1 * b) for b in range(4)])
+        refs = np.full((4, 1), np.pi)
+        sync()
+        t0 = time.perf_counter()
+        trajs = sharded2.compute_optimal_trajectory(frames, refs).cpu().numpy()
+        sync()
+        t2d = time.perf_counter() - t0
+        gaps2 = []
+        for b in range(4):
+            one = HorizonShardedSolver(yaml_cartpole(3, 400), h4)
+            x1 = one.compute_optimal_trajectory(frames[b], refs[b]).cpu().numpy()
+            gaps2.append(float(np.abs(trajs[b] - x1).max()))
+        log(f"phase 7b ('b', 'h') mesh (2, 4), B=4: {t2d:.3f} s; max |scenario - its 1-D "
+            f"solve| by scenario {', '.join(f'{g:.3g}' for g in gaps2)} (limit 5e-3)")
+        if not (np.isfinite(trajs).all() and max(gaps2) <= 5e-3):
+            raise SystemExit("phase 7b: a scenario of the 2-D mesh differs from its 1-D solve")
+        out["b_tick_s"], out["b_gaps"], out["b_2d_s"], out["b_2d_gaps"] = tick_s, gaps, t2d, gaps2
+
+    timed("b", part_b)
+
+    # (c) -----------------------------------------------------------------
+    def part_c():
+        H = 100
+        qcfg = quadrotor.make_config(horizon=H, dt=0.02, alpha=0.3, step_num=5,
+                                     formulation="reduced", ADMM_settings=dict(QUAD_ADMM))
+        frame = quadrotor.initial_state(pos=(0.3, -0.2, 1.0))
+        ref = quadrotor.reference_hover(H)
+        sharded = HorizonShardedSolver(quadrotor.build(qcfg, stagewise=True, device=dev),
+                                       make_mesh(("h",), shape=(4,), devices=dev))
+        single = BatchedSolver(quadrotor.build(qcfg, stagewise=True, device=dev), device=dev)
+        sstate = single.init_state(1)
+        tick_s, gaps = [], []
+        for t in range(2):
+            sync()
+            t0 = time.perf_counter()
+            traj = sharded.compute_optimal_trajectory(frame, ref)
+            sync()
+            tick_s.append(time.perf_counter() - t0)
+            traj = traj.cpu().numpy()
+            x1, _, sstate = single.solve(frame[None], ref[None], sstate)
+            gaps.append(float(np.abs(traj.reshape(-1) - x1[0].cpu().numpy()).max()))
+            stats = sharded.get_solver_stats()
+            pin_tol = (1 - 0.3) ** (5 * (t + 1)) * np.abs(frame).max() * 1.5 + 1e-3
+            pin = float(np.abs(traj[0] - frame).max())
+            log(f"phase 7c quadrotor h{H} over 'h' of 4 ({H // 4} stages a shard), "
+                f"{'cold' if t == 0 else 'warm'} tick: {tick_s[-1]:.3f} s, ADMM iterations "
+                f"{stats['qp_iters'].tolist()}, first-frame gap {pin:.3g} (limit {pin_tol:.3g}); "
+                f"finding: max |sharded - single-device banded tick (B=1)| {gaps[-1]:.3g}")
+            if not (np.isfinite(traj).all() and pin <= pin_tol):
+                raise SystemExit("phase 7c: the horizon-sharded quadrotor tick is wrong")
+            if stats["qp_status"][:, 1:].any():
+                raise SystemExit("phase 7c: an infeasibility certificate on the quadrotor")
+        out["c_tick_s"], out["c_gaps"] = tick_s, gaps
+
+    timed("c", part_c)
+
+    # (d) -----------------------------------------------------------------
+    def part_d():
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=dev)
+        try:
+            backend = tdist.get_backend()
+            mesh_d = make_mesh(("h",), devices="distributed")
+            mesh_l = make_mesh(("h",), shape=(1,), devices=dev)
+            rng = np.random.default_rng(11)
+            v = torch.as_tensor(rng.normal(size=(1, 7)), dtype=torch.float32, device=dev)
+            same = {"psum": torch.equal(mesh_d.shards().psum(v, "h"),
+                                        mesh_l.shards().psum(v, "h"))}
+            vals = torch.as_tensor(rng.normal(size=(64, 3)), dtype=torch.float32, device=dev)
+            same["consensus_mean"] = torch.equal(consensus_mean(vals, mesh_d, "h"),
+                                                 consensus_mean(vals, mesh_l, "h"))
+            N, w = 16, 4
+            diag = np.stack([(lambda L: L @ L.T + 2 * w * np.eye(w))(rng.normal(size=(w, w)))
+                             for _ in range(N)])
+            lower = np.zeros((N, w, w))
+            lower[1:] = 0.4 * rng.normal(size=(N - 1, w, w))
+            sysm = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                    for a in (diag, lower, rng.normal(size=(N, w)))]
+            same["horizon_sharded_solve"] = torch.equal(
+                horizon_sharded_solve(*sysm, mesh=mesh_d, axis="h"),
+                horizon_sharded_solve(*sysm, mesh=mesh_l, axis="h"))
+            sync()
+        finally:
+            tdist.destroy_process_group()
+        log(f"phase 7d {backend} world size 1 through initialize_distributed: bitwise equal to "
+            f"the in-process D=1 run: {same}")
+        if not all(same.values()):
+            raise SystemExit("phase 7d: the process-group run differs from the in-process run")
+        out["d_backend"] = backend
+
+    timed("d", part_d)
+
+    # (e) -----------------------------------------------------------------
+    def part_e():
+        B = 16
+        ccfg = cartpole.make_config(horizon=20, dt=0.02, alpha=0.3, step_num=10,
+                                    ADMM_settings={**DENSE_ADMM, "backend": "xla"})
+        cocp = cartpole.build(ccfg, stagewise=False, device=dev)
+        rng = np.random.default_rng(0)
+        cframes = np.zeros((B, cartpole.FRAME), np.float32)
+        cframes[:, 2] = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+        crefs = np.full((B, 1), np.pi, np.float32)
+        dcfg = double_integrator.make_config(horizon=20, dt=0.005, alpha=0.1, step_num=10,
+                                             formulation="reduced",
+                                             ADMM_settings={**DI_ADMM, "backend": "xla"})
+        docp = double_integrator.build(dcfg, device=dev)
+        dframes = np.zeros((64, double_integrator.FRAME), np.float32)
+        dframes[:, 0:2] = rng.uniform(-1, 1, (64, 2)).astype(np.float32)
+        drefs = np.tile(double_integrator.reference_circle(20, 0.005)[None], (64, 1))
+        cases = (("dense cart-pole h20 B=16", cocp, cframes, crefs),
+                 ("double integrator h20 B=64", docp, dframes, drefs))
+        saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+        a = torch.as_tensor(rng.normal(size=(256, 256)), dtype=torch.float32, device=dev)
+        res = {}
+        for tf32 in (False, True):
+            torch.set_float32_matmul_precision("high" if tf32 else "highest")
+            torch.backends.cudnn.allow_tf32 = tf32
+            for name, ocp_, fr, rf in cases:
+                b = BatchedSolver(ocp_, device=dev)
+                x, _, _ = b.solve(fr, rf, b.init_state(fr.shape[0]))
+                res[name, tf32] = x.cpu()
+            res["raw", tf32] = (a @ a).cpu()
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        same = {name: torch.equal(res[name, False], res[name, True]) for name, *_ in cases}
+        raw_gap = float((res["raw", False] - res["raw", True]).abs().max())
+        log(f"phase 7e true f32 under a caller's TF32 (backend='xla'): ticks bitwise equal with "
+            f"TF32 on and off: {same}; a plain torch.matmul outside the solver moves by "
+            f"{raw_gap:.3g} when TF32 is on (the switch bites on this card)")
+        if not all(same.values()):
+            raise SystemExit("phase 7e: a solve changed its bits when the caller turned TF32 on")
+        out["e_raw_gap"] = raw_gap
+
+    timed("e", part_e)
+    log("phase 7: " + ", ".join(f"({k[0]}) {out[k]:.1f} s" for k in sorted(out) if
+                                 k.endswith("_s") and len(k) == 3))
+    return out
 
 
 def main(argv) -> int:
@@ -2408,6 +2682,11 @@ def main(argv) -> int:
     row5.update({f"b8_{k}": cr_rows[8][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "rolled_same_inputs_ms", "prologue_ms",
         "mean_it_inc", "max_it_inc")})
+
+    # -- 7. the multi-device paths on the card ----------------------------
+    t0 = time.perf_counter()
+    phase7(dev)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s in all")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row1, row2, row3, *tc_rows, row4, row5]}), flush=True)

@@ -12,9 +12,11 @@ The hot kernels of the batched MPC ticks are hand-written CUDA
 (``csrc/*.cu``, built with ``nvcc`` at first use; see ``ops/``).
 
 Float32 matmuls stay true float32: TF32 is switched off here, once, for
-the whole process.  The JAX side pins the same with ``f32_matmuls``
-(its ``solvers/admm.py``): ADMM residuals floor far above the 1e-3
-termination tolerance at TF32's ~3 decimal digits.
+the whole process, and again around every solve entry point
+(``solvers/admm.f32_matmuls``, the JAX package's guard of that name), so a
+caller that turns it back on does not reach the solver: ADMM residuals
+floor far above the 1e-3 termination tolerance at TF32's ~3 decimal
+digits.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .device import resolve_device  # noqa: E402
 from .config import Frame, OCPConfig, load_config  # noqa: E402
+from .controller import MPCController  # noqa: E402
 from .problem import OptimalControlProblem, SolverSettings, SolverType  # noqa: E402
-from .solvers.admm import ADMMSettings, QPSolution  # noqa: E402
+from .solvers.admm import ADMMSettings, QPSolution, admm_solve  # noqa: E402
 from .solvers.qp_interface import CuCaQP, TpuQP  # noqa: E402
 from .solvers.sqp import SQPOptimizationSolver, SQPOptions, SQPResult  # noqa: E402
 from .stagewise import StageStructure  # noqa: E402
+from . import sym  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -39,15 +43,18 @@ __all__ = [
     "Frame",
     "OCPConfig",
     "load_config",
+    "MPCController",
     "OptimalControlProblem",
     "SolverSettings",
     "SolverType",
     "ADMMSettings",
     "QPSolution",
+    "admm_solve",
     "CuCaQP",
     "TpuQP",
     "SQPOptimizationSolver",
     "SQPOptions",
     "SQPResult",
     "StageStructure",
+    "sym",
 ]

@@ -17,6 +17,8 @@ import torch
 from .device import resolve_device
 from .ops.block_tridiag import CRFactor
 from .parallel.batch import BatchState
+from .parallel.mesh import Mesh, make_mesh
+from .parallel.seq_admm import ShardedBandedQP
 from .solvers.admm import ADMMSettings, DensePrep
 from .solvers.admm_banded import BandedQP
 from .solvers.admm_batched import SharedQPFactor
@@ -27,8 +29,10 @@ __all__ = [
     "batch_state_from_numpy",
     "cr_factor_from_numpy",
     "dense_prep_from_numpy",
+    "mesh_from_jax_layout",
     "settings_from_jax_dict",
     "shared_factor_from_numpy",
+    "sharded_banded_qp_from_numpy",
     "sqp_iterate_from_numpy",
 ]
 
@@ -52,6 +56,24 @@ def banded_qp_from_numpy(qp_np: Any, device=None, dtype=None) -> BandedQP:
     ``dtype`` defaults to the arrays' own float width."""
     dev = resolve_device(device)
     return BandedQP(*(_tensor(a, dev, dtype) for a in _fields(qp_np, BandedQP._fields)))
+
+
+def sharded_banded_qp_from_numpy(qp_np: Any, device=None, dtype=None) -> ShardedBandedQP:
+    """A JAX ``ShardedBandedQP`` (its per-stage fields as numpy arrays, or
+    a mapping of them) -> the port's :class:`ShardedBandedQP` on
+    ``device``."""
+    dev = resolve_device(device)
+    return ShardedBandedQP(
+        *(_tensor(a, dev, dtype) for a in _fields(qp_np, ShardedBandedQP._fields))
+    )
+
+
+def mesh_from_jax_layout(shape: Mapping[str, int], device=None) -> Mesh:
+    """A JAX mesh's shard layout (its ``mesh.shape``: axis names to sizes,
+    in axis order) -> an in-process mesh of the port with the same axes
+    and shard counts on ``device``, so both packages split the same
+    arrays the same way."""
+    return make_mesh(tuple(shape), tuple(int(n) for n in shape.values()), resolve_device(device))
 
 
 def shared_factor_from_numpy(fac_np: Any, device=None, dtype=None) -> SharedQPFactor:

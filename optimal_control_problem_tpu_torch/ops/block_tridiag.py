@@ -14,8 +14,8 @@ the two packages agree to f32 roundoff.  The cyclic-reduction pair
 (``cr_factor``/``cr_solve``, log-depth, behind ``banded_solver="cr"`` of the
 per-scenario solver) pads the horizon to a power of two with identity
 blocks; the batched CR chunk kernel (``ops/banded_cr_kernel.py``) pads each
-level to even instead.  ``btd_solve_mat`` (block right-hand sides) is not
-ported: only the multi-device paths use it (ROADMAP A10).
+level to even instead.  ``btd_solve_mat`` (block right-hand sides) serves
+the horizon-sharded paths (``parallel/horizon.py``, ``parallel/seq_admm.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ __all__ = [
     "CRFactor",
     "btd_factor",
     "btd_solve",
+    "btd_solve_mat",
     "btd_matvec",
     "cr_factor",
     "cr_solve",
@@ -127,7 +128,9 @@ def btd_factor(diag: torch.Tensor, lower: torch.Tensor) -> BTDFactor:
 
 
 def btd_solve(fac: BTDFactor, b: torch.Tensor) -> torch.Tensor:
-    """Solve M x = b given the factorization.  ``b``: (N, w) -> (N, w).
+    """Solve M x = b given the factorization.  ``b``: (N, w) -> (N, w);
+    batch dims after the stage dim (``b (N, ..., w)`` against factors
+    ``(N, ..., w, w)``) solve every system at once.
 
     Block "matvecs" are broadcast-multiply-reduce in the chunk kernel's
     sweep order.
@@ -137,14 +140,33 @@ def btd_solve(fac: BTDFactor, b: torch.Tensor) -> torch.Tensor:
     # Forward: y_k = b_k - G_k y_{k-1}
     y = [b[0]]
     for k in range(1, N):
-        y.append(b[k] - torch.sum(g[k - 1] * y[-1][None, :], dim=1))
+        y.append(b[k] - torch.sum(g[k - 1] * y[-1][..., None, :], dim=-1))
     # Backward: x_N = Dinv_N y_N; x_k = Dinv_k y_k - G_{k+1}^T x_{k+1}
     x = [None] * N
-    x[N - 1] = torch.sum(dinv[N - 1] * y[N - 1][None, :], dim=1)
+    x[N - 1] = torch.sum(dinv[N - 1] * y[N - 1][..., None, :], dim=-1)
     for k in range(N - 2, -1, -1):
-        x[k] = torch.sum(dinv[k] * y[k][None, :], dim=1) - torch.sum(
-            g[k] * x[k + 1][:, None], dim=0
+        x[k] = torch.sum(dinv[k] * y[k][..., None, :], dim=-1) - torch.sum(
+            g[k] * x[k + 1][..., :, None], dim=-2
         )
+    return torch.stack(x)
+
+
+def btd_solve_mat(fac: BTDFactor, B: torch.Tensor) -> torch.Tensor:
+    """Solve M X = B with block right-hand sides: ``B (N, w, k) -> (N, w,
+    k)`` (batch dims after the stage dim as in :func:`btd_solve`).  The
+    JAX module's two scans as one forward and one backward sweep; every
+    block product an ascending j-chain (``_mm``)."""
+    dinv, g, _ = fac
+    N = B.shape[0]
+    # Forward: Y_k = B_k - G_k Y_{k-1}
+    y = [B[0]]
+    for k in range(1, N):
+        y.append(B[k] - _mm(g[k - 1], y[-1]))
+    # Backward: X_N = Dinv_N Y_N; X_k = Dinv_k Y_k - G_{k+1}^T X_{k+1}
+    x = [None] * N
+    x[N - 1] = _mm(dinv[N - 1], y[N - 1])
+    for k in range(N - 2, -1, -1):
+        x[k] = _mm(dinv[k], y[k]) - _mm(g[k].transpose(-1, -2), x[k + 1])
     return torch.stack(x)
 
 

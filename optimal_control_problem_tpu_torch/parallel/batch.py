@@ -89,14 +89,8 @@ class BatchedSolver:
         ).clone()
         return BatchState(x=x, qp_x=z(batch, self.solver._qp_n), qp_y=z(batch, self.solver._qp_m))
 
-    def solve(self, frames, references, state: BatchState):
-        """One batched MPC tick.
-
-        ``frames``: (B, frame_size) measured states; ``references``: (B, n_p).
-        Returns ``(trajectories (B, n_x), objectives (B,), new_state)``.
-        """
-        frames = torch.as_tensor(frames, dtype=self.dtype, device=self.device)
-        references = torch.as_tensor(references, dtype=self.dtype, device=self.device)
+    def _batched_res(self, frames, references, x, qp_x, qp_y):
+        """The batch solve with first-frame pinning; the full SQPResult."""
         B, fs = frames.shape[0], self.frame_size
         lbx = self._lbx_tail.expand(B, -1).clone()
         ubx = self._ubx_tail.expand(B, -1).clone()
@@ -105,8 +99,30 @@ class BatchedSolver:
         ubx[:, :fs] = frames
         lbg = self._lbg.expand(B, -1)
         ubg = self._ubg.expand(B, -1)
-        res = self._solve_batch(
-            state.x, references, lbx, ubx, lbg, ubg, state.qp_x, state.qp_y
-        )
+        res = self._solve_batch(x, references, lbx, ubx, lbg, ubg, qp_x, qp_y)
         self.last_result = res
+        return res
+
+    def solve(self, frames, references, state: BatchState):
+        """One batched MPC tick.
+
+        ``frames``: (B, frame_size) measured states; ``references``: (B, n_p).
+        Returns ``(trajectories (B, n_x), objectives (B,), new_state)``.
+        """
+        frames = torch.as_tensor(frames, dtype=self.dtype, device=self.device)
+        references = torch.as_tensor(references, dtype=self.dtype, device=self.device)
+        res = self._batched_res(frames, references, state.x, state.qp_x, state.qp_y)
         return res.x, res.f, BatchState(x=res.x, qp_x=res.qp_x, qp_y=res.qp_y)
+
+    @property
+    def solve_jit(self):
+        """The batched function ``(frames, refs, x, qp_x, qp_y) -> (x, f,
+        qp_x, qp_y)`` on tensors of the solver's device and dtype, for
+        composition with sharding (``parallel/dist.py``); the JAX
+        package's jitted function of that name."""
+
+        def slim(frames, references, x, qp_x, qp_y):
+            res = self._batched_res(frames, references, x, qp_x, qp_y)
+            return res.x, res.f, res.qp_x, res.qp_y
+
+        return slim

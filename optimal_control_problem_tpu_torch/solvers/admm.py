@@ -28,14 +28,18 @@ iterations, residuals, certificates and polish) runs at it through
 stay ``torch.linalg.inv`` and the device-loop kernel stays f32, as JAX's
 Pallas kernel does.
 
-The JAX module's ``f32_matmuls`` has no counterpart here: the package
-switches TF32 off once at import (``__init__.py``), so every product is
-true float32 unless a setting asks for less.
+:func:`f32_matmuls` is the JAX module's guard of the same name: the
+package switches TF32 off once at import (``__init__.py``), and every
+solve entry point runs inside this scope as well, so a caller that turns
+TF32 on again (``torch.set_float32_matmul_precision("high")``) cannot
+reach the solver's products.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -50,6 +54,7 @@ __all__ = [
     "admm_solve",
     "admm_solve_batch",
     "check_pallas_size",
+    "f32_matmuls",
     "prepare_dense",
     "ruiz_equilibrate",
 ]
@@ -194,6 +199,67 @@ class QPSolution(NamedTuple):
     dual_inf: torch.Tensor = False
 
 
+def _tf32_flags():
+    """The TF32 switches as ``(read, write, off)``: the global matmul
+    precision, the legacy booleans of cuBLAS and cuDNN, then the newer
+    ``fp32_precision`` strings where this torch has them (``"ieee"`` is
+    true float32)."""
+    b = torch.backends
+    flags = [
+        (torch.get_float32_matmul_precision, torch.set_float32_matmul_precision, "highest"),
+        (lambda: b.cuda.matmul.allow_tf32,
+         lambda v: setattr(b.cuda.matmul, "allow_tf32", v), False),
+        (lambda: b.cudnn.allow_tf32, lambda v: setattr(b.cudnn, "allow_tf32", v), False),
+    ]
+    for mod in (b.cuda.matmul, getattr(b.cudnn, "conv", None), getattr(b.cudnn, "rnn", None)):
+        try:
+            mod.fp32_precision  # noqa: B018 - probes the attribute
+        except (AttributeError, RuntimeError):
+            continue
+        flags.append((lambda m=mod: m.fp32_precision,
+                      lambda v, m=mod: setattr(m, "fp32_precision", v), "ieee"))
+    return flags
+
+
+@contextlib.contextmanager
+def _f32_scope():
+    flags = _tf32_flags()
+    saved = []
+    for read, _, _ in flags:
+        try:
+            saved.append(read())
+        except RuntimeError:  # torch refuses to read a mix of both APIs
+            saved.append(None)
+    for _, write, off in flags:
+        write(off)
+    try:
+        yield
+    finally:
+        # The global precision, the legacy booleans, then the precision
+        # strings: the later are the finer state and win where they
+        # disagree.
+        for (_, write, _), value in zip(flags, saved):
+            if value is not None:
+                write(value)
+
+
+def f32_matmuls(fn=None):
+    """True float32 products inside: TF32 off for cuBLAS and cuDNN (and
+    ``fp32_precision = "ieee"`` where torch has it), restored on exit —
+    the port of the JAX module's guard, which scopes HIGHEST matmul
+    precision around every solver function.  A decorator (``@f32_matmuls``)
+    or, called bare, a context manager (``with f32_matmuls():``)."""
+    if fn is None:
+        return _f32_scope()
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with _f32_scope():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
 def _limit_scaling(v: torch.Tensor) -> torch.Tensor:
     """OSQP ``limit_scaling``: tiny norms -> 1 (no scaling), clamp large."""
     v = torch.where(v < _MIN_SCALING, torch.ones_like(v), v)
@@ -331,6 +397,7 @@ def check_pallas_size(n: int, m: int) -> None:
         )
 
 
+@f32_matmuls
 def admm_solve(
     P: torch.Tensor,
     q: torch.Tensor,
@@ -353,6 +420,7 @@ def admm_solve(
     return QPSolution(*(f[0] for f in sol))
 
 
+@f32_matmuls
 def admm_solve_batch(
     P: torch.Tensor,
     q: torch.Tensor,

@@ -40,6 +40,7 @@ from .admm import (
     _RHO_MIN,
     _RHO_TOL,
     _limit_scaling,
+    f32_matmuls,
 )
 
 __all__ = [
@@ -490,11 +491,13 @@ def banded_polish(
 # Per-scenario solver
 
 
+@f32_matmuls
 def admm_solve_banded(
     qp: BandedQP,
     settings: ADMMSettings = ADMMSettings(),
     x0: Optional[torch.Tensor] = None,  # (n,) warm start
     y0: Optional[torch.Tensor] = None,  # (m,)
+    on_device: bool = False,
 ) -> QPSolution:
     """Solve one stage-structured QP without dense operators.
 
@@ -503,7 +506,10 @@ def admm_solve_banded(
     with the JAX version's round structure — rho and the factorization stay
     constant for one adaptation interval, adaptation happens between
     rounds, termination and certificates every ``check_every`` iterations.
-    Loop conditions are read on the host.
+    Loop conditions are read on the host; ``on_device`` keeps them on the
+    device instead (one ``torch.while_loop``, an ADMM iteration a trip, the
+    adaptive refactorization applied by mask): the same results, and the
+    form ``torch.export`` traces.
     """
     st = settings
     dtype, dev = qp.Hb.dtype, qp.Hb.device
@@ -535,7 +541,7 @@ def admm_solve_banded(
     y = torch.zeros((m,), dtype=dtype, device=dev) if y0 is None else c * y0.to(dtype) * Einv
     z = torch.clip(_apply_A(qp, x.reshape(N, w)), l, u)
 
-    def one_iter(x, z, y):
+    def one_iter(x, z, y, fac, rho_v):
         rhs = sigma * x - q + _apply_AT(qp, rho_v * z - y).reshape(-1)
         xt = solve(fac, rhs.reshape(N, w)).reshape(-1)
         zt = _apply_A(qp, xt.reshape(N, w))
@@ -555,6 +561,11 @@ def admm_solve_banded(
     false = torch.tensor(False, device=dev)
     done, pinf, dinf = false, false, false
     r_prim, r_dual = inf, inf
+    if on_device:
+        return _banded_on_device(
+            qp, st, factor, solve, fac, one_iter, interval, x, z, y, rho_v, sigma,
+            D, E, Dinv, Einv, cinv,
+        )
     it = 0
     stop = lambda: bool(done | pinf | dinf)  # noqa: E731
     while it < st.max_iter and not stop():
@@ -564,7 +575,7 @@ def admm_solve_banded(
         while k < interval and it + k < st.max_iter and not stop():
             x_old, y_old = x, y
             for _ in range(st.check_every):
-                x, z, y = one_iter(x, z, y)
+                x, z, y = one_iter(x, z, y, fac, rho_v)
             r_prim, r_dual, eps_pri, eps_dua, rp_rel, rd_rel = banded_residuals(
                 qp, x, z, y, Einv, Dinv, cinv, st
             )
@@ -599,6 +610,98 @@ def admm_solve_banded(
         y=E * y * cinv,
         z=z * Einv,
         iters=torch.tensor(it, dtype=torch.int32, device=dev),
+        converged=done,
+        r_prim=r_prim,
+        r_dual=r_dual,
+        prim_inf=pinf,
+        dual_inf=dinf,
+    )
+
+
+def _banded_on_device(qp, st, factor, solve, fac, one_iter, interval, x, z, y, rho_v, sigma,
+                      D, E, Dinv, Einv, cinv) -> QPSolution:
+    """:func:`admm_solve_banded`'s loops as one ``torch.while_loop``, an
+    ADMM iteration a trip, in the host loops' order: the trip that ends a
+    check block checks it, and when the round's condition then fails, ends
+    the round (iteration count, adaptive rho with a refactorization kept by
+    mask).  Nested loops do not export beside the derivative code's
+    grad-mode regions, and a loop body may capture no two tensors that
+    alias, hence the flat loop and the clones."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    dev = x.device
+    ce = st.check_every
+    leaves, spec = tree_flatten(fac)
+    is_t = [isinstance(v, torch.Tensor) for v in leaves]
+
+    def unflat(ts):
+        it_ts = iter(ts)
+        return tree_unflatten([next(it_ts) if t else v for v, t in zip(leaves, is_t)], spec)
+
+    def refactor(rho):
+        fl, _ = tree_flatten(factor(*_build_M_blocks(qp, rho, sigma)))
+        return [v for v in fl if isinstance(v, torch.Tensor)]
+
+    def stop_of(done, pinf, dinf):
+        return done | pinf | dinf
+
+    def trip(j, it, k, x, z, y, x_old, y_old, rho_v, done, pinf, dinf, r_prim, r_dual,
+             rp_rel, rd_rel, *fac_ts):
+        first = j == 0
+        x_old = torch.where(first, x, x_old)
+        y_old = torch.where(first, y, y_old)
+        x, z, y = one_iter(x, z, y, unflat(fac_ts), rho_v)
+        last = j == ce - 1
+        rp, rd, eps_pri, eps_dua, rpr, rdr = banded_residuals(qp, x, z, y, Einv, Dinv, cinv, st)
+        done_n = torch.logical_and(rp <= eps_pri, rd <= eps_dua)
+        pinf_n, dinf_n = pinf, dinf
+        if st.check_infeasibility:
+            pinf_n, dinf_n = banded_certificates(qp, x - x_old, y - y_old, D, E, cinv, st)
+            pinf_n, dinf_n = pinf_n & ~done_n, dinf_n & ~done_n
+        done, pinf, dinf, r_prim, r_dual, rp_rel, rd_rel = (
+            torch.where(last, a, b) for a, b in zip(
+                (done_n, pinf_n, dinf_n, rp, rd, rpr, rdr),
+                (done, pinf, dinf, r_prim, r_dual, rp_rel, rd_rel)))
+        k = torch.where(last, k + ce, k)
+        go_on = (k < interval) & (it + k < st.max_iter) & ~stop_of(done, pinf, dinf)
+        end = last & ~go_on
+        it = torch.where(end, it + k, it)
+        k = torch.where(end, torch.zeros_like(k), k)
+        fac_ts = list(fac_ts)
+        if st.adaptive_rho:
+            scale = torch.clamp(torch.sqrt(rp_rel / torch.clamp(rd_rel, min=1e-12)), 1e-3, 1e3)
+            trigger = (scale > st.adaptive_rho_tolerance) | (scale < 1.0 / st.adaptive_rho_tolerance)
+            refit = end & trigger & ~done
+            new_rho = torch.clamp(rho_v * scale, _RHO_MIN, _RHO_MAX)
+            fac_ts = [torch.where(refit, a, b) for a, b in zip(refactor(new_rho), fac_ts)]
+            rho_v = torch.where(refit, new_rho, rho_v)
+        j = torch.where(last, torch.zeros_like(j), j + 1)
+        return tuple(t.clone(memory_format=torch.contiguous_format) for t in (
+            j, it, k, x, z, y, x_old, y_old, rho_v, done, pinf, dinf, r_prim, r_dual,
+            rp_rel, rd_rel, *fac_ts))
+
+    def cond(j, it, k, x, z, y, x_old, y_old, rho_v, done, pinf, dinf, *_):
+        return (j != 0) | ((it < st.max_iter) & ~stop_of(done, pinf, dinf))
+
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    inf = torch.full((), _INF, dtype=x.dtype, device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    s = (torch.zeros((), dtype=torch.int64, device=dev), zero_i, zero_i, x, z, y, x, y, rho_v,
+         false, false, false, inf, inf, inf, inf,
+         *(v for v in leaves if isinstance(v, torch.Tensor)))
+    s = torch.while_loop(cond, trip,
+                         tuple(t.clone(memory_format=torch.contiguous_format) for t in s))
+    it, x, z, y = s[1], s[3], s[4], s[5]
+    done, pinf, dinf, r_prim, r_dual = s[9:14]
+    if st.polish:
+        x, y, z, r_prim, r_dual = banded_polish(
+            qp, st, factor, solve, x, y, z, r_prim, r_dual, Einv, Dinv, cinv,
+        )
+    return QPSolution(
+        x=D * x,
+        y=E * y * cinv,
+        z=z * Einv,
+        iters=it,
         converged=done,
         r_prim=r_prim,
         r_dual=r_dual,

@@ -49,7 +49,7 @@ from ..ops.banded_cr_kernel import banded_admm_chunk_cr
 from ..ops.banded_kernel import KERNEL_WIDTHS, banded_admm_chunk
 from ..ops.banded_rolled_kernel import banded_admm_chunk_rolled
 from ..ops.block_tridiag import btd_factor, btd_solve
-from .admm import ADMMSettings, QPSolution, _RHO_MAX, _RHO_MIN
+from .admm import ADMMSettings, QPSolution, _RHO_MAX, _RHO_MIN, f32_matmuls
 from .admm_banded import (
     BandedQP,
     _rho_vec,
@@ -456,6 +456,7 @@ def _solve_banded_batch_T(
     )
 
 
+@f32_matmuls
 def admm_solve_banded_batch_T(
     qpT: BandedQP,
     settings: ADMMSettings = ADMMSettings(),
@@ -481,6 +482,7 @@ def admm_solve_banded_batch_T(
     return _solve_banded_batch_T(qpT, settings, mv(x0T), mv(y0T), sc, rolled)
 
 
+@f32_matmuls
 def admm_solve_banded_batch(
     qp: BandedQP,
     settings: ADMMSettings = ADMMSettings(),

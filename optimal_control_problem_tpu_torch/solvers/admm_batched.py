@@ -66,6 +66,7 @@ from .admm import (
     _RHO_TOL,
     _factor,
     _limit_scaling,
+    f32_matmuls,
     ruiz_equilibrate,
 )
 
@@ -173,6 +174,7 @@ def prepare_shared(
     return SharedQPFactor(Pb=Pb, Ab=Ab, D=D, E=E, c=c, rho_v=rho_v, OP=OP)
 
 
+@f32_matmuls
 def admm_iterate_prepared(
     fac: SharedQPFactor,
     q: torch.Tensor,  # (B, n)
@@ -564,6 +566,7 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
     )
 
 
+@f32_matmuls
 def admm_solve_shared(
     P: torch.Tensor,  # (n, n) shared
     A: torch.Tensor,  # (m, n) shared

@@ -39,6 +39,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .admm import f32_matmuls
+
 __all__ = [
     "ORACLE_MODELS",
     "REFERENCE_QP_SETTINGS",
@@ -144,25 +146,19 @@ def _local_system_f64(ocp):
     """The reference's localSystemFunction_ on the CPU in float64:
     augmented z, objective-only Hessian, no regularization; returns
     ``(x, p, lbx, ubx, lbg, ubg) -> (H, grad, A, l - c, u - c)``."""
-    from .sqp import build_local_system_parts, normalize_nlp
+    from .sqp import build_local_system_fn, normalize_nlp
 
     f_fn, g_fn = ocp._build_nlp_fns()
     nlp = {"x": ocp.ocp_config.get_variables(), "f": f_fn, "g": g_fn,
            "p": ocp.reference_size}
     f_n, g_n, n_x, n_p, n_g = normalize_nlp(nlp)
-    matrices, _, vectors, stack_bounds = build_local_system_parts(
+    local_system = build_local_system_fn(
         f_n, g_n, n_x, n_p, n_g, "augmented", torch.float64, hessian_reg=0.0
     )
-
-    def local_system(x, p, lbx, ubx, lbg, ubg):
-        H, A = matrices(x, p)
-        grad, cval = vectors(x, p)
-        lower, upper = stack_bounds(p, lbx, ubx, lbg, ubg)
-        return H, grad, A, lower - cval, upper - cval
-
     return local_system, n_x, n_p
 
 
+@f32_matmuls
 def oracle_closed_loop(
     model: str,
     ticks: int = 3,
@@ -207,6 +203,7 @@ def oracle_closed_loop(
     return {"trajectories": trajs, "frames": frames, "reference": reference}
 
 
+@f32_matmuls
 def product_closed_loop(
     model: str,
     ticks: int = 3,

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .admm import ADMMSettings, QPSolution, admm_solve
+from .admm import ADMMSettings, QPSolution, admm_solve, f32_matmuls
 
 __all__ = ["TpuQP", "CuCaQP"]
 
@@ -177,6 +177,7 @@ class TpuQP:
             self._warn("initSolver: problem data incomplete")
         return self._initialized
 
+    @f32_matmuls
     def solve(self) -> bool:
         if not self._initialized and not self.init_solver():
             return False

@@ -44,13 +44,14 @@ import torch
 
 from ..device import resolve_device
 from ..sym import Sym, evaluate
-from .admm import ADMMSettings, admm_solve, admm_solve_batch
+from .admm import ADMMSettings, admm_solve, admm_solve_batch, f32_matmuls
 
 __all__ = [
     "SQPOptions",
     "SQPResult",
     "SQPOptimizationSolver",
     "normalize_nlp",
+    "build_local_system_fn",
     "build_local_system_parts",
 ]
 
@@ -308,6 +309,39 @@ def build_local_system_parts(
     return matrices, matrices_raw, vectors, stack_bounds
 
 
+def build_local_system_fn(
+    f_fn: Callable,
+    g_fn: Optional[Callable],
+    n_x: int,
+    n_p: int,
+    n_g: int,
+    formulation: str,
+    dtype,
+    hessian_reg="auto",
+):
+    """The local-QP assembly, the analog of the reference's
+    ``localSystemFunction_`` (``SQPOptimizationSolver.cpp:74-77``): maps
+    ``(x, p, lbx, ubx, lbg, ubg) -> (H, grad, A, l - c, u - c)``, with the
+    derivatives of :func:`build_local_system_parts`."""
+    return _local_system(build_local_system_parts(
+        f_fn, g_fn, n_x, n_p, n_g, formulation, dtype, hessian_reg
+    ))
+
+
+def _local_system(parts):
+    """``(x, p, lbx, ubx, lbg, ubg) -> (H, grad, A, l - c, u - c)`` from the
+    ``(matrices, matrices_raw, vectors, stack_bounds)`` parts."""
+    matrices, _, vectors, stack_bounds = parts
+
+    def local_system(x, p, lbx, ubx, lbg, ubg):
+        H, A = matrices(x, p)
+        grad, cval = vectors(x, p)
+        lower, upper = stack_bounds(p, lbx, ubx, lbg, ubg)
+        return H, grad, A, lower - cval, upper - cval
+
+    return local_system
+
+
 class SQPOptimizationSolver:
     """Stateful solver with the reference-parity API.
 
@@ -481,22 +515,27 @@ class SQPOptimizationSolver:
         (``utils/serialization.export_solver``), built with ``export=True``
         — derivatives through ``torch.autograd.functional``, the ADMM loop
         and the early exit decided on the device, the :class:`SQPResult`
-        fields returned as a tuple; the same results.  Solvers on custom
-        (stage-wise) local-system parts have no export form."""
+        fields returned as a tuple; the same results.  On stage-wise parts
+        (``stagewise.build_stagewise_parts``) the twin takes their
+        ``export_twin``, the stage loop's derivatives and objective; other
+        custom local-system parts have no export form."""
         opt = self.options
         dtype = opt.dtype
-        if export:
+        f_fn = self.f_fn
+        if export and self._custom_parts:
+            (matrices, _, vectors, stack_bounds), f_fn = self._parts[0].export_twin()
+        elif export:
             matrices, _, vectors, stack_bounds = build_local_system_parts(
                 self.f_fn, self.g_fn, self.n_x, self.n_p, self.n_g,
                 opt.formulation, dtype, opt.hessian_reg, autograd=True,
             )
         else:
             matrices, _, vectors, stack_bounds = self._parts
-        f_fn = self.f_fn
         step = self._step
         x_at = self._x_at
         early, tol = self._early_exit()
 
+        @f32_matmuls
         def solve(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
             x = x_init.to(dtype)
             p = p.to(dtype)
@@ -543,7 +582,8 @@ class SQPOptimizationSolver:
 
         solve.kernel = "admm_device_loop" if opt.admm.backend == "pallas" else None
         if not export:
-            solve.export_form = None if self._custom_parts else self._build_solve_fn(export=True)
+            twin = not self._custom_parts or hasattr(self._parts[0], "export_twin")
+            solve.export_form = self._build_solve_fn(export=True) if twin else None
         return solve
 
     def _build_solve_batch_fn(self):
@@ -585,6 +625,7 @@ class SQPOptimizationSolver:
         x_at = self._x_at
         early, tol = self._early_exit()
 
+        @f32_matmuls
         def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
             x = x_init.to(dtype)
             p = p.to(dtype)
@@ -650,6 +691,7 @@ class SQPOptimizationSolver:
         x_at = self._x_at
         early, tol = self._early_exit()
 
+        @f32_matmuls
         def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
             x = x_init.to(dtype)
             p = p.to(dtype)
@@ -690,19 +732,32 @@ class SQPOptimizationSolver:
         solve_batch.kernel = "admm_device_loop" if opt.admm.backend == "pallas" else None
         return solve_batch
 
-    def _build_solve_banded_fn(self):
-        """Single-scenario solve with the per-scenario banded ADMM."""
-        from ..stagewise import build_stage_blocks
+    def _build_solve_banded_fn(self, export: bool = False):
+        """Single-scenario solve with the per-scenario banded ADMM
+        (``solvers/admm_banded.admm_solve_banded``, no hand kernel).
+
+        ``export_form``, its twin for ``torch.export``, is built with
+        ``export=True``: the stage derivatives and objective of
+        ``stagewise.build_stage_autograd`` (a stage loop on
+        ``torch.autograd.functional``, not ``torch.func.vmap``), the ADMM
+        loop as one ``torch.while_loop`` on the device, the
+        :class:`SQPResult` fields as a tuple; the same results."""
+        from ..stagewise import build_stage_autograd, build_stage_blocks
         from .admm_banded import BandedQP, admm_solve_banded
 
         opt = self.options
         dtype = opt.dtype
         _, _, vectors, stack_bounds = self._parts
-        blocks = build_stage_blocks(self.stage_structure, dtype, opt.hessian_reg)
-        f_fn = self.f_fn
+        if export:
+            f_fn, blocks, vectors = build_stage_autograd(self.stage_structure, dtype,
+                                                         opt.hessian_reg)
+        else:
+            blocks = build_stage_blocks(self.stage_structure, dtype, opt.hessian_reg)
+            f_fn = self.f_fn
         step = self._step
         early, tol = self._early_exit()
 
+        @f32_matmuls
         def solve(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
             x = x_init.to(dtype)
             p = p.to(dtype)
@@ -717,6 +772,7 @@ class SQPOptimizationSolver:
                     qp, opt.admm,
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
+                    on_device=export,
                 )
                 x_new, step_norm = step(x, sol.x, p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
@@ -734,10 +790,12 @@ class SQPOptimizationSolver:
                 x = x_new
                 hist.append((f_fn(x, p), qp_it, step_norm, sol.converged,
                              sol.prim_inf, sol.dual_inf, took))
-            return _result(x, qpx, qpy, hist)
+            res = _result(x, qpx, qpy, hist)
+            return tuple(res) if export else res
 
         solve.kernel = None
-        solve.export_form = None
+        if not export:
+            solve.export_form = self._build_solve_banded_fn(export=True)
         return solve
 
     def _build_solve_banded_batch_fn(self):
@@ -761,6 +819,7 @@ class SQPOptimizationSolver:
         step = self._step_batch()
         early, tol = self._early_exit()
 
+        @f32_matmuls
         def solve_batch(x_init, p, lbx, ubx, lbg, ubg, qp_x0, qp_y0):
             x = x_init.to(dtype)
             p = p.to(dtype)
@@ -878,15 +937,7 @@ class SQPOptimizationSolver:
         """The local-QP assembly ``(x, p, lbx, ubx, lbg, ubg) -> (H, grad,
         A, l - c, u - c)``, the analog of the reference's
         ``getSXLocalSystemFunction``."""
-        matrices, _, vectors, stack_bounds = self._parts
-
-        def local_system(x, p, lbx, ubx, lbg, ubg):
-            H, A = matrices(x, p)
-            grad, cval = vectors(x, p)
-            lower, upper = stack_bounds(p, lbx, ubx, lbg, ubg)
-            return H, grad, A, lower - cval, upper - cval
-
-        return local_system
+        return _local_system(self._parts)
 
     def set_verbose(self, verbose: bool) -> None:
         self._verbose = bool(verbose)

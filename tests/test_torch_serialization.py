@@ -10,6 +10,14 @@ against the JAX package's — mirrors ``tests/test_serialization.py``.
   exported artifact's answer at the SQP's converged tolerance (2e-3).  A
   function that reaches a hand kernel is refused, its plain version never
   traced.
+* A stage-structured cart-pole's ``solve_fn`` exports too, on both of its
+  paths: the per-scenario banded solve (``method="banded"``, no hand
+  kernel) and the dense solve on stage-wise parts (``"condensed"``).  The
+  reloaded program gives the direct call's QP iterations and trajectory
+  (1e-5: the export form takes its stage derivatives from
+  ``torch.autograd.functional``, the direct call from ``torch.func``), and
+  JAX's exported artifact's at 2e-3.  h4, one SQP step: the trace of the
+  unrolled stage loop is most of the test's time.
 """
 
 import jax.numpy as jnp
@@ -18,12 +26,14 @@ import pytest
 import torch
 
 from optimal_control_problem_tpu import SQPOptimizationSolver as JSolver
+from optimal_control_problem_tpu.models import cartpole as jcp
 from optimal_control_problem_tpu import SQPOptions as JOptions
 from optimal_control_problem_tpu import sym as JS
 from optimal_control_problem_tpu.solvers.admm import ADMMSettings as JSettings
 from optimal_control_problem_tpu.utils import serialization as jser
 from optimal_control_problem_tpu_torch import SQPOptimizationSolver, SQPOptions
 from optimal_control_problem_tpu_torch import sym as S
+from optimal_control_problem_tpu_torch.models import cartpole as tcp
 from optimal_control_problem_tpu_torch.ops import build
 from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
 from optimal_control_problem_tpu_torch.utils.serialization import (
@@ -127,3 +137,42 @@ def test_enable_compilation_cache_moves_the_build_dir(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     enable_compilation_cache(str(tmp_path / "kernels"))
     assert build.BUILD_DIR == (tmp_path / "kernels").resolve() and build.BUILD_DIR.is_dir()
+
+
+def _cartpole_args(ocp):
+    s = ocp.solver
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    frame = tcp.initial_state(th=0.3)
+    lbx = ocp.ocp_config.lower_bounds_flat().copy()
+    ubx = ocp.ocp_config.upper_bounds_flat().copy()
+    lbx[: tcp.FRAME] = frame
+    ubx[: tcp.FRAME] = frame
+    return (torch.zeros(s.n_x), f32(np.full(ocp.reference_size, np.pi)), f32(lbx), f32(ubx),
+            f32(ocp.get_constraint_lower_bounds()), f32(ocp.get_constraint_upper_bounds()),
+            torch.zeros(s._qp_n), torch.zeros(s._qp_m))
+
+
+@pytest.mark.parametrize("method", ["banded", "condensed"])
+def test_export_import_stage_structured_solver(tmp_path, method):
+    cfg = lambda m: m.make_config(  # noqa: E731
+        horizon=4, dt=0.05, alpha=0.3, step_num=1,
+        ADMM_settings={"method": method, "max_iter": 200, "adaptive_rho": False,
+                       "rho": 0.05, "check_every": 10},
+    )
+    ocp = tcp.build(cfg(tcp), stagewise=True, device="cpu")
+    assert ocp.solver.solve_fn.export_form is not None
+    args = _cartpole_args(ocp)
+    path = tmp_path / "cartpole.pt2"
+    export_solver(ocp.solver.solve_fn, args, str(path))
+    loaded = import_solver(str(path))(*args)
+    direct = ocp.solver.solve_fn(*args)
+    assert torch.equal(direct.qp_iters, loaded[5])
+    np.testing.assert_allclose(direct.x.numpy(), loaded[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose(direct.qp_x.numpy(), loaded[2].numpy(), atol=1e-5)
+
+    jocp = jcp.build(cfg(jcp), stagewise=True)
+    jargs = tuple(jnp.asarray(a.numpy()) for a in args)
+    jpath = tmp_path / "cartpole.bin"
+    jser.export_solver(jocp.solver.solve_fn, jargs, str(jpath))
+    jres = jser.import_solver(str(jpath))(*jargs)
+    np.testing.assert_allclose(loaded[0].numpy(), np.asarray(jres[0]), atol=2e-3)

@@ -31,10 +31,15 @@ package rules.
   when there is none.
 * No module of the port, and no line of ``chip_smoke.py``, imports JAX or
   the JAX package (AST scan).
+* Every name in every ``__all__`` of the JAX package resolves in the
+  port's module of the same name (AST scan of the JAX package, import of
+  the port's), but the TPU kernels' VMEM tile models, which the port does
+  not carry over (ROADMAP North star).
 """
 
 import ast
 import dataclasses
+import importlib
 import pathlib
 
 import numpy as np
@@ -540,3 +545,38 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert top not in ("jax", "jaxlib", "optimal_control_problem_tpu"), (
                 f"{path.relative_to(ROOT)} imports {name}"
             )
+
+
+# The VMEM tile models of the TPU kernels: the port's layout on the card is
+# its own (ROADMAP North star, "These TPU-specific parts do not carry over").
+TPU_ONLY = {
+    ("optimal_control_problem_tpu.solvers.admm_banded_batch", "pick_batch_tile"),
+    ("optimal_control_problem_tpu.ops.banded_rolled_kernel", "pick_rolled_tile"),
+    ("optimal_control_problem_tpu.ops.banded_cr_kernel", "pick_cr_tile"),
+}
+
+
+def _all_lists():
+    """(module, names) for every ``__all__`` of the JAX package."""
+    pkg = ROOT / "optimal_control_problem_tpu"
+    for path in sorted(pkg.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets
+            ):
+                mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+                yield mod.removesuffix(".__init__"), ast.literal_eval(node.value)
+
+
+def test_jax_all_names_resolve_in_the_port():
+    lists = dict(_all_lists())
+    assert "optimal_control_problem_tpu.parallel" in lists and len(lists) > 30
+    missing = []
+    for mod, names in lists.items():
+        port = importlib.import_module(mod.replace("optimal_control_problem_tpu",
+                                                   "optimal_control_problem_tpu_torch", 1))
+        missing += [(mod, n) for n in names if (mod, n) not in TPU_ONLY and not hasattr(port, n)]
+    assert not missing
+    from optimal_control_problem_tpu_torch import MPCController, admm_solve, sym  # noqa: F401
+    from optimal_control_problem_tpu_torch.solvers import ruiz_equilibrate  # noqa: F401
+    from optimal_control_problem_tpu_torch.solvers.sqp import build_local_system_fn  # noqa: F401
