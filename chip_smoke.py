@@ -124,7 +124,10 @@ Phases:
      (kernel B1), ``HorizonShardedSolver`` on the cart-pole YAML h20 over
      4 shards (3 ticks) and on a (2, 4) scenario x horizon mesh, the
      quadrotor h100 over 4 shards, a world-size-1 NCCL group against the
-     in-process mesh, and the solves' bits with the caller's TF32 on.
+     in-process mesh, and the solves' bits with the caller's TF32 on;
+  8. the six example twins (``examples/torch/``) at the JAX examples' own
+     settings on the card (see ``phase8``), each with its original's
+     asserts as gates: seconds per twin and the launches of every kernel.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -682,6 +685,92 @@ def phase7(dev) -> dict:
     timed("e", part_e)
     log("phase 7: " + ", ".join(f"({k[0]}) {out[k]:.1f} s" for k in sorted(out) if
                                  k.endswith("_s") and len(k) == 3))
+    return out
+
+
+# The example twins of phase 8, each with its function's arguments at the
+# JAX example's own settings (``examples/*.py``).  The unicycle runs the
+# first 20 of its 80 ticks: from tick 20 on, the robot rides the keep-out
+# boundary and every other tick's first QPs stop at the 10,000-iteration
+# budget unconverged (in the JAX package too), ~750,000 ADMM iterations in
+# all, beyond this script's time limit on the eager per-scenario banded
+# loop (PERF.md section 6).
+TWINS = (
+    ("cartpole_swingup", dict(ticks=60)),
+    ("closed_loop_mpc", dict(ticks=200, horizon=20)),
+    ("quadrotor_hover", dict(horizon=100, ticks=4)),
+    ("unicycle_obstacles", dict(ticks=20, horizon=30)),
+    ("scenario_mpc", dict(ticks=50, batch=64, shards=8)),
+    ("seq_parallel_mpc", dict(horizon=16, shards=8)),
+)
+
+
+def phase8(dev) -> dict:
+    """Phase 8: the six example twins (``examples/torch/<name>.py``) on
+    ``dev`` at the JAX examples' own settings, through their own
+    functions; the multi-device twins over 8 in-process shards, the
+    port's counterpart of the JAX examples' 8 devices.  A twin's asserts
+    (the quadrotor's constraint violation, the unicycle's keep-out, the
+    scenario loop's final error) fail the phase; every returned array must
+    be finite.  Logs each twin's seconds and the launches of each kernel
+    during it, and for the twins that step an ``MPCController`` the QPs
+    solved, their ADMM iterations and how many stopped at ``max_iter``.
+    Returns ``{name: (seconds, launches)}``."""
+    import importlib.util
+
+    import torch
+
+    from optimal_control_problem_tpu_torch.ops import admm_kernel as ak
+    from optimal_control_problem_tpu_torch.ops import banded_cr_kernel as bck
+    from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
+    from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
+    from optimal_control_problem_tpu_torch.ops import shared_kernel as sk
+
+    counters = {
+        "B1": lambda: bk.banded_admm_chunk.launches,
+        "B2": lambda: brk.banded_admm_chunk_rolled.launches,
+        "B3": lambda: sk.shared_admm_chunk.launches,
+        "B3_tc": lambda: sk.shared_admm_chunk.tc_launches,
+        "B4": lambda: bck.banded_admm_chunk_cr.launches,
+        "B5": lambda: ak.admm_device_loop.launches,
+    }
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+    for name, kw in TWINS:
+        path = os.path.join(HERE, "examples", "torch", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(f"torch_example_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        qps = []
+        if hasattr(mod, "MPCController"):
+            class Counted(mod.MPCController):
+                def step(self, *a, **k):
+                    u = super().step(*a, **k)
+                    st = self.ocp.get_solver_stats()
+                    qps.append((np.asarray(st["qp_iters"]),
+                                self.ocp._solver.options.admm.max_iter))
+                    return u
+
+            mod.MPCController = Counted
+        before = {k: c() for k, c in counters.items()}
+        sync()
+        t0 = time.perf_counter()
+        result = mod.run(**kw, device=dev, out=lambda msg, n=name: log(f"  {n}: {msg}"))
+        sync()
+        sec = time.perf_counter() - t0
+        launches = {k: c() - before[k] for k, c in counters.items()}
+        arrays = [np.asarray(a, np.float64) for a in result
+                  if isinstance(a, np.ndarray) or np.isscalar(a)]
+        if not arrays or not all(np.isfinite(a).all() for a in arrays):
+            raise SystemExit(f"phase 8: {name} returned non-finite values")
+        log(f"phase 8: {name} {kw}: {sec:.1f} s, kernel launches {launches}")
+        if qps:
+            its = np.concatenate([q for q, _ in qps])
+            capped = sum(int((q >= cap).sum()) for q, cap in qps)
+            log(f"phase 8: {name}: {len(qps)} ticks, {its.size} QPs, {int(its.sum())} ADMM "
+                f"iterations ({sec * 1e3 / max(1, int(its.sum())):.3f} ms each), {capped} "
+                f"stopped at max_iter")
+        out[name] = (sec, launches)
     return out
 
 
@@ -2687,6 +2776,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     phase7(dev)
     log(f"phase 7: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- 8. the example twins on the card ---------------------------------
+    t0 = time.perf_counter()
+    phase8(dev)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s in all")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row1, row2, row3, *tc_rows, row4, row5]}), flush=True)

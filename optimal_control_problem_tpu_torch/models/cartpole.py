@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..device import as_tensors
 from ..problem import OptimalControlProblem, SolverSettings
 
 FRAME = 5  # x dx th dth F
@@ -48,8 +49,12 @@ def make_config(
     }
 
 
-def cartpole_accel(dx, th, dth, F, m_cart=1.0, m_pole=0.1, length=0.5, g=9.81):
-    """Continuous-time accelerations (standard cart-pole; th=0 hanging down)."""
+def cartpole_accel(dx, th, dth, F, m_cart=1.0, m_pole=0.1, length=0.5, g=9.81, *,
+                   device=None):
+    """Continuous-time accelerations (standard cart-pole; th=0 hanging down).
+    State and force that are not tensors (a plant simulated on the host
+    passes numbers) go to ``device`` (:func:`..device.as_tensors`)."""
+    dx, th, dth, F = as_tensors(dx, th, dth, F, device=device)
     s, c = torch.sin(th), torch.cos(th)
     total = m_cart + m_pole
     temp = (F + m_pole * length * dth**2 * s) / total

@@ -51,6 +51,7 @@ import ctypes
 
 import torch
 
+from ..device import as_tensors
 from .banded_kernel import _check, launch_chunk, refuse_export
 from .build import load_library
 
@@ -190,7 +191,7 @@ def admm_device_loop_plain(
 def admm_device_loop(
     OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv,
     sigma: float, alpha: float, eps_abs: float, eps_rel: float,
-    x0, y0, max_iter: int = 10000, check_every: int = 25,
+    x0, y0, max_iter: int = 10000, check_every: int = 25, *, device=None,
 ):
     """Run the dense device loop for a batch of QPs; same contract as
     :func:`admm_device_loop_plain`.
@@ -198,9 +199,12 @@ def admm_device_loop(
     CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
     launch ``csrc/admm_device_loop.cu`` on the current stream, one thread
     block per scenario, in the tier :func:`kernel_tier` picks, or raise if
-    the launch is refused.
+    the launch is refused.  Arrays that are not tensors go to ``device``
+    (:func:`..device.as_tensors`).
     """
     refuse_export("admm_device_loop")
+    OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0 = as_tensors(
+        OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, device=device)
     B, n, m = _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
     kw = dict(max_iter=max_iter, check_every=check_every)
     dev = x0.device

@@ -46,6 +46,7 @@ from .banded_kernel import (
     block_inv,
     chunk_contract,
     chunk_outputs,
+    chunk_tensors,
     launch_chunk,
     refuse_export,
     mm,
@@ -244,6 +245,7 @@ def banded_admm_chunk_cr(
     alpha: float,
     eps_abs: float,
     eps_rel: float,
+    device=None,
 ):
     """Run one rho-constant banded-ADMM chunk through the cyclic-reduction
     kernel; all arrays batch-last.
@@ -251,9 +253,14 @@ def banded_admm_chunk_cr(
     Same contract as :func:`banded_admm_chunk_cr_plain`.  CPU tensors take
     the plain version; CUDA tensors launch ``csrc/banded_cr_chunk.cu`` on
     the current stream (f32, contiguous, ``w <= MAX_CR_WIDTH``,
-    ``r, r2 >= 1``) or raise.
+    ``r, r2 >= 1``) or raise.  Arrays that are not tensors go to
+    ``device`` (:func:`chunk_tensors`).
     """
     refuse_export("banded_admm_chunk_cr")
+    (it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
+     xT, yxT, ydT, ycT, zxT, zdT, zcT) = chunk_tensors(
+        it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
+        xT, yxT, ydT, ycT, zxT, zdT, zcT, device=device)
     kw = dict(
         interval=interval, check_every=check_every, max_iter=max_iter,
         sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,

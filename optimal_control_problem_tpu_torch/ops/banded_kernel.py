@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from ..device import as_tensors
 from .block_tridiag import small_spd_inv
 
 __all__ = [
@@ -363,6 +364,15 @@ def _check(name, t, shape, dtype, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
+def chunk_tensors(*args, device=None) -> list:
+    """A chunk's positional inputs as tensors, the entries of its two dicts
+    of sections included (:func:`..device.as_tensors`: what is not a tensor
+    goes to ``device``, by default the first tensor's)."""
+    flat = [v for a in args for v in (a.values() if isinstance(a, dict) else (a,))]
+    flat = iter(as_tensors(*flat, device=device))
+    return [{k: next(flat) for k in a} if isinstance(a, dict) else next(flat) for a in args]
+
+
 def chunk_contract(
     label, it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
     xT, yxT, ydT, ycT, zxT, zdT, zcT, check_every,
@@ -510,15 +520,21 @@ def banded_admm_chunk(
     alpha: float,
     eps_abs: float,
     eps_rel: float,
+    device=None,
 ):
     """Run one rho-constant banded-ADMM chunk; all arrays batch-last.
 
     Same contract as :func:`banded_admm_chunk_plain`.  CPU tensors take the
     plain version; CUDA tensors launch ``csrc/banded_chunk.cu`` on the
     current stream (f32, contiguous, ``w`` in :data:`KERNEL_WIDTHS`,
-    ``r, r2 >= 1``) or raise.
+    ``r, r2 >= 1``) or raise.  Arrays that are not tensors go to
+    ``device`` (:func:`chunk_tensors`).
     """
     refuse_export("banded_admm_chunk")
+    (it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
+     xT, yxT, ydT, ycT, zxT, zdT, zcT) = chunk_tensors(
+        it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
+        xT, yxT, ydT, ycT, zxT, zdT, zcT, device=device)
     kw = dict(
         interval=interval, check_every=check_every, max_iter=max_iter,
         sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,

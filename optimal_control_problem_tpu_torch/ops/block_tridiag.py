@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import as_tensors
+
 __all__ = [
     "BTDFactor",
     "CRFactor",
@@ -38,7 +40,7 @@ __all__ = [
 ]
 
 
-def small_spd_inv(a: torch.Tensor) -> torch.Tensor:
+def small_spd_inv(a: torch.Tensor, *, device=None) -> torch.Tensor:
     """Batched inverse of small SPD blocks ``(..., w, w)`` without pivoting.
 
     An unrolled Gauss-Jordan with diagonal pivots (the pivot blocks are
@@ -46,8 +48,10 @@ def small_spd_inv(a: torch.Tensor) -> torch.Tensor:
     broadcast updates vectorized over every leading dim, in the exact
     elementwise op order of the JAX version and of the chunk kernel's
     in-kernel inverse.  Not ``torch.linalg.inv``: LU with partial pivoting
-    is a different op order and a library call per block batch.
+    is a different op order and a library call per block batch.  A
+    non-tensor ``a`` goes to ``device`` (:func:`..device.as_tensors`).
     """
+    a, = as_tensors(a, device=device)
     w = a.shape[-1]
     if w == 0:
         return a
@@ -108,12 +112,14 @@ def _mm_t(a, b):
     return acc
 
 
-def btd_factor(diag: torch.Tensor, lower: torch.Tensor) -> BTDFactor:
+def btd_factor(diag: torch.Tensor, lower: torch.Tensor, *, device=None) -> BTDFactor:
     """Factor an SPD block-tridiagonal matrix.
 
     ``diag``: (N, w, w) diagonal blocks; ``lower``: (N-1, w, w) subdiagonal
-    blocks (block (k+1, k)).
+    blocks (block (k+1, k)); what is not a tensor goes to ``device``
+    (:func:`..device.as_tensors`).
     """
+    diag, lower = as_tensors(diag, lower, device=device)
     N = diag.shape[0]
     dinv = [small_spd_inv(diag[0])]
     gs = []
@@ -133,9 +139,9 @@ def btd_solve(fac: BTDFactor, b: torch.Tensor) -> torch.Tensor:
     ``(N, ..., w, w)``) solve every system at once.
 
     Block "matvecs" are broadcast-multiply-reduce in the chunk kernel's
-    sweep order.
+    sweep order.  What is not a tensor goes to the factor's device.
     """
-    dinv, g, _ = fac
+    dinv, g, _, b = as_tensors(*fac, b)
     N = b.shape[0]
     # Forward: y_k = b_k - G_k y_{k-1}
     y = [b[0]]
@@ -170,8 +176,11 @@ def btd_solve_mat(fac: BTDFactor, B: torch.Tensor) -> torch.Tensor:
     return torch.stack(x)
 
 
-def btd_matvec(diag: torch.Tensor, lower: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """M @ x for a block-tridiagonal M.  ``x``: (N, w)."""
+def btd_matvec(diag: torch.Tensor, lower: torch.Tensor, x: torch.Tensor, *,
+               device=None) -> torch.Tensor:
+    """M @ x for a block-tridiagonal M.  ``x``: (N, w); what is not a tensor
+    goes to ``device`` (:func:`..device.as_tensors`)."""
+    diag, lower, x = as_tensors(diag, lower, x, device=device)
     out = torch.einsum("kij,kj->ki", diag, x)
     out = out.clone()
     out[1:] += torch.einsum("kij,kj->ki", lower, x[:-1])
@@ -179,8 +188,10 @@ def btd_matvec(diag: torch.Tensor, lower: torch.Tensor, x: torch.Tensor) -> torc
     return out
 
 
-def dense_to_blocks(M: torch.Tensor, N: int, w: int):
-    """Extract (diag, lower) blocks from a dense block-tridiagonal matrix."""
+def dense_to_blocks(M: torch.Tensor, N: int, w: int, *, device=None):
+    """Extract (diag, lower) blocks from a dense block-tridiagonal matrix
+    (a non-tensor ``M`` goes to ``device``, :func:`..device.as_tensors`)."""
+    M, = as_tensors(M, device=device)
     Mb = M.reshape(N, w, N, w)
     diag = torch.stack([Mb[k, :, k, :] for k in range(N)])
     lower = torch.stack([Mb[k + 1, :, k, :] for k in range(N - 1)])

@@ -66,6 +66,7 @@ from typing import Optional
 
 import torch
 
+from ..device import as_tensors
 from .banded_kernel import _check, launch_chunk, refuse_export
 
 __all__ = [
@@ -374,6 +375,7 @@ def shared_admm_chunk(
     batch_tile: int,
     iter_precision: str = "highest",
     rows_per_block: Optional[int] = None,
+    device=None,
 ):
     """Run one rho-constant shared-operator ADMM chunk; same contract as
     :func:`shared_admm_chunk_plain`.
@@ -391,9 +393,12 @@ def shared_admm_chunk(
     for the tensor-core form) forces the scenarios per thread block, for
     timing; by default :func:`shared_block_rows` picks it for the card.
     Results do not depend on it (the FP32 form's bits; the tensor-core
-    form's up to the order of its sums).
+    form's up to the order of its sums).  Arrays that are not tensors go to
+    ``device`` (:func:`..device.as_tensors`).
     """
     refuse_export("shared_admm_chunk")
+    done0, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y = as_tensors(
+        done0, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, device=device)
     _check_iter_precision(iter_precision)
     B, n, m, bound, done0, cinv = _contract(
         done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,

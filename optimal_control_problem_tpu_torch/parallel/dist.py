@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..device import as_tensors
 from ..solvers.admm import f32_matmuls
 from .batch import BatchedSolver, BatchState
 from .mesh import Mesh, batch_sharding, make_mesh
@@ -37,9 +38,11 @@ def consensus_mean(values: torch.Tensor, mesh: Mesh, axis: str = "batch") -> tor
     """Mean over ALL scenarios of a per-scenario quantity, across shards.
 
     ``values``: (B, d), split over ``axis``.  Returns the global mean of
-    shape (d,), the same on every shard: shard-local sums ``psum``-reduced."""
+    shape (d,), the same on every shard: shard-local sums ``psum``-reduced.
+    Values that are not a tensor go to the mesh's device
+    (:func:`..device.as_tensors`)."""
     ax = mesh.shards()
-    v = ax.shard(torch.as_tensor(values), (axis,))
+    v = ax.shard(as_tensors(values, device=mesh.device)[0], (axis,))
     return _local_mean(ax, v, axis)[0]
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import as_tensors
 from ..ops.block_tridiag import btd_factor, btd_solve, btd_solve_mat
 from ..solvers.admm import f32_matmuls
 from .mesh import Mesh
@@ -137,7 +138,9 @@ def horizon_sharded_solve(
     """Solve the SPD block-tridiagonal system with stages sharded over
     ``mesh[axis]``.  ``N`` must split into at least two stages a shard.
     Returns the global ``(N, w)`` solution (on every rank of a distributed
-    mesh)."""
+    mesh).  Arrays that are not tensors go to the mesh's device
+    (:func:`..device.as_tensors`)."""
+    diag, lower, b = as_tensors(diag, lower, b, device=mesh.device)
     N, w, _ = diag.shape
     if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r}: {mesh.shape}")

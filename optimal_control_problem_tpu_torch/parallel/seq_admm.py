@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import as_tensors
 from ..ops.block_tridiag import btd_factor, btd_solve, btd_solve_mat
 from ..solvers.admm import (
     ADMMSettings,
@@ -561,7 +562,10 @@ def admm_solve_seq_parallel(qp: ShardedBandedQP, settings: ADMMSettings, *, mesh
     interface-sized data crosses shards.  ``prim_inf``/``dual_inf`` are
     the OSQP infeasibility certificates (False when
     ``settings.check_infeasibility`` is off); a certified QP exits early.
+    Fields that are not tensors go to the mesh's device
+    (:func:`..device.as_tensors`).
     """
+    qp = ShardedBandedQP(*as_tensors(*qp, device=mesh.device))
     N = qp.Hb.shape[0]
     if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r}: {mesh.shape}")

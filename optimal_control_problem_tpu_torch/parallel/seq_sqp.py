@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
+from ..device import as_tensors
 from ..solvers.admm import ADMMSettings, f32_matmuls
 from ..stagewise import StageStructure
 from .mesh import Mesh
@@ -200,7 +201,10 @@ def sqp_solve_seq_parallel(
     its QP flags (converged, prim_inf, dual_inf) (sqp_iters, 3); with
     ``batch_axis`` and inputs carrying a leading scenario dim, (B, N, w),
     (B, sqp_iters) and (B, sqp_iters, 3).  The arrays stay on the mesh's
-    device; on a distributed mesh every rank returns the global result."""
+    device; on a distributed mesh every rank returns the global result.
+    Arrays that are not tensors go to the mesh's device
+    (:func:`..device.as_tensors`)."""
+    x0, ref, lx, ux = as_tensors(x0, ref, lx, ux, device=mesh.device)
     if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r}: {mesh.shape}")
     if batch_axis is not None and batch_axis not in mesh.shape:
@@ -231,7 +235,7 @@ def sqp_solve_seq_parallel(
         order = [dims[a] for a in spec]
 
     def to_local(t):
-        t = torch.as_tensor(t).reshape(lead + tuple(t.shape[-1:]))
+        t = t.reshape(lead + tuple(t.shape[-1:]))
         t = t.permute(order + [len(lead)])
         return ax.shard(t, spec).reshape(ax.S, C, t.shape[-1])
 

@@ -44,6 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import as_tensors
 from ..ops.admm_kernel import admm_device_loop
 from ..ops.shared_kernel import PRECISION_NAMES, precision_matmul
 
@@ -272,14 +273,16 @@ def _mv(M: torch.Tensor, v: torch.Tensor, precision: str = "highest") -> torch.T
     return precision_matmul(M, v.unsqueeze(-1), precision).squeeze(-1)
 
 
-def ruiz_equilibrate(P, q, A, iters: int):
+def ruiz_equilibrate(P, q, A, iters: int, *, device=None):
     """Modified Ruiz equilibration of [[P, A^T], [A, 0]] with cost scaling.
 
     Returns (Pb, qb, Ab, D, E, c) such that Pb = c*D@P@D, qb = c*D*q,
     Ab = E*A*D (diagonal scalings as vectors).  Mirrors OSQP ``scale.c``.
     Any leading batch dims scale each problem on its own (``c`` then has
-    the batch shape), with the single problem's operation order.
+    the batch shape), with the single problem's operation order.  Arrays
+    that are not tensors go to ``device`` (:func:`..device.as_tensors`).
     """
+    P, q, A = as_tensors(P, q, A, device=device)
     n = P.shape[-1]
     m = A.shape[-2]
     batch = P.shape[:-2]
@@ -408,12 +411,17 @@ def admm_solve(
     x0: Optional[torch.Tensor] = None,
     y0: Optional[torch.Tensor] = None,
     on_device: bool = False,
+    *,
+    device=None,
 ) -> QPSolution:
     """Solve one QP on the device of ``P``.  All arrays dense; use IEEE
     +-inf for absent bounds.  ``x0``/``y0`` warm-start the iteration (OSQP
     ``warm_start``).  A batch of one through :func:`admm_solve_batch`
     (with ``backend="pallas"``, one scenario in the device-loop kernel;
-    ``on_device`` as there)."""
+    ``on_device`` as there).  Arrays that are not tensors go to ``device``
+    (:func:`..device.as_tensors`: by default the first tensor's device,
+    else ``cuda``)."""
+    P, q, A, l, u, x0, y0 = as_tensors(P, q, A, l, u, x0, y0, device=device)
     one = lambda a: None if a is None else a[None]  # noqa: E731
     sol = admm_solve_batch(P[None], q[None], A[None], l[None], u[None], settings,
                            one(x0), one(y0), on_device)
@@ -431,6 +439,8 @@ def admm_solve_batch(
     x0: Optional[torch.Tensor] = None,
     y0: Optional[torch.Tensor] = None,
     on_device: bool = False,
+    *,
+    device=None,
 ) -> QPSolution:
     """Solve B independent QPs, ``P (B, n, n)``, ``q (B, n)``, ``A (B, m, n)``,
     ``l``/``u (B, m)``, warm starts ``x0 (B, n)``/``y0 (B, m)``: the port's
@@ -444,8 +454,10 @@ def admm_solve_batch(
     loop conditions are read on the host once per check block
     (``backend="xla"``) or kernel entry (``"pallas"``); ``on_device``
     (``"xla"`` only) keeps them on the device instead (``torch.while_loop``;
-    the same results), the form ``torch.export`` traces.
+    the same results), the form ``torch.export`` traces.  Arrays that are
+    not tensors go to ``device`` as in :func:`admm_solve`.
     """
+    P, q, A, l, u, x0, y0 = as_tensors(P, q, A, l, u, x0, y0, device=device)
     st = settings
     if on_device and st.backend != "xla":
         raise ValueError("on_device takes the 'xla' backend (the device loop is a hand kernel)")

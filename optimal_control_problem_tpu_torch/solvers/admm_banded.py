@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import as_tensors
 from ..ops.block_tridiag import btd_factor, btd_solve, cr_factor, cr_solve
 from .admm import (
     ADMMSettings,
@@ -104,6 +105,14 @@ def _amax0(a):
 
 # ---------------------------------------------------------------------------
 # Ruiz equilibration
+
+
+def _banded_tensors(qp, *arrays, device=None):
+    """``BandedQP(*qp)`` and ``arrays`` as tensors (:func:`..device.as_tensors`:
+    what is not a tensor goes to ``device``, by default the first
+    tensor's)."""
+    out = as_tensors(*qp, *arrays, device=device)
+    return (BandedQP(*out[:len(BandedQP._fields)]),) + out[len(BandedQP._fields):]
 
 
 def ruiz_equilibrate_banded_T(qpT: BandedQP, iters: int):
@@ -193,9 +202,11 @@ def ruiz_equilibrate_banded_T(qpT: BandedQP, iters: int):
     return scaled, D.reshape(n, B), E, c
 
 
-def ruiz_equilibrate_banded(qp: BandedQP, iters: int):
+def ruiz_equilibrate_banded(qp: BandedQP, iters: int, *, device=None):
     """Per-scenario modified Ruiz equilibration; returns
-    ``(scaled_qp, D (n,), E (m,), c ())``."""
+    ``(scaled_qp, D (n,), E (m,), c ())``.  Fields that are not tensors go
+    to ``device`` (:func:`_banded_tensors`)."""
+    qp, = _banded_tensors(qp, device=device)
     scaled, D, E, c = ruiz_equilibrate_banded_T(_batch1(qp), iters)
     return (
         BandedQP(*(a[..., 0] for a in scaled)),
@@ -363,8 +374,12 @@ def banded_residuals_T(qpT: BandedQP, x, z, y, Einv, Dinv, cinv, st: ADMMSetting
     return r_prim, r_dual, eps_pri, eps_dua, rp_rel, rd_rel
 
 
-def banded_residuals(qp: BandedQP, x, z, y, Einv, Dinv, cinv, st: ADMMSettings):
-    """Per-scenario :func:`banded_residuals_T`; returns 0-d tensors."""
+def banded_residuals(qp: BandedQP, x, z, y, Einv, Dinv, cinv, st: ADMMSettings, *,
+                     device=None):
+    """Per-scenario :func:`banded_residuals_T`; returns 0-d tensors.
+    Arrays that are not tensors go to ``device`` (:func:`_banded_tensors`)."""
+    qp, x, z, y, Einv, Dinv, cinv = _banded_tensors(qp, x, z, y, Einv, Dinv, cinv,
+                                                    device=device)
     outs = banded_residuals_T(
         _batch1(qp), x[:, None], z[:, None], y[:, None],
         Einv[:, None], Dinv[:, None], cinv.reshape(1), st,
@@ -422,8 +437,11 @@ def banded_certificates_T(qpT: BandedQP, dx_s, dy_s, D, E, cinv, st: ADMMSetting
     return prim_inf, dual_inf
 
 
-def banded_certificates(qp: BandedQP, dx_s, dy_s, D, E, cinv, st: ADMMSettings):
-    """Per-scenario :func:`banded_certificates_T`; returns 0-d bools."""
+def banded_certificates(qp: BandedQP, dx_s, dy_s, D, E, cinv, st: ADMMSettings, *,
+                        device=None):
+    """Per-scenario :func:`banded_certificates_T`; returns 0-d bools.
+    Arrays that are not tensors go to ``device`` (:func:`_banded_tensors`)."""
+    qp, dx_s, dy_s, D, E, cinv = _banded_tensors(qp, dx_s, dy_s, D, E, cinv, device=device)
     pinf, dinf = banded_certificates_T(
         _batch1(qp), dx_s[:, None], dy_s[:, None], D[:, None], E[:, None],
         cinv.reshape(1), st,
@@ -448,14 +466,19 @@ def banded_polish(
     Einv,
     Dinv,
     cinv,
+    *,
+    device=None,
 ):
     """Active-set polish with block structure (OSQP ``polish.c`` analog):
     rows whose dual sits on a bound with matching sign are pinned via a
     1/delta penalty in the same block-tridiagonal operator family, and two
     augmented-Lagrangian sweeps remove the O(delta) bias.  Accepted only if
     both unscaled residuals improve.  Per scenario, all quantities in
-    SCALED space; returns updated ``(x, y, z, r_prim, r_dual)``.
+    SCALED space; returns updated ``(x, y, z, r_prim, r_dual)``.  Arrays
+    that are not tensors go to ``device`` (:func:`_banded_tensors`).
     """
+    qp, x, y, z, r_prim, r_dual, Einv, Dinv, cinv = _banded_tensors(
+        qp, x, y, z, r_prim, r_dual, Einv, Dinv, cinv, device=device)
     N, w = qp.Hb.shape[0], qp.Hb.shape[1]
     m = qp.l.shape[0]
     dtype, dev = qp.Hb.dtype, qp.Hb.device
@@ -498,6 +521,8 @@ def admm_solve_banded(
     x0: Optional[torch.Tensor] = None,  # (n,) warm start
     y0: Optional[torch.Tensor] = None,  # (m,)
     on_device: bool = False,
+    *,
+    device=None,
 ) -> QPSolution:
     """Solve one stage-structured QP without dense operators.
 
@@ -509,8 +534,10 @@ def admm_solve_banded(
     Loop conditions are read on the host; ``on_device`` keeps them on the
     device instead (one ``torch.while_loop``, an ADMM iteration a trip, the
     adaptive refactorization applied by mask): the same results, and the
-    form ``torch.export`` traces.
+    form ``torch.export`` traces.  Arrays that are not tensors go to
+    ``device`` (:func:`_banded_tensors`).
     """
+    qp, x0, y0 = _banded_tensors(qp, x0, y0, device=device)
     st = settings
     dtype, dev = qp.Hb.dtype, qp.Hb.device
     N, w = qp.Hb.shape[0], qp.Hb.shape[1]

@@ -44,7 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..device import resolve_device
+from ..device import as_tensors, resolve_device
 from ..ops.banded_cr_kernel import banded_admm_chunk_cr
 from ..ops.banded_kernel import KERNEL_WIDTHS, banded_admm_chunk
 from ..ops.banded_rolled_kernel import banded_admm_chunk_rolled
@@ -81,16 +81,20 @@ def _ut(a):
     return a.movedim(-1, 0).contiguous()
 
 
-def ruiz_scalings_batch(qp: BandedQP, iters: int):
+def ruiz_scalings_batch(qp: BandedQP, iters: int, *, device=None):
     """Batch Ruiz factors only: ``(D (B, n), E (B, m), c (B,))`` from a
-    batch-leading QP."""
+    batch-leading QP; fields that are not tensors go to ``device``
+    (:func:`..device.as_tensors`)."""
+    qp = as_tensors(*qp, device=device)
     DT, ET, cT = ruiz_scalings_batch_T(BandedQP(*(_t(a) for a in qp)), iters)
     return _ut(DT), _ut(ET), cT
 
 
-def ruiz_scalings_batch_T(qpT: BandedQP, iters: int):
+def ruiz_scalings_batch_T(qpT: BandedQP, iters: int, *, device=None):
     """Batch-last Ruiz factors ``(D (n, B), E (m, B), c (B,))`` — what the
-    SQP layer hoists out of its step loop (``scaling_refresh="tick"``)."""
+    SQP layer hoists out of its step loop (``scaling_refresh="tick"``);
+    fields that are not tensors go to ``device``."""
+    qpT = BandedQP(*as_tensors(*qpT, device=device))
     _, DT, ET, cT = ruiz_equilibrate_banded_T(qpT, iters)
     return DT, ET, cT
 
@@ -470,15 +474,17 @@ def admm_solve_banded_batch_T(
     ``qpT`` carries a trailing scenario axis (``Hb (N,w,w,B)``, ``q/l/u
     (rows, B)``); warm starts and returns are ``(rows, B)``.
 
-    Runs on ``device`` (default: the GPU; inputs are moved there);
+    Runs on ``device`` (default: the GPU; inputs are moved there, numpy
+    arrays converted as :func:`..device.as_tensors` converts them);
     ``rolled`` picks the chunk kernel (:func:`chunk_kernel`).  Returns
     ``(x (n,B), y (m,B), z (m,B), iters (B,), converged, r_prim,
     r_dual, prim_inf, dual_inf)``.
     """
     dev = resolve_device(device)
     mv = lambda a: None if a is None else a.to(dev)  # noqa: E731
-    qpT = BandedQP(*(a.to(dev) for a in qpT))
-    sc = None if scalingsT is None else tuple(mv(s) for s in scalingsT)
+    qpT = BandedQP(*(a.to(dev) for a in as_tensors(*qpT, device=dev)))
+    x0T, y0T = as_tensors(x0T, y0T, device=dev)
+    sc = None if scalingsT is None else tuple(mv(s) for s in as_tensors(*scalingsT, device=dev))
     return _solve_banded_batch_T(qpT, settings, mv(x0T), mv(y0T), sc, rolled)
 
 
@@ -499,7 +505,9 @@ def admm_solve_banded_batch(
     :class:`QPSolution` with leading batch dims.
     """
     dev = resolve_device(device)
-    qpT = BandedQP(*(_t(a.to(dev)) for a in qp))
+    qpT = BandedQP(*(_t(a.to(dev)) for a in as_tensors(*qp, device=dev)))
+    x0, y0 = as_tensors(x0, y0, device=dev)
+    scalings = None if scalings is None else as_tensors(*scalings, device=dev)
     x0T = None if x0 is None else x0.to(dev).T.contiguous()
     y0T = None if y0 is None else y0.to(dev).T.contiguous()
     scalingsT = (

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import as_tensors
 from ..ops.shared_kernel import (
     matmul_split,
     pick_shared_tile,
@@ -149,9 +150,13 @@ def prepare_shared(
     u: torch.Tensor,  # (B, m)
     q_typical: Optional[torch.Tensor],  # (B, n) representative linear terms
     settings: ADMMSettings,
+    *,
+    device=None,
 ) -> SharedQPFactor:
     """Equilibrate, choose per-row rho, and factorize — once per solve
-    (``A^T R A`` at ``settings.precision``)."""
+    (``A^T R A`` at ``settings.precision``).  Arrays that are not tensors
+    go to ``device`` (:func:`..device.as_tensors`)."""
+    P, A, l, u, q_typical = as_tensors(P, A, l, u, q_typical, device=device)
     st = settings
     dtype, dev = P.dtype, P.device
     n = P.shape[0]
@@ -198,8 +203,10 @@ def admm_iterate_prepared(
     ``m == 0``, ``precision != "highest"`` (the kernel computes at f32;
     JAX takes its XLA loop so the backends cannot differ) and a problem
     whose working set fits at no tile take the ``"xla"`` loop, as in the
-    JAX package.
+    JAX package.  Arrays that are not tensors go to the factor's device.
     """
+    *fac, q, l, u, x0, y0 = as_tensors(*fac, q, l, u, x0, y0)
+    fac = SharedQPFactor(*fac)
     if (
         settings.backend == "pallas"
         and settings.method == "condensed"
@@ -576,8 +583,12 @@ def admm_solve_shared(
     settings: ADMMSettings = ADMMSettings(),
     x0: Optional[torch.Tensor] = None,  # (B, n)
     y0: Optional[torch.Tensor] = None,  # (B, m)
+    *,
+    device=None,
 ) -> BatchQPSolution:
     """One-shot convenience wrapper: prepare + iterate, on the tensors'
-    device."""
+    device (arrays that are not tensors go to ``device``, as in
+    :func:`prepare_shared`)."""
+    P, A, q, l, u, x0, y0 = as_tensors(P, A, q, l, u, x0, y0, device=device)
     fac = prepare_shared(P, A, l, u, q, settings)
     return admm_iterate_prepared(fac, q, l, u, settings, x0=x0, y0=y0)

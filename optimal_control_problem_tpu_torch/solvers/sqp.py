@@ -64,10 +64,13 @@ class SQPResult(NamedTuple):
     f_history: torch.Tensor  # objective after each SQP iteration (step_num, ...)
     qp_iters: torch.Tensor  # ADMM iterations per SQP step
     step_norms: torch.Tensor  # ||alpha*dx|| per SQP step
-    qp_converged: torch.Tensor  # per-step QP status flags
-    qp_prim_inf: torch.Tensor
-    qp_dual_inf: torch.Tensor
-    steps_taken: torch.Tensor  # SQP iterations actually applied
+    # Per-step QP status flags and the SQP iterations actually applied;
+    # empty / 0-d by default, as in the JAX package, for a result built
+    # from the first seven fields.
+    qp_converged: torch.Tensor = torch.zeros((0,), dtype=torch.bool)
+    qp_prim_inf: torch.Tensor = torch.zeros((0,), dtype=torch.bool)
+    qp_dual_inf: torch.Tensor = torch.zeros((0,), dtype=torch.bool)
+    steps_taken: torch.Tensor = torch.zeros((), dtype=torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

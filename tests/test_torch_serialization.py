@@ -53,19 +53,19 @@ ARG = {
 }
 
 
-def make_solver(**admm):
+def make_solver(sqp_iters=5, **admm):
     x = S.sym("x", 2)
     nlp = {"x": x, "f": x[0] ** 2 + x[1] ** 2, "g": x[0] + x[1] - 1.0}
     return SQPOptimizationSolver(
-        nlp, SQPOptions(max_iter=5, alpha=0.5,
+        nlp, SQPOptions(max_iter=sqp_iters, alpha=0.5,
                         admm=ADMMSettings(eps_abs=1e-4, eps_rel=1e-4, **admm)),
         device="cpu")
 
 
-def make_jax_solver():
+def make_jax_solver(sqp_iters=5):
     x = JS.sym("x", 2)
     nlp = {"x": x, "f": x[0] ** 2 + x[1] ** 2, "g": x[0] + x[1] - 1.0}
-    return JSolver(nlp, JOptions(max_iter=5, alpha=0.5,
+    return JSolver(nlp, JOptions(max_iter=sqp_iters, alpha=0.5,
                                  admm=JSettings(eps_abs=1e-4, eps_rel=1e-4)))
 
 
@@ -91,7 +91,9 @@ def test_warm_start_checkpoint_roundtrip(tmp_path):
 
 
 def test_export_import_solver_artifact(tmp_path):
-    s = make_solver()
+    # Two SQP steps: the export unrolls the step loop, one traced ADMM
+    # while_loop a step, and the trace's time grows with the steps.
+    s = make_solver(sqp_iters=2)
     path = tmp_path / "solver.pt2"
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
     args = (torch.zeros(2), torch.zeros(0), f32(ARG["lbx"]), f32(ARG["ubx"]),
@@ -108,7 +110,7 @@ def test_export_import_solver_artifact(tmp_path):
     np.testing.assert_allclose(s.solve_fn(*args2).x.numpy(), loaded(*args2)[0].numpy(),
                                atol=1e-6)
     # JAX's exported artifact on the same inputs.
-    js = make_jax_solver()
+    js = make_jax_solver(sqp_iters=2)
     jargs = tuple(jnp.asarray(a.numpy()) for a in args)
     jpath = tmp_path / "solver.bin"
     jser.export_solver(js.solve_fn, jargs, str(jpath))

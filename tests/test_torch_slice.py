@@ -535,6 +535,9 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "optimal_control_problem_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    twins = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert [p.name for p in twins] == sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+    files += twins
     assert len(files) > 10
     pkg = ROOT / "optimal_control_problem_tpu_torch"
     for name in ("sym.py", "controller.py", "models/unicycle.py"):
