@@ -96,7 +96,9 @@ Phases:
      ticks likewise; 5f-5h. the ticks of 4f (also under the parity preset:
      NaN, flags and iteration counts equal), 4g (both step rules) and 4h at
      B=4 likewise; 5i. ``MPCController`` on the double integrator h10, 40
-     closed-loop steps on the card and on the CPU; 5j. a ``MIXED`` dense
+     closed-loop steps on the card and on the CPU (the CPU sides of 5-5i
+     run in worker processes beside the card's, ``process_map``); 5j. a
+     ``MIXED`` dense
      cart-pole h20 tick loop (tick 1 on the host backend, ticks 2+ through
      the device loop); 5k. the parity oracle (f64 derivatives, native C++
      QPs) against the port's product loop on the card, double integrator
@@ -163,6 +165,7 @@ ROLLED_REPLACES = "optimal_control_problem_tpu/ops/banded_rolled_kernel.py:666"
 ROLLED_SOURCE = "optimal_control_problem_tpu_torch/csrc/banded_rolled_chunk.cu"
 SHARED_REPLACES = "optimal_control_problem_tpu/ops/shared_kernel.py:233"
 SHARED_SOURCE = "optimal_control_problem_tpu_torch/csrc/shared_chunk.cu"
+SHARED_TC_SOURCE = "optimal_control_problem_tpu_torch/csrc/shared_chunk_tc.cu"
 DEVLOOP_REPLACES = "optimal_control_problem_tpu/ops/admm_kernel.py:149"
 DEVLOOP_SOURCE = "optimal_control_problem_tpu_torch/csrc/admm_device_loop.cu"
 CR_REPLACES = "optimal_control_problem_tpu/ops/banded_cr_kernel.py:682"
@@ -418,6 +421,115 @@ def time_ms(fn, reps, sync):
         sync()
         out.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(out)
+
+
+def ticks_on(model, cfg, build_kw, device, fr, rf, n_ticks):
+    """``n_ticks`` ticks of ``models.<model>.build(cfg, **build_kw)`` from a
+    fresh state on ``device``: the plans, each tick's QP flags and
+    iteration counts, and the seconds they took."""
+    import importlib
+
+    from optimal_control_problem_tpu_torch.parallel import BatchedSolver
+
+    mod = importlib.import_module(f"optimal_control_problem_tpu_torch.models.{model}")
+    s_ = BatchedSolver(mod.build(cfg, **build_kw, device=device), device=device)
+    st_ = s_.init_state(fr.shape[0])
+    t0 = time.perf_counter()
+    out, fl = [], []
+    for _ in range(n_ticks):
+        tr, _, st_ = s_.solve(fr, rf, st_)
+        out.append(tr.cpu().numpy())
+        res_ = s_.last_result
+        fl.append([getattr(res_, k).cpu().numpy() for k in (
+            "qp_converged", "qp_prim_inf", "qp_dual_inf", "qp_iters")])
+    return out, fl, time.perf_counter() - t0
+
+
+def closed_loop(device):
+    """tests/test_controller.py's closed loop on ``device``: the double
+    integrator h10 (dense single-scenario path, augmented), 40
+    ``MPCController`` steps towards (1, 0.5); the position errors, states,
+    controls and seconds."""
+    from optimal_control_problem_tpu_torch.controller import MPCController
+    from optimal_control_problem_tpu_torch.models import double_integrator
+
+    H_c, dt_c = 10, 0.05
+    ocp_c = double_integrator.build(double_integrator.make_config(
+        horizon=H_c, dt=dt_c, alpha=0.7, step_num=8), device=device)
+    ctl = MPCController(ocp_c, double_integrator.CONTROL_SLICE)
+    target = np.array([1.0, 0.5])
+    ref_c = np.tile(target, H_c)
+    pos, vel, acc = np.zeros(2), np.zeros(2), np.zeros(2)
+    errs, states, us = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(40):
+        u = ctl.step(np.concatenate([pos, vel, acc]), ref_c)
+        pos, vel, acc = pos + dt_c * vel, vel + dt_c * u, u
+        errs.append(float(np.linalg.norm(pos - target)))
+        states.append(np.r_[pos, vel])
+        us.append(u)
+    return np.array(errs), np.array(states), np.array(us), time.perf_counter() - t0
+
+
+def _cpu_worker(todo, done, threads):
+    import torch
+
+    torch.set_num_threads(threads)
+    while (job := todo.get()) is not None:
+        i, fn, args = job
+        try:
+            done.put((i, fn(*args), None))
+        except BaseException as e:  # noqa: BLE001 -- handed to the parent
+            done.put((i, None, f"{type(e).__name__}: {e}"))
+
+
+def process_map(jobs, workers, threads):
+    """Run ``jobs`` (``(function, args)`` pairs of this module, taken in
+    the order given) in ``workers`` new processes with ``threads`` torch
+    threads each, while the caller goes on; returns a function that waits
+    for them and gives their results in that order.  The processes are
+    spawned, not forked: a fork of this process could not run autograd
+    (its engine's threads) and shares its CUDA context.  A job that
+    raises, or a worker that dies, fails the wait."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    todo, done = ctx.Queue(), ctx.Queue()
+    for i, (fn, args) in enumerate(jobs):
+        todo.put((i, fn, args))
+    for _ in range(workers):
+        todo.put(None)
+    procs = [ctx.Process(target=_cpu_worker, args=(todo, done, threads), daemon=True)
+             for _ in range(workers)]
+    for p_ in procs:
+        p_.start()
+
+    def results():
+        got = {}
+        try:
+            while len(got) < len(jobs):
+                try:
+                    i, r, err = done.get(timeout=5)
+                except queue.Empty:
+                    if not any(p_.is_alive() for p_ in procs):
+                        raise SystemExit("a CPU worker died before its results came")
+                    continue
+                if err is not None:
+                    raise SystemExit(f"a CPU worker failed: {err}")
+                got[i] = r
+        finally:
+            for p_ in procs:
+                if len(got) < len(jobs):
+                    p_.terminate()
+                p_.join()
+            # The queues live until here: a worker opens their semaphores
+            # by name, which they unlink when collected.
+            todo.close()
+            done.close()
+        return [got[i] for i in range(len(jobs))]
+
+    return results
 
 
 def phase7(dev) -> dict:
@@ -782,7 +894,6 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from optimal_control_problem_tpu_torch.controller import MPCController
     from optimal_control_problem_tpu_torch.models import (
         cartpole,
         double_integrator,
@@ -1051,14 +1162,17 @@ def main(argv) -> int:
     # -- 3 (continued). the shared-operator chunk vs its plain version ----
     H_di, dt_di, B_di = 20, 0.005, 4096
 
-    def di_solver(backend, device="cuda", augmented=False):
+    def di_config(backend, augmented=False):
         """The JAX bench's double integrator; ``augmented``: with the
         formulation left at its default (the reference's z = [p; x])."""
         form = {} if augmented else {"formulation": "reduced"}
-        cfg_ = double_integrator.make_config(
+        return double_integrator.make_config(
             horizon=H_di, dt=dt_di, solve_method="TPU_SQP", alpha=0.1, step_num=10,
             ADMM_settings={**DI_ADMM, "backend": backend}, **form)
-        return BatchedSolver(double_integrator.build(cfg_, device=device), device=device)
+
+    def di_solver(backend, device="cuda", augmented=False):
+        return BatchedSolver(double_integrator.build(di_config(backend, augmented),
+                                                     device=device), device=device)
 
     rng_di = np.random.default_rng(0)  # frames and references as bench.py:129-133
     di_frames = np.zeros((B_di, double_integrator.FRAME), np.float32)
@@ -1332,6 +1446,31 @@ def main(argv) -> int:
         cut = tuple(a[:64].contiguous() if i in per else a for i, a in enumerate(args))
         return cut, {**kw, "batch_tile": 64}
 
+    # The tensor-core entry point's packing kernel (the operators' bf16
+    # hi / lo slices, once per call) against its plain version
+    # tc_operator_slices, bitwise, on the operators of both cold ticks.
+    pack_fn = build.load_library("shared_chunk_tc").ocp_shared_tc_pack_f32
+    pack_fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p]
+    pack_fn.restype = ctypes.c_int
+    for where, op_args in (("double integrator", di_args), ("augmented double integrator",
+                                                             a_args)):
+        OP_c, Ab_c = op_args[2], op_args[3]
+        for name, w_c in (("Ab", Ab_c), ("OP", OP_c), ("Ab^T", Ab_c.T.contiguous())):
+            want = sk.tc_operator_slices(w_c)
+            got = torch.full_like(want, float("nan"))
+            ptrs = (ctypes.c_void_p * 2)(w_c.data_ptr(), got.data_ptr())
+            rc = pack_fn(ctypes.cast(ptrs, ctypes.c_void_p), 2, *w_c.shape,
+                         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            sync()
+            if rc != 0:
+                raise SystemExit(f"phase 3: the packing kernel's launch failed: cudaError {rc}")
+            same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            log(f"phase 3 [shared chunk tensor-core form, {where} {name} "
+                f"{tuple(w_c.shape)}]: packing kernel vs tc_operator_slices bitwise equal: {same}")
+            if not same:
+                raise SystemExit(f"phase 3: the tensor-core form's packing of {name} ({where}) "
+                                 "differs from tc_operator_slices")
     for where, (t_args, t_kw) in (
             ("double integrator cold tick", (di_args, di_kw)),
             ("double integrator cold tick B=64", b64_slice(di_args, di_kw)),
@@ -1354,7 +1493,7 @@ def main(argv) -> int:
     cd_frames[:, 2] = np.random.default_rng(0).uniform(-0.5, 0.5, B_cd).astype(np.float32)
     cd_refs = np.full((B_cd, 1), np.pi, np.float32)
 
-    def cd_build(backend, device="cuda", augmented=False, parity=False):
+    def cd_config(backend, augmented=False, parity=False):
         """The JAX bench's cartpole_h20_pallas; ``augmented``: with the
         formulation left at its default; ``parity``: and the parity
         preset on."""
@@ -1364,7 +1503,11 @@ def main(argv) -> int:
             ADMM_settings={**DENSE_ADMM, "backend": backend}, **form)
         if parity:
             cfg_["solver_settings"]["SQP_settings"]["parity"] = True
-        return cartpole.build(cfg_, stagewise=False, device=device)
+        return cfg_
+
+    def cd_build(backend, device="cuda", augmented=False, parity=False):
+        return cartpole.build(cd_config(backend, augmented, parity), stagewise=False,
+                              device=device)
 
     cd_pallas = BatchedSolver(cd_build("pallas"))
     if cd_pallas._solve_batch is not cd_pallas.solver.solve_batch_dense_fn:
@@ -1954,13 +2097,17 @@ def main(argv) -> int:
     u_frames[:, 2] = rng_u.uniform(-0.5, 0.5, B_u).astype(np.float32)
     u_refs = np.tile(unicycle.reference_line(50, 0.05)[None, :], (B_u, 1)).astype(np.float32)
 
-    def uni_build(merit, device="cuda"):
+    uni_kw = dict(halfspaces=(((0.0, 1.0), -0.5),), stagewise=True)
+
+    def uni_config(merit):
         cfg_ = unicycle.make_config(horizon=50, dt=0.05, alpha=0.3, step_num=step_num,
                                     formulation="reduced", ADMM_settings=dict(UNI_ADMM))
         if merit:
             cfg_["solver_settings"]["SQP_settings"]["line_search"] = "merit"
-        return unicycle.build(cfg_, halfspaces=(((0.0, 1.0), -0.5),), stagewise=True,
-                              device=device)
+        return cfg_
+
+    def uni_build(merit, device="cuda"):
+        return unicycle.build(uni_config(merit), **uni_kw, device=device)
 
     def uni_rule(n):
         # Adaptive rho: at least one chunk launch per SQP step, one-way only.
@@ -2078,28 +2225,21 @@ def main(argv) -> int:
                               "qp_iters": it_t[-1], "highest_qp_iters": it_h[-1]}
 
     # -- 5. card vs CPU ---------------------------------------------------
-    def card_vs_cpu(build_fn, fr, rf, label, acc_limit=None, n_ticks=2, nan_ok=False):
-        """``n_ticks`` ticks on the card and on the CPU (plain kernels):
-        trajectories within 5e-3; with ``acc_limit`` the double
-        integrator's weakly weighted accelerations (columns 4:6 of each
-        frame) are held to it and the rest to 5e-3.  ``nan_ok`` (a
-        diverging preset): NaN in the same places, the gap over the finite
-        entries, and equal QP flags and iteration counts every tick."""
+    # The CPU sides (the plain kernels, host-bound: seconds to a minute and
+    # a half each) run in worker processes while the card's sides run here;
+    # each comparison is then checked and logged in order.
+    def card_vs_cpu(label, fr, sides, acc_limit=None, n_ticks=2, nan_ok=False):
+        """``n_ticks`` ticks on the card and on the CPU (plain kernels),
+        ``sides`` each device's ``ticks_on``: trajectories within 5e-3;
+        with ``acc_limit`` the double integrator's weakly weighted
+        accelerations (columns 4:6 of each frame) are held to it and the
+        rest to 5e-3.  ``nan_ok`` (a diverging preset): NaN in the same
+        places, the gap over the finite entries, and equal QP flags and
+        iteration counts every tick."""
         trajs, flags = {}, {}
         for d in ("cuda", "cpu"):
-            s_ = BatchedSolver(build_fn(d), device=d)
-            st_ = s_.init_state(fr.shape[0])
-            t0 = time.perf_counter()
-            out, fl = [], []
-            for _ in range(n_ticks):
-                tr, _, st_ = s_.solve(fr, rf, st_)
-                out.append(tr.cpu().numpy())
-                res_ = s_.last_result
-                fl.append([getattr(res_, k).cpu().numpy() for k in (
-                    "qp_converged", "qp_prim_inf", "qp_dual_inf", "qp_iters")])
-            trajs[d], flags[d] = out, fl
-            log(f"{label}: {n_ticks} ticks at B={fr.shape[0]} on {d}: "
-                f"{time.perf_counter() - t0:.2f} s")
+            trajs[d], flags[d], secs = sides[d]
+            log(f"{label}: {n_ticks} ticks at B={fr.shape[0]} on {d}: {secs:.2f} s")
         if nan_ok:
             same = all(np.array_equal(np.isnan(a), np.isnan(b))
                        for a, b in zip(trajs["cuda"], trajs["cpu"])) and all(
@@ -2125,64 +2265,68 @@ def main(argv) -> int:
             raise SystemExit(f"{label}: card and CPU ticks disagree")
 
     Bs = 64
-    card_vs_cpu(lambda d: cartpole.build(cartpole.make_config(
-        horizon=20, dt=0.04, alpha=0.3, step_num=step_num, formulation="reduced",
-        ADMM_settings=dict(MAIN_ADMM)), stagewise=True, device=d),
-        frames[:Bs], refs[:Bs], "phase 5 cart-pole h20")
     qcfg, qfr, qrf = quad_case(8)
-    card_vs_cpu(lambda d: quadrotor.build(qcfg, stagewise=True, device=d), qfr, qrf,
-                "phase 5b quadrotor h100")
-    card_vs_cpu(lambda d: di_solver("pallas", d).ocp, di_frames[:Bs], di_refs[:Bs],
-                "phase 5c double integrator h20", acc_limit=0.1)
-    card_vs_cpu(lambda d: cd_build("pallas", d), cd_frames[:4], cd_refs[:4],
-                "phase 5d cart-pole h20 dense", n_ticks=3)
-    qcfg, qfr, qrf = quad_case(8, admm=QUAD_CR_ADMM)
-    card_vs_cpu(lambda d: quadrotor.build(qcfg, stagewise=True, device=d), qfr, qrf,
-                "phase 5e quadrotor h100 banded_solver=cr")
-    card_vs_cpu(lambda d: cd_build("pallas", d, augmented=True), cd_frames[:4], cd_refs[:4],
-                "phase 5f cart-pole h20 dense augmented", n_ticks=3)
-    card_vs_cpu(lambda d: cd_build("pallas", d, augmented=True, parity=True), cd_frames[:4],
-                cd_refs[:4], "phase 5f cart-pole h20 dense parity preset", n_ticks=3,
-                nan_ok=True)
-    for merit in (False, True):
-        card_vs_cpu(lambda d: uni_build(merit, d), u_frames[:4], u_refs[:4],
-                    "phase 5g unicycle h50 banded" + (" line_search=merit" if merit else ""))
-    card_vs_cpu(lambda d: di_solver("pallas", d, augmented=True).ocp, di_frames[:4],
-                di_refs[:4], "phase 5h double integrator h20 augmented", acc_limit=0.1)
+    qcfg_cr, qfr_cr, qrf_cr = quad_case(8, admm=QUAD_CR_ADMM)
+    stagewise = dict(stagewise=True)
+    # (label, model, config, build keywords, frames, refs, card_vs_cpu's
+    # options), in phase order.
+    comparisons = [
+        ("phase 5 cart-pole h20", "cartpole", cartpole.make_config(
+            horizon=20, dt=0.04, alpha=0.3, step_num=step_num, formulation="reduced",
+            ADMM_settings=dict(MAIN_ADMM)), stagewise, frames[:Bs], refs[:Bs], {}),
+        ("phase 5b quadrotor h100", "quadrotor", qcfg, stagewise, qfr, qrf, {}),
+        ("phase 5c double integrator h20", "double_integrator", di_config("pallas"), {},
+         di_frames[:Bs], di_refs[:Bs], dict(acc_limit=0.1)),
+        ("phase 5d cart-pole h20 dense", "cartpole", cd_config("pallas"),
+         dict(stagewise=False), cd_frames[:4], cd_refs[:4], dict(n_ticks=3)),
+        ("phase 5e quadrotor h100 banded_solver=cr", "quadrotor", qcfg_cr, stagewise, qfr_cr,
+         qrf_cr, {}),
+        ("phase 5f cart-pole h20 dense augmented", "cartpole",
+         cd_config("pallas", augmented=True), dict(stagewise=False), cd_frames[:4],
+         cd_refs[:4], dict(n_ticks=3)),
+        ("phase 5f cart-pole h20 dense parity preset", "cartpole",
+         cd_config("pallas", augmented=True, parity=True), dict(stagewise=False),
+         cd_frames[:4], cd_refs[:4], dict(n_ticks=3, nan_ok=True)),
+        *[("phase 5g unicycle h50 banded" + (" line_search=merit" if merit else ""),
+           "unicycle", uni_config(merit), uni_kw, u_frames[:4], u_refs[:4], {})
+          for merit in (False, True)],
+        ("phase 5h double integrator h20 augmented", "double_integrator",
+         di_config("pallas", augmented=True), {}, di_frames[:4], di_refs[:4],
+         dict(acc_limit=0.1)),
+    ]
 
-    # -- 5i. the MPC controller: card vs CPU --------------------------------
-    # tests/test_controller.py's closed loop: the double integrator h10
-    # (dense single-scenario path, augmented), 40 steps towards (1, 0.5).
-    # The controls are its accelerations (range +-50, weight 1e-3 against
-    # 10 on the positions): QPs stopped at eps 1e-3 leave them loose, and
-    # on the CPU the port's and JAX's controls differ by up to 0.34 at one
-    # step (tests/test_torch_frontend.py).  Held: controls within 1% of the
+    def side(c, device):
+        label, model, cfg_, kw_, fr, rf, opts = c
+        return ticks_on, (model, cfg_, kw_, device, fr, rf, opts.get("n_ticks", 2))
+
+    # 5i. the MPC controller, card vs CPU: tests/test_controller.py's
+    # closed loop (``closed_loop``).  The controls are its accelerations
+    # (range +-50, weight 1e-3 against 10 on the positions): QPs stopped at
+    # eps 1e-3 leave them loose, and on the CPU the port's and JAX's
+    # controls differ by up to 0.34 at one step
+    # (tests/test_torch_frontend.py).  Held: controls within 1% of the
     # range (0.5), closed-loop positions and velocities within 2e-2, the
     # final state within 1e-3, and on each device the position error below
     # 0.4x its start; whether the controls also agree within 5e-3 is
     # printed.
-    def closed_loop(device):
-        H_c, dt_c = 10, 0.05
-        ocp_c = double_integrator.build(double_integrator.make_config(
-            horizon=H_c, dt=dt_c, alpha=0.7, step_num=8), device=device)
-        ctl = MPCController(ocp_c, double_integrator.CONTROL_SLICE)
-        target = np.array([1.0, 0.5])
-        ref_c = np.tile(target, H_c)
-        pos, vel, acc = np.zeros(2), np.zeros(2), np.zeros(2)
-        errs, states, us = [], [], []
-        t0 = time.perf_counter()
-        for _ in range(40):
-            u = ctl.step(np.concatenate([pos, vel, acc]), ref_c)
-            pos, vel, acc = pos + dt_c * vel, vel + dt_c * u, u
-            errs.append(float(np.linalg.norm(pos - target)))
-            states.append(np.r_[pos, vel])
-            us.append(u)
-        log(f"phase 5i MPCController double integrator h10: 40 closed-loop steps on {device}: "
-            f"{time.perf_counter() - t0:.2f} s, position error {errs[0]:.4f} -> {errs[-1]:.4f}")
-        return np.array(errs), np.array(states), np.array(us)
+    cpu_jobs = [side(c, "cpu") for c in comparisons] + [(closed_loop, ("cpu",))]
+    # The parity preset's CPU side is the longest (its NaN QPs run to the
+    # 10,000-iteration budget): it starts first.
+    first = [i for i, c in enumerate(comparisons) if c[6].get("nan_ok")]
+    order = first + [i for i in range(len(cpu_jobs)) if i not in first]
+    cpu_wait = process_map([cpu_jobs[i] for i in order], workers=4, threads=2)
+    card = [fn(*args) for fn, args in (side(c, "cuda") for c in comparisons)]
+    e_card, s_card, u_card, t_card = closed_loop("cuda")
+    cpu = [None] * len(cpu_jobs)
+    for i, r in zip(order, cpu_wait()):
+        cpu[i] = r
+    for c, on_card, on_cpu in zip(comparisons, card, cpu):
+        card_vs_cpu(c[0], c[4], {"cuda": on_card, "cpu": on_cpu}, **c[6])
 
-    e_card, s_card, u_card = closed_loop("cuda")
-    e_cpu, s_cpu, u_cpu = closed_loop("cpu")
+    e_cpu, s_cpu, u_cpu, t_cpu = cpu[-1]
+    for device, errs, secs in (("cuda", e_card, t_card), ("cpu", e_cpu, t_cpu)):
+        log(f"phase 5i MPCController double integrator h10: 40 closed-loop steps on {device}: "
+            f"{secs:.2f} s, position error {errs[0]:.4f} -> {errs[-1]:.4f}")
     u_gap = float(np.abs(u_card - u_cpu).max())
     s_gap = float(np.abs(s_card - s_cpu).max())
     end_gap = float(np.abs(s_card[-1] - s_cpu[-1]).max())
@@ -2326,7 +2470,7 @@ def main(argv) -> int:
                 fn(*args, **kw)
 
         ms = time_ms(lambda: run_all(kernel), 7, sync) / n_calls
-        plain_ms = time_ms(lambda: run_all(plain), 3, sync) / n_calls
+        plain_ms = time_ms(lambda: run_all(plain), 1, sync) / n_calls  # one run: minutes
         # The same launches with no iterations: state copy, M assembly and
         # factorization only (not part of the record; says where time goes).
         prologue_ms = time_ms(lambda: [
@@ -2475,7 +2619,7 @@ def main(argv) -> int:
         extra = ""
         if plain:
             out["plain_ms"] = time_ms(
-                lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in calls], 3, sync) / nc
+                lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in calls], 1, sync) / nc
             extra += f", plain {out['plain_ms']:.3f} ms"
         if matmul:
             out["matmul_loop_ms"] = time_ms(lambda: [
@@ -2516,9 +2660,11 @@ def main(argv) -> int:
     # The tensor-core form on 4i's steady B=4096 tick of each mode, beside
     # its plain version and a loop of torch.matmul bf16_3x products (the
     # same split products, the residuals as f32 products).  Bound: the
-    # larger of bytes (each input, fragments included, read once and each
-    # output written once) and f32 operations at the f32 peak plus the
-    # tensor-core operations at the dense bf16 peak.
+    # larger of bytes (each input read once and each output written once)
+    # and f32 operations at the f32 peak plus the tensor-core operations at
+    # the dense bf16 peak.  Beside it the bytes the kernel's bulk copies
+    # brought from L2 (its own count: every block reads each operator
+    # slice once an iteration) and the rate they imply.
     def tc_matmul_loop(args, kw, iters, checks, mode):
         _, _, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y = args
         sg, al = kw["sigma"], kw["alpha"]
@@ -2538,22 +2684,28 @@ def main(argv) -> int:
             _ = (x @ AbT, x @ Pb, y @ Ab)
         return x, z, y
 
+    def tc_l2_bytes(args, kw):
+        """One call of the tensor-core form with the kernel's byte count."""
+        B_, n_, m_, bound_, done_, cinv_ = sk._contract(*args, kw["check_every"],
+                                                         kw["batch_tile"])
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        run_kw = {k: v for k, v in kw.items() if k != "iter_precision"}
+        sk._launch_tc(done_, bound_, *args[2:11], cinv_, *args[12:], None, **run_kw,
+                      iter_precision=kw["iter_precision"], l2_bytes=counter)
+        return int(counter.item())
+
     tc_rows = []
     for mode, data in tc_rows_data.items():
         calls = data["calls"]
         nc = len(calls)
-        its, nbytes, f32_ops, tc_ops = [], 0, 0, 0
+        its, nbytes, f32_ops, tc_ops, l2 = [], 0, 0, 0, 0
         for args, kw in calls:
             outs = sk.shared_admm_chunk(*args, **kw)
             its.append(int(outs[4].max()))
             n_c, m_c = args[12].shape[1], args[13].shape[1]
-            # mma_fragments: 512 bytes per 16 x 8 tile of Ab, OP (and Ab^T).
-            tiles = lambda K, J: -(-K // 16) * -(-J // 8)  # noqa: E731
-            frag_bytes = 512 * (tiles(m_c, n_c) + tiles(n_c, n_c)
-                                + (tiles(n_c, m_c) if mode == "high" else 0))
             tensors = [a for a in args if torch.is_tensor(a)]
             nbytes += sum(t_.numel() * t_.element_size() for t_ in tensors + list(outs))
-            nbytes += frag_bytes
+            l2 += tc_l2_bytes(args, kw)
             for it in outs[4].tolist():
                 f, t_ = shared_tc_flops(n_c, m_c, it, it // kw["check_every"], mode)
                 f32_ops += f
@@ -2563,23 +2715,26 @@ def main(argv) -> int:
         k_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **k) for a, k in calls], 7, sync) / nc
         hi_ms = time_ms(lambda: [sk.shared_admm_chunk(*a, **{**k, "iter_precision": "highest"})
                                  for a, k in calls], 7, sync) / nc
-        p_ms = time_ms(lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in calls], 3,
+        p_ms = time_ms(lambda: [sk.shared_admm_chunk_plain(*a, **k) for a, k in calls], 1,
                        sync) / nc
         mm_ms = time_ms(lambda: [tc_matmul_loop(a, k, it, it // k["check_every"], mode)
                                  for (a, k), it in zip(calls, its)], 7, sync) / nc
         by_rows = {str(r_): time_ms(lambda: [sk.shared_admm_chunk(*a, **k, rows_per_block=r_)
                                              for a, k in calls], 5, sync) / nc
                    for r_ in sk.ROWS_PER_BLOCK_TC}
-        log(f"phase 6: shared_admm_chunk tensor-core form ({mode}), steady double integrator "
-            f"tick ({nc} launches, B={calls[0][0][12].shape[0]}, iterations per launch: largest "
-            f"by launch {its}): {k_ms:.4f} ms/launch (16 / 32 scenarios a block: "
+        l2_call = l2 / nc
+        log(f"phase 6: shared_admm_chunk tensor-core form ({mode}), {SHARED_TC_SOURCE}, steady "
+            f"double integrator tick ({nc} launches, B={calls[0][0][12].shape[0]}, iterations per "
+            f"launch: largest by launch {its}): {k_ms:.4f} ms/launch (16 / 32 scenarios a block: "
             + " / ".join(f"{v:.4f}" for v in by_rows.values())
             + f"), the FP32 form on the same inputs {hi_ms:.4f}, plain {p_ms:.3f}, torch.matmul "
             f"bf16_3x loop {mm_ms:.4f}; bound {max(bytes_ms, ops_ms) * 1e3:.3f} us (bytes "
-            f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us)")
+            f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us); operator slices "
+            f"brought from L2 by bulk copies {l2_call / 1e6:.3f} MB a call (the kernel's count), "
+            f"{l2_call / (k_ms * 1e-3) / 1e12:.3f} TB/s over the call")
         tc_rows.append({
             "name": f"shared_admm_chunk[iter_precision={mode}]", "route": "cuda",
-            "source": SHARED_SOURCE, "replaces": SHARED_REPLACES,
+            "source": SHARED_TC_SOURCE, "replaces": SHARED_REPLACES,
             "launches": data["launches"], "max_abs_err": tc_err[mode],
             "max_abs_err_is": "relative to the output's largest magnitude",
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -2588,6 +2743,7 @@ def main(argv) -> int:
             # torch.matmul bf16_3x products is reported beside it.
             "library_ms": None, "matmul_loop_ms": mm_ms, "highest_same_inputs_ms": hi_ms,
             "by_rows_ms": by_rows, "max_it_inc": max(its),
+            "l2_bytes_per_call": l2_call, "l2_TB_per_s": l2_call / (k_ms * 1e-3) / 1e12,
             "ms_per_tick": data["ms_per_tick"], "highest_ms_per_tick": data["highest_ms_per_tick"],
             "qp_iters": data["qp_iters"], "highest_qp_iters": data["highest_qp_iters"],
         })
@@ -2672,7 +2828,7 @@ def main(argv) -> int:
         plain_ms = None
         if which == "steady":  # the plain version at n=100, m=196 only (minutes)
             plain_ms = time_ms(lambda: [ak.admm_device_loop_plain(*a, **k) for a, k in calls],
-                               2, sync) / nc
+                               1, sync) / nc
         mean_it = statistics.fmean(float(it.float().mean()) for it in iters)
         max_it = max(int(it.max()) for it in iters)
         B_, n_, m_ = calls[0][0][0].shape[0], calls[0][0][0].shape[1], calls[0][0][1].shape[1]

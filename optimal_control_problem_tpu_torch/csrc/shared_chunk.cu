@@ -62,30 +62,10 @@
 // so under the bitwise contract the kernel can reach at most half the
 // card's float32 peak (which counts a fused multiply-add as two).
 //
-// Tensor-core form (iter_precision "high" / "mixed", template kPrec 1 / 2).
-// The JAX kernel runs those iteration products at Precision.HIGH, the
-// TPU's bf16_3x: each f32 operand split into hi = bf16(a) and lo =
-// bf16(a - hi), the product hi hi + hi lo + lo hi with f32 accumulation.
-// Here they run on the tensor cores, mma.sync m16n8k16 bf16 -> f32 (one
-// device function, mma_bf16_16816).  The operators come split and in
-// B-fragment order from the wrapper (ops/shared_kernel.py::mma_fragments,
-// once per call: Ab for the rhs product, OP for the x product, Ab^T for zt
-// at "high"; one 16-byte load gives a lane its hi and lo registers).  The
-// panel operand of each such product is split per iteration into bf16 hi
-// and lo copies in shared memory, its width zero-padded to a multiple of
-// 16 (n=120 -> 128, m=196 -> 208) and the row stride 8 more, so the eight
-// row groups of a fragment load fall on distinct banks.  A block holds 16
-// or 32 scenarios (one or two m16 tiles); warp w takes the n8 column tiles
-// w, w + 8, ... for every m tile and keeps two accumulators per tile, hi hi
-// and hi lo + lo hi, added in the epilogue (the plain version's two sums).
-// "mixed" runs zt, and both forms run every residual product, as the FP32
-// chains above: a scenario that stops is certified in true f32.  Tensor
-// cores sum in their own order, so this form agrees with its plain version
-// to f32 roundoff of the products, not bitwise; kPrec 0 is untouched.
+// The tensor-core form (iter_precision "high" / "mixed") is a kernel of
+// its own, csrc/shared_chunk_tc.cu; both include csrc/shared_chunk_common.cuh
+// (the FP32 panel product, the helpers and the termination check).
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -99,8 +79,13 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxCols = 7;  // columns per lane and pass: 224 columns per pass
 constexpr int kStages = 3;   // operator slices in flight
 constexpr long long kSmemLimit = 232448;  // dynamic shared memory a block may opt into
-constexpr int kNumPtrs = 25;    // the FP32 form's pointers
-constexpr int kNumPtrsTc = 28;  // and the tensor-core form's three fragment arrays
+constexpr int kNumPtrs = 25;
+
+}  // namespace
+
+#include "shared_chunk_common.cuh"
+
+namespace {
 
 struct Args {
   const int* done0;   // (B,) 1 = enters converged or certified
@@ -128,232 +113,17 @@ struct Args {
   float* rpr;
   float* rdr;
   int* votes;  // (groups, n_checks): the group's blocks that held an unconverged scenario
-  // Tensor-core form only: bf16 hi/lo B fragments (mma_fragments), each
-  // (J / 8, K / 16, 32, 4) words.
-  const uint4* f_ab;   // Ab  (K = m, J = n): the rhs product
-  const uint4* f_op;   // OP  (K = n, J = n): the x product
-  const uint4* f_abt;  // Ab^T (K = n, J = m): zt at "high"
 };
 
 struct Dims {
   int B, n, m, tile, bpg, bound, check_every, n_checks, groups;
   int ks;  // operator slice rows (0: the operators are read through L1)
-  int kpn, kpm, sstride;  // tensor-core form: n and m padded to 16, split row stride
   float sigma, alpha, one_m_alpha, eps_abs, eps_rel;
 };
 
-// Round to nearest even bf16 bits, NaN as 0x7fc0: torch's float -> bfloat16.
-__device__ __forceinline__ unsigned bf16_rn(float f) {
-  const unsigned u = static_cast<unsigned>(__float_as_int(f));
-  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
-  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
-}
-
-// d += a b for one warp: A 16x16 bf16 (row), B 16x8 bf16 (col), f32 D.
-// Lane l (g = l / 4, t = l % 4) holds A rows g, g + 8 at columns 2t, 2t + 1
-// (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); B column g at rows 2t,
-// 2t + 1 (b[0]) and 2t + 8, 2t + 9 (b[1]); D rows g (d[0], d[1]) and g + 8
-// (d[2], d[3]) at columns 2t, 2t + 1; the lower index in the low half.
-#ifndef OCP_MMA_EMULATED
-__device__ __forceinline__ void mma_bf16_16816(float d[4], const unsigned a[4],
-                                               const unsigned b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-#endif
-
-// The block's R rows of `a` (shared memory, row stride K) as bf16 hi and
-// lo (row stride S halves), columns K .. Kp - 1 zero.
-template <int R>
-__device__ __forceinline__ void split_panel(const float* a, int K, int Kp, int S,
-                                            unsigned short* hi, unsigned short* lo) {
-  for (int idx = threadIdx.x; idx < R * Kp; idx += kThreads) {
-    const int r = idx / Kp, k = idx - r * Kp;
-    const float v = k < K ? a[r * K + k] : 0.0f;
-    const unsigned h = bf16_rn(v);
-    hi[r * S + k] = static_cast<unsigned short>(h);
-    lo[r * S + k] = static_cast<unsigned short>(bf16_rn(v - __int_as_float(static_cast<int>(h << 16))));
-  }
-}
-
-// out[r, j] = (a W)[r, j] at bf16_3x for the block's rows: `hi`/`lo` the
-// split panel (row stride S, Kp columns), `frag` W's fragments; calls
-// epi(0, r, j, value) once per element with j < J.
-template <int TR, class Epi>
-__device__ __forceinline__ void tc_product(const unsigned short* hi, const unsigned short* lo,
-                                           int S, int Kp, const uint4* __restrict__ frag, int J,
-                                           Epi epi) {
-  constexpr int MT = kWarps * TR / 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int Jt = (J + 7) >> 3, Kt = Kp >> 4;
-  for (int nt = warp; nt < Jt; nt += kWarps) {
-    float big[MT][4], small[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) big[mt][e] = small[mt][e] = 0.0f;
-    const uint4* f = frag + static_cast<size_t>(nt) * Kt * 32 + lane;
-    for (int kt = 0; kt < Kt; ++kt) {
-      const uint4 w = __ldg(f + kt * 32);
-      const unsigned bh[2] = {w.x, w.y}, bl[2] = {w.z, w.w};
-      const int c = kt * 16 + 2 * t;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r = mt * 16 + g;
-        unsigned ah[4], al[4];
-        const int o[4] = {r * S + c, (r + 8) * S + c, r * S + c + 8, (r + 8) * S + c + 8};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[e] = *reinterpret_cast<const unsigned*>(hi + o[e]);
-          al[e] = *reinterpret_cast<const unsigned*>(lo + o[e]);
-        }
-        mma_bf16_16816(small[mt], ah, bl);
-        mma_bf16_16816(small[mt], al, bh);
-        mma_bf16_16816(big[mt], ah, bh);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mt * 16 + g + 8 * (e >> 1), j = nt * 8 + 2 * t + (e & 1);
-        if (j < J) epi(0, r, j, big[mt][e] + small[mt][e]);
-      }
-  }
-}
-
-// out[r, j] = sum_k a[r, k] * W[k, j] for the block's rows; `a` in shared
-// memory with row stride K, W (K, J) row-major in global memory, streamed
-// through `stage` in slices of ks rows (ks = 0: read through L1).  Calls
-// epi(i, r, j, value) once per element from the thread that owns it: rows
-// r = warp * TR + i, columns lane + 32 c of each (32 C)-column pass.
-template <int TR, int C, class Epi>
-__device__ __forceinline__ void panel_product_c(const float* __restrict__ a,
-                                                const float* __restrict__ W, int K, int J,
-                                                float* stage, int ks, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * TR;
-  for (int j0 = 0; j0 < J; j0 += 32 * C) {
-    int col[C];
-    int ld[C];  // clamped: a lane past the edge loads a valid column it drops
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      col[c] = j0 + lane + 32 * c;
-      ld[c] = col[c] < J ? col[c] : J - 1;
-    }
-    float acc[TR][C];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
-    // Terms k0 .. k0 + rows - 1 of every chain, the operator's rows read
-    // from ws (row stride J, row 0 = operator row k0).
-    auto mac = [&](const float* ws, bool global, int k0, int rows) {
-#pragma unroll 8
-      for (int k = 0; k < rows; ++k) {
-        const float* wrow = ws + static_cast<size_t>(k) * J;
-        float w[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) w[c] = global ? __ldg(wrow + ld[c]) : wrow[ld[c]];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) {
-          const float av = a[(r0 + i) * K + k0 + k];
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[i][c] = acc[i][c] + av * w[c];
-        }
-      }
-    };
-    if (ks == 0) {
-      mac(W, true, 0, K);
-    } else {
-      const int S = (K + ks - 1) / ks;
-      __syncthreads();  // nobody still reads the slices of the last product
-      // Slice s (operator rows [s ks, s ks + ks) clipped to K) into buffer
-      // s % kStages, 16 bytes per copy (J % 4 == 0 where ks > 0); one
-      // commit group per slice, empty past the last.
-      auto issue = [&](int s) {
-        if (s < S) {
-          const int k0 = s * ks, rows = K - k0 < ks ? K - k0 : ks;
-          float* const dst = stage + (s % kStages) * ks * J;
-          const float* const src = W + static_cast<size_t>(k0) * J;
-          for (int q = threadIdx.x; q < rows * J / 4; q += kThreads)
-            __pipeline_memcpy_async(dst + 4 * q, src + 4 * q, 16);
-        }
-        __pipeline_commit();
-      };
-      issue(0);
-      issue(1);
-      for (int s = 0; s < S; ++s) {
-        __pipeline_wait_prior(1);  // slice s has landed (s + 1 may be in flight)
-        __syncthreads();           // ... for every thread; slice s - 1 is free
-        issue(s + 2);
-        const int k0 = s * ks, rows = K - k0 < ks ? K - k0 : ks;
-        mac(stage + (s % kStages) * ks * J, false, k0, rows);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (col[c] < J) epi(i, r0 + i, col[c], acc[i][c]);
-  }
-}
-
-// The pass width that covers J in one pass where it can.
-template <int TR, class Epi>
-__device__ __forceinline__ void panel_product(const float* __restrict__ a,
-                                              const float* __restrict__ W, int K, int J,
-                                              float* stage, int ks, Epi epi) {
-  if (J <= 32)
-    panel_product_c<TR, 1>(a, W, K, J, stage, ks, epi);
-  else if (J <= 64)
-    panel_product_c<TR, 2>(a, W, K, J, stage, ks, epi);
-  else if (J <= 128)
-    panel_product_c<TR, 4>(a, W, K, J, stage, ks, epi);
-  else
-    panel_product_c<TR, kMaxCols>(a, W, K, J, stage, ks, epi);
-}
-
-// x / y, correctly rounded, bitwise the IEEE quotient.  A zero dividend
-// (the Gauss-Jordan rows' eliminated and not yet filled entries, inactive
-// duals) sends the division's fast path to its slow fallback; its result is
-// a zero whose sign is the XOR of the operands' signs wherever y is neither
-// zero nor NaN, so that case is answered directly.
-__device__ __forceinline__ float div_rn(float x, float y) {
-  if (x == 0.f && y != 0.f && y == y)
-    return __int_as_float((__float_as_int(x) ^ __float_as_int(y)) & 0x80000000);
-  return x / y;
-}
-
-// NaN-propagating max (torch.amax / torch.maximum semantics; fmaxf would
-// drop a NaN, and a diverged scenario's residual with it).
-__device__ __forceinline__ float nmax(float m, float v) {
-  return (v > m || v != v) ? v : m;
-}
-
-// min(max(v, lo), hi) as torch.minimum(torch.maximum(...)) computes it: a
-// NaN v stays NaN (fmaxf / fminf alone would clip it to a bound).  The
-// bounds are never NaN.
-__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// kPrec: 0 FP32 chains everywhere ("highest"); 1 ("high") and 2 ("mixed")
-// the tensor-core form.
-template <int TR, int kPrec>
+template <int TR>
 __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, int chk) {
   constexpr int R = kWarps * TR;
-  static_assert(kPrec == 0 || R % 16 == 0, "the tensor-core form takes whole m16 tiles");
   extern __shared__ float smem[];
   const int n = d.n, m = d.m;
   float* sx = smem;           // (R, n) x
@@ -362,17 +132,12 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   float* sw = sy + R * m;     // (R, m) rho z - y
   float* srhs = sw + R * m;   // (R, n) rhs; Px during a check
   float* sxt = srhs + R * n;  // (R, n) xt
-  // Tensor-core form: the split panel, hi then lo, (R, sstride) halves each.
-  unsigned short* const shi = reinterpret_cast<unsigned short*>(sxt + R * n);
-  unsigned short* const slo = shi + (kPrec ? R * d.sstride : 0);
-  float* stage = sxt + R * n + (kPrec ? R * d.sstride : 0);  // [kStages][ks][max(n, m)] operator slices
+  float* stage = sxt + R * n;  // [kStages][ks][max(n, m)] operator slices
   const int ks = d.ks;
   __shared__ int s_conv[R];
   __shared__ float s_rp[R], s_rd[R], s_rpr[R], s_rdr[R];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int g = blockIdx.x / d.bpg;
   const int bi = blockIdx.x % d.bpg;
   const int row_base = g * d.tile + bi * R;
@@ -457,86 +222,16 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
       sw[r * m + j] = rho * z_n - y_n;
     };
     for (int t = 0; t < d.check_every; ++t) {
-      if constexpr (kPrec == 0) {
-        panel_product<TR>(sw, a.Ab, m, n, stage, ks, rhs_epi);
-        __syncthreads();
-        panel_product<TR>(srhs, a.OP, n, n, stage, ks, x_epi);
-        __syncthreads();
-        panel_product<TR>(sxt, a.AbT, n, m, stage, ks, z_epi);
-      } else {
-        const int S = d.sstride;
-        split_panel<R>(sw, m, d.kpm, S, shi, slo);
-        __syncthreads();
-        tc_product<TR>(shi, slo, S, d.kpm, a.f_ab, n, rhs_epi);
-        __syncthreads();
-        split_panel<R>(srhs, n, d.kpn, S, shi, slo);
-        __syncthreads();
-        tc_product<TR>(shi, slo, S, d.kpn, a.f_op, n, x_epi);
-        __syncthreads();
-        if constexpr (kPrec == 1) {
-          split_panel<R>(sxt, n, d.kpn, S, shi, slo);
-          __syncthreads();
-          tc_product<TR>(shi, slo, S, d.kpn, a.f_abt, m, z_epi);
-        } else {
-          panel_product<TR>(sxt, a.AbT, n, m, stage, ks, z_epi);
-        }
-      }
+      panel_product<TR>(sw, a.Ab, m, n, stage, ks, rhs_epi);
+      __syncthreads();
+      panel_product<TR>(srhs, a.OP, n, n, stage, ks, x_epi);
+      __syncthreads();
+      panel_product<TR>(sxt, a.AbT, n, m, stage, ks, z_epi);
       __syncthreads();
     }
 
-    // Unscaled residuals.  A warp owns whole rows, so a row's maxima are
-    // the warp's reduction of its lanes' maxima (max is exact: any order).
-    float m_rp[TR], m_ax[TR], m_z[TR];
-#pragma unroll
-    for (int i = 0; i < TR; ++i) m_rp[i] = m_ax[i] = m_z[i] = 0.0f;
-    panel_product<TR>(sx, a.AbT, n, m, stage, ks, [&](int i, int r, int j, float ax) {
-      const float e = __ldg(a.einv + j);
-      const float zv = sz[r * m + j];
-      m_rp[i] = nmax(m_rp[i], fabsf((ax - zv) * e));
-      m_ax[i] = nmax(m_ax[i], fabsf(ax * e));
-      m_z[i] = nmax(m_z[i], fabsf(zv * e));
-    });
-    // Px lands in the slot of srhs that the same thread reads back below
-    // (both products are n wide, so the element's owner is the same).
-    panel_product<TR>(sx, a.Pb, n, n, stage, ks, [&](int, int r, int j, float px) { srhs[r * n + j] = px; });
-    float m_rd[TR], m_aty[TR], m_px[TR], m_q[TR];
-#pragma unroll
-    for (int i = 0; i < TR; ++i) m_rd[i] = m_aty[i] = m_px[i] = m_q[i] = 0.0f;
-    panel_product<TR>(sy, a.Ab, m, n, stage, ks, [&](int i, int r, int j, float aty) {
-      const float dv = __ldg(a.dinv + j);
-      const float px = srhs[r * n + j];
-      const float qv = __ldg(a.qb + static_cast<size_t>(grow(r)) * n + j);
-      m_rd[i] = nmax(m_rd[i], fabsf(((px + qv) + aty) * dv));
-      m_aty[i] = nmax(m_aty[i], fabsf(aty * dv));
-      m_px[i] = nmax(m_px[i], fabsf(px * dv));
-      m_q[i] = nmax(m_q[i], fabsf(qv * dv));
-    });
-    int mine = 1;
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const float r_prim = warp_max(m_rp[i]);
-      const float max_prim = nmax(warp_max(m_ax[i]), warp_max(m_z[i]));
-      const float r_dual = ci * warp_max(m_rd[i]);
-      const float max_dual =
-          ci * nmax(nmax(warp_max(m_aty[i]), warp_max(m_px[i])), warp_max(m_q[i]));
-      const float eps_pri = d.eps_abs + d.eps_rel * max_prim;
-      const float eps_dua = d.eps_abs + d.eps_rel * max_dual;
-      const int cv = (r_prim <= eps_pri) && (r_dual <= eps_dua);
-      mine &= cv;
-      if (lane == 0) {
-        const int r = warp * TR + i;
-        s_conv[r] = cv;
-        s_rp[r] = r_prim;
-        s_rd[r] = r_dual;
-        // torch.clamp(., min=1e-12) keeps a NaN.
-        s_rpr[r] = r_prim / (max_prim != max_prim ? max_prim : fmaxf(max_prim, 1e-12f));
-        s_rdr[r] = r_dual / (max_dual != max_dual ? max_dual : fmaxf(max_dual, 1e-12f));
-      }
-    }
-    // The block's vote: every scenario of it converged or not.  (Also the
-    // barrier between this check's reads and the write-back below.)
-    const int block_all = __syncthreads_and(mine);
-    if (tid == 0 && !block_all) atomicAdd(a.votes + g * d.n_checks + chk, 1);
+    residual_check<TR>(a, d, chk, g, n, m, sx, sz, sy, srhs, stage, ks, ci, grow, s_conv, s_rp,
+                       s_rd, s_rpr, s_rdr);
   }
 
   for (int idx = tid; idx < nrows * n; idx += kThreads) {
@@ -560,58 +255,43 @@ __global__ void __launch_bounds__(kThreads) shared_chunk_kernel(Args a, Dims d, 
   }
 }
 
-constexpr int pad16(int v) { return (v + 15) / 16 * 16; }
-// Halves per row of the tensor-core form's split panel (each of hi, lo):
-// the widest product operand padded to 16, and 8 more.
-int split_stride(int n, int m) { return (pad16(n) > pad16(m) ? pad16(n) : pad16(m)) + 8; }
-
 // Shared memory of a block of R scenarios with ks-row operator slices:
-// the six panels, the tensor-core form's split panel (tc), kStages
-// slices, the per-row results (static).
-long long smem_floats(int R, int n, int m, int ks, bool tc) {
+// the six panels, kStages slices, the per-row results (static).
+long long smem_floats(int R, int n, int m, int ks) {
   const int J = n > m ? n : m;
-  return static_cast<long long>(R) * (3 * n + 3 * m + (tc ? split_stride(n, m) : 0)) +
-         static_cast<long long>(kStages) * ks * J;
+  return static_cast<long long>(R) * (3 * n + 3 * m) + static_cast<long long>(kStages) * ks * J;
 }
 constexpr int kStaticFloats(int R) { return 5 * R; }
 
 // The most slice rows that fit beside the panels of R scenarios (32, 16, 8
 // or 4; 0: read the operators through L1; -1: not even the panels fit).
-int stage_rows(int R, int n, int m, bool tc) {
+int stage_rows(int R, int n, int m) {
   const int J = n > m ? n : m;
-  if ((smem_floats(R, n, m, 0, tc) + kStaticFloats(R)) * 4 > kSmemLimit) return -1;
+  if ((smem_floats(R, n, m, 0) + kStaticFloats(R)) * 4 > kSmemLimit) return -1;
   if (J % 4 == 0)
     for (int ks = 32; ks >= 4; ks /= 2)
-      if ((smem_floats(R, n, m, ks, tc) + kStaticFloats(R)) * 4 <= kSmemLimit) return ks;
+      if ((smem_floats(R, n, m, ks) + kStaticFloats(R)) * 4 <= kSmemLimit) return ks;
   return 0;
 }
 
 // One launch per check block of the chunk's budget, on `stream`.
-template <int TR, int kPrec>
+template <int TR>
 cudaError_t launch_checks(const Args& a, Dims d, cudaStream_t stream) {
   constexpr int R = kWarps * TR;
-  constexpr bool tc = kPrec != 0;
   d.bpg = (d.tile + R - 1) / R;
-  d.ks = stage_rows(R, d.n, d.m, tc);
+  d.ks = stage_rows(R, d.n, d.m);
   if (d.ks < 0) return cudaErrorInvalidValue;
   // cp.async copies 16 bytes from 16-byte aligned operators only.
   for (const float* op : {a.OP, a.Ab, a.AbT, a.Pb})
     if (reinterpret_cast<size_t>(op) % 16 != 0) d.ks = 0;
-  if (tc) {
-    for (const uint4* f : {a.f_ab, a.f_op, a.f_abt})
-      if (f == nullptr || reinterpret_cast<size_t>(f) % 16 != 0) return cudaErrorInvalidValue;
-    d.kpn = pad16(d.n);
-    d.kpm = pad16(d.m);
-    d.sstride = split_stride(d.n, d.m);
-  }
   const dim3 grid(d.groups * d.bpg);
-  const size_t smem = static_cast<size_t>(smem_floats(R, d.n, d.m, d.ks, tc)) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(shared_chunk_kernel<TR, kPrec>,
+  const size_t smem = static_cast<size_t>(smem_floats(R, d.n, d.m, d.ks)) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(shared_chunk_kernel<TR>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   for (int c = 0; c < d.n_checks; ++c) {
-    shared_chunk_kernel<TR, kPrec><<<grid, kThreads, smem, stream>>>(a, d, c);
+    shared_chunk_kernel<TR><<<grid, kThreads, smem, stream>>>(a, d, c);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -635,7 +315,6 @@ bool make_dims(Dims& d, int B, int n, int m, int tile, int bound, int check_ever
   d.groups = B / tile;
   d.bpg = 0;
   d.ks = 0;
-  d.kpn = d.kpm = d.sstride = 0;
   d.sigma = static_cast<float>(sigma);
   d.alpha = static_cast<float>(alpha);
   d.one_m_alpha = static_cast<float>(1.0 - alpha);
@@ -651,10 +330,7 @@ extern "C" {
 // The slice rows stage_rows gives a block of `rows` scenarios (8, 16 or
 // 32) at (n, m): 32, 16, 8, 4, 0 (operators through L1) or -1 (the panels
 // do not fit).
-int ocp_shared_stage_rows(int rows, int n, int m) { return stage_rows(rows, n, m, false); }
-
-// The same for the tensor-core form (16 or 32 rows), beside its split panel.
-int ocp_shared_tc_stage_rows(int rows, int n, int m) { return stage_rows(rows, n, m, true); }
+int ocp_shared_stage_rows(int rows, int n, int m) { return stage_rows(rows, n, m); }
 
 // ptrs: the kNumPtrs device pointers in Args order; `rows` scenarios per
 // thread block: 8, 16 or 32 (the wrapper's ops/shared_kernel.py::
@@ -670,41 +346,14 @@ int ocp_shared_admm_chunk_f32(const void* const* ptrs, int nptrs, int B, int n, 
                                       alpha, eps_abs, eps_rel))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows != 8 && rows != 16 && rows != 32) return static_cast<int>(cudaErrorInvalidValue);
-  static_assert(sizeof(Args) == kNumPtrsTc * sizeof(void*), "Args layout");
-  Args a;
-  memset(&a, 0, sizeof(Args));
-  memcpy(&a, ptrs, kNumPtrs * sizeof(void*));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = rows == 4 * kWarps   ? launch_checks<4, 0>(a, d, s)
-                        : rows == 2 * kWarps ? launch_checks<2, 0>(a, d, s)
-                        : rows == kWarps     ? launch_checks<1, 0>(a, d, s)
-                                             : cudaErrorInvalidValue;
-  return static_cast<int>(e);
-}
-
-// The tensor-core form: ptrs the kNumPtrsTc pointers in Args order (the
-// FP32 form's, then the fragments of Ab, OP and Ab^T; the last is not read
-// at "mixed"); `rows` 16 or 32; `mode` 1 ("high": all three iteration
-// products on the tensor cores) or 2 ("mixed": zt an FP32 chain).  Returns
-// as ocp_shared_admm_chunk_f32.
-int ocp_shared_admm_chunk_tc_f32(const void* const* ptrs, int nptrs, int B, int n, int m,
-                                 int tile, int rows, int bound, int check_every, int n_checks,
-                                 int mode, double sigma, double alpha, double eps_abs,
-                                 double eps_rel, void* stream) {
-  Dims d;
-  if (nptrs != kNumPtrsTc || !make_dims(d, B, n, m, tile, bound, check_every, n_checks, sigma,
-                                        alpha, eps_abs, eps_rel))
-    return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(sizeof(Args) == kNumPtrs * sizeof(void*), "Args layout");
   Args a;
   memcpy(&a, ptrs, sizeof(Args));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (mode == 1)
-    e = rows == 4 * kWarps ? launch_checks<4, 1>(a, d, s)
-        : rows == 2 * kWarps ? launch_checks<2, 1>(a, d, s) : cudaErrorInvalidValue;
-  else if (mode == 2)
-    e = rows == 4 * kWarps ? launch_checks<4, 2>(a, d, s)
-        : rows == 2 * kWarps ? launch_checks<2, 2>(a, d, s) : cudaErrorInvalidValue;
+  const cudaError_t e = rows == 4 * kWarps   ? launch_checks<4>(a, d, s)
+                        : rows == 2 * kWarps ? launch_checks<2>(a, d, s)
+                        : rows == kWarps     ? launch_checks<1>(a, d, s)
+                                             : cudaErrorInvalidValue;
   return static_cast<int>(e);
 }
 

@@ -28,7 +28,7 @@ the two chunks differ only in how they factor ``M`` and solve with it.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -475,13 +475,14 @@ def refuse_export(label: str) -> None:
 
 
 def launch_chunk(
-    label: str, lib_name: str, symbol: str, tensors: Sequence[torch.Tensor],
+    label: str, lib_name: str, symbol: str, tensors: Sequence[Optional[torch.Tensor]],
     ints: Sequence[int], floats: Sequence[float], dev,
 ) -> None:
     """Launch a chunk kernel on the current stream with the device
     pointers of ``tensors`` (inputs, outputs, scratch, in the kernel's
-    order); raises if the launch is refused.  Does not synchronise."""
-    ptrs = [t.data_ptr() for t in tensors]
+    order; None for a null pointer); raises if the launch is refused.
+    Does not synchronise."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     fn, err_fn = _lib_fn(lib_name, symbol, len(ints))
     stream = torch.cuda.current_stream(dev).cuda_stream

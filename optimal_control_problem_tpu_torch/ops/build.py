@@ -3,8 +3,8 @@
 Each source under ``csrc/`` is compiled at first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded with
 ``ctypes``.  Libraries land in ``build/ocp_torch_kernels/`` beside the
-package (git-ignored), named by a hash of the source and the flags so a
-stale build is never picked up.  Nothing here runs at import: the package
+package (git-ignored), named by a hash of the source, the headers under
+``csrc/`` and the flags so a stale build is never picked up.  Nothing here runs at import: the package
 imports on machines without ``nvcc`` or a GPU.
 
 Several sources build in parallel: one ``nvcc`` process each, all started
@@ -31,6 +31,7 @@ SOURCES: Dict[str, Path] = {
     "banded_rolled_chunk": _PKG / "csrc" / "banded_rolled_chunk.cu",
     "banded_cr_chunk": _PKG / "csrc" / "banded_cr_chunk.cu",
     "shared_chunk": _PKG / "csrc" / "shared_chunk.cu",
+    "shared_chunk_tc": _PKG / "csrc" / "shared_chunk_tc.cu",
     "admm_device_loop": _PKG / "csrc" / "admm_device_loop.cu",
 }
 _FLAGS = [
@@ -61,6 +62,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    # The headers the sources include (csrc/*.cuh) are part of every build.
+    for header in sorted((_PKG / "csrc").glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

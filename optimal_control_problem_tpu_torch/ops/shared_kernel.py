@@ -51,13 +51,15 @@ each f32 operand split into ``hi = bf16(a)`` and ``lo = bf16(a - hi)``
 (:func:`split_bf16`) and the product summed as ``hi hi + (hi lo + lo hi)``
 with f32 accumulation.  The termination residuals stay FP32 chains in
 every mode, so a scenario that stops is certified in true f32.  On the
-card those products run on the tensor cores (``mma.sync`` m16n8k16 bf16,
-the operators' hi/lo split into fragment order once per call by
-:func:`mma_fragments`); the plain version sums the same split products
-with ``torch.matmul``.  Tensor cores accumulate in their own order, so
-the variant agrees with its plain version to f32 roundoff of the
-products, not bitwise.  TF32 plays no part: the variant is the
-reference's bf16_3x.
+card those products run on the tensor cores in a kernel of their own,
+``csrc/shared_chunk_tc.cu`` (``wgmma`` bf16 with the operator as the wide
+side, its hi/lo slices packed once per call as :func:`tc_operator_slices`
+lays them out and brought into shared memory by bulk copies); the plain
+version sums
+the same split products with ``torch.matmul``.  Tensor cores accumulate
+in their own order, so the variant agrees with its plain version to f32
+roundoff of the products, not bitwise.  TF32 plays no part: the variant
+is the reference's bf16_3x.
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ __all__ = [
     "split_bf16",
     "matmul_split",
     "precision_matmul",
-    "mma_fragments",
+    "tc_operator_slices",
     "pick_shared_tile",
     "shared_block_rows",
     "ROWS_PER_BLOCK",
@@ -85,13 +87,17 @@ __all__ = [
     "PRECISION_NAMES",
 ]
 
-# Scenarios per thread block the CUDA kernel is instantiated for, in its
-# FP32 form and in its tensor-core form (one or two m16 tiles).
+# Scenarios per thread block the CUDA kernels are instantiated for, in the
+# FP32 form and in the tensor-core form (the N of its m64nNk16 products).
 ROWS_PER_BLOCK = (8, 16, 32)
 ROWS_PER_BLOCK_TC = (16, 32)
 ITER_PRECISIONS = ("highest", "high", "mixed")
 # Dynamic shared memory a thread block may opt into on an H100.
 SMEM_LIMIT = 232448
+# The tensor-core form's operator slices: output columns per pass (four
+# m64 tiles) and the fewest ring slots it runs with.
+TC_PASS_COLS = 256
+TC_MIN_STAGES = 2
 
 
 def _pad(v: int, k: int) -> int:
@@ -101,9 +107,23 @@ def _pad(v: int, k: int) -> int:
 def tc_split_floats(n: int, m: int) -> int:
     """Floats per scenario row of the tensor-core form's split panel: the
     hi and lo bf16 copies of the widest product operand, its width padded
-    to a multiple of 16 and 8 more (the row stride that keeps a warp's
-    fragment loads off each other's banks)."""
-    return max(_pad(n, 16), _pad(m, 16)) + 8
+    to a multiple of 16 (the products' k16 steps)."""
+    return max(_pad(n, 16), _pad(m, 16))
+
+
+def tc_block_bytes(rows: int, n: int, m: int, stages: int = TC_MIN_STAGES) -> int:
+    """Shared memory of a tensor-core block of ``rows`` scenarios at
+    ``"high"`` with ``stages`` ring slots, as ``csrc/shared_chunk_tc.cu``'s
+    ``tc_layout`` places it: 128 bytes of mbarriers, the ring (slots of
+    16-deep operator slices, at most ``TC_PASS_COLS`` columns padded to
+    64, 4 bytes a column and k for hi and lo), the split panel and the six
+    panels (each region padded to 128 bytes), and five floats a row of
+    static per-row results.  ``"mixed"`` needs no more (its slices are
+    only ``n`` wide; zt's FP32 slices take what is left, or none)."""
+    slot = 64 * min(max(_pad(n, 64), _pad(m, 64)), TC_PASS_COLS)
+    split = _pad(rows * tc_split_floats(n, m) * 4, 128)
+    panels = _pad(rows * (3 * n + 3 * m) * 4, 128)
+    return 128 + stages * slot + split + panels + 5 * rows * 4
 
 
 def shared_block_rows(B: int, batch_tile: int, n: int, m: int, sms: int,
@@ -112,8 +132,9 @@ def shared_block_rows(B: int, batch_tile: int, n: int, m: int, sms: int,
     termination groups of ``batch_tile`` on a card with ``sms`` SMs: of
     the ``ROWS_PER_BLOCK`` (``ROWS_PER_BLOCK_TC`` for the tensor-core
     form) whose panels fit in shared memory (six of ``rows`` by ``n`` or
-    ``m`` floats and five per row, and the tensor-core form's split panel,
-    :func:`tc_split_floats`; the C entry point refuses the others), the
+    ``m`` floats and five per row; the tensor-core form's block with its
+    split panel and two ring slots, :func:`tc_block_bytes`; the C entry
+    points refuse the others), the
     one that puts the fewest scenario rows on the busiest SM
     (``ceil(blocks / sms) * rows``: an SM's float pipes are shared by the
     blocks it holds), then the most rows (each block streams the operators
@@ -121,9 +142,10 @@ def shared_block_rows(B: int, batch_tile: int, n: int, m: int, sms: int,
     blocks, where 32 would leave 130 of 132 SMs idle; 16 for the
     tensor-core form).  Raises where no block fits."""
     best = None
-    per_row = 3 * n + 3 * m + 5 + (tc_split_floats(n, m) if tensor_cores else 0)
     for rows in sorted(ROWS_PER_BLOCK_TC if tensor_cores else ROWS_PER_BLOCK, reverse=True):
-        if rows * per_row * 4 > SMEM_LIMIT:
+        need = (tc_block_bytes(rows, n, m) if tensor_cores
+                else rows * (3 * n + 3 * m + 5) * 4)
+        if need > SMEM_LIMIT:
             continue
         blocks = (B // batch_tile) * -(-batch_tile // rows)
         load = -(-blocks // sms) * rows
@@ -216,26 +238,32 @@ def precision_matmul(a: torch.Tensor, w: torch.Tensor, precision: str) -> torch.
     return bf(a) @ bf(w)
 
 
-def mma_fragments(w: torch.Tensor) -> torch.Tensor:
+def tc_operator_slices(w: torch.Tensor) -> torch.Tensor:
     """The operator ``w (K, J)`` of a product ``a @ w`` as the tensor-core
-    kernel reads it: split by :func:`split_bf16`, zero-padded to ``K`` a
-    multiple of 16 and ``J`` of 8, in the B-fragment order of
-    ``mma.sync.aligned.m16n8k16.row.col`` (lane ``l`` of a warp holds
-    column ``8 nt + l // 4`` at rows ``16 kt + 2 (l % 4) + {0, 1}`` in its
-    first register and ``+ {8, 9}`` in its second, the lower row in the low
-    half).  Returns int32 words ``(J / 8, K / 16, 32 lanes, 4)``: hi's two
-    registers, then lo's, so one 16-byte load gives a lane both."""
+    kernel streams it: split by :func:`split_bf16`, zero-padded to ``K`` a
+    multiple of 16 and ``J`` of 64, cut into passes of ``TC_PASS_COLS``
+    output columns and each pass into k16 slices.  A slice is one
+    contiguous run (one bulk copy): the hi part, then the lo part, each
+    the pass's ``Jp`` columns as rows of an ``A`` operand (``A[j, k] =
+    w[k, j]``) in K-major core matrices of 8 rows by 8 k (16 bytes a row,
+    128 a matrix), the k halves of a row group side by side (128 bytes
+    apart) and the row groups 256 bytes apart.  Returns the bf16 values,
+    flat: pass by pass, slice by slice.  The plain version of the packing
+    kernel the tensor-core entry point runs once per call."""
     K, J = w.shape
-    Kp, Jp = _pad(K, 16), _pad(J, 8)
+    Kp, Jp = _pad(K, 16), _pad(J, 64)
     wp = torch.zeros((Kp, Jp), dtype=torch.float32, device=w.device)
     wp[:K, :J] = w
     hi = wp.to(torch.bfloat16)
     lo = (wp - hi.to(torch.float32)).to(torch.bfloat16)
-    # Row 16 kt + 8 half + 2 t + pair, column 8 nt + g.
-    parts = torch.stack([hi, lo]).reshape(2, Kp // 16, 2, 4, 2, Jp // 8, 8)
-    # -> (nt, kt, g, t, hi/lo, half, pair): lane g * 4 + t, word (hi/lo, half).
-    frag = parts.permute(5, 1, 6, 3, 0, 2, 4).contiguous()
-    return frag.view(torch.int32).reshape(Jp // 8, Kp // 16, 32, 4)
+    parts = torch.stack([hi, lo])  # (2, Kp, Jp): k = 16 s + 8 half + kk, j = 8 G + r
+    runs = []
+    for p0 in range(0, Jp, TC_PASS_COLS):
+        W = min(TC_PASS_COLS, Jp - p0)
+        q = parts[:, :, p0:p0 + W].reshape(2, Kp // 16, 2, 8, W // 8, 8)
+        # -> (s, hi/lo, G, half, r, kk)
+        runs.append(q.permute(1, 0, 4, 2, 5, 3).reshape(-1))
+    return torch.cat(runs).contiguous()
 
 
 def _contract(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
@@ -381,14 +409,15 @@ def shared_admm_chunk(
     :func:`shared_admm_chunk_plain`.
 
     CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
-    launch ``csrc/shared_chunk.cu`` on the current stream, one launch per
+    launch a hand-written kernel on the current stream, one launch per
     check block of ``bound`` (the termination vote of a group crosses
     thread blocks through global memory between launches), or raise: a
     panel width whose rows do not fit in shared memory is refused.
-    ``iter_precision="highest"`` runs the FP32 kernel, bitwise its plain
-    version, and counts one launch in ``shared_admm_chunk.launches`` (one
-    chunk of the batch loop); ``"high"`` and ``"mixed"`` run its tensor-core
-    form and count in ``shared_admm_chunk.tc_launches``.
+    ``iter_precision="highest"`` runs the FP32 kernel ``csrc/shared_chunk.cu``,
+    bitwise its plain version, and counts one launch in
+    ``shared_admm_chunk.launches`` (one chunk of the batch loop); ``"high"``
+    and ``"mixed"`` run the tensor-core form ``csrc/shared_chunk_tc.cu`` and
+    count in ``shared_admm_chunk.tc_launches``.
     ``rows_per_block`` (one of ``ROWS_PER_BLOCK``, or ``ROWS_PER_BLOCK_TC``
     for the tensor-core form) forces the scenarios per thread block, for
     timing; by default :func:`shared_block_rows` picks it for the card.
@@ -443,12 +472,15 @@ def _block_rows(rows_per_block, B, batch_tile, n, m, dev, tensor_cores):
 
 def _launch_tc(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
                rows_per_block, *, check_every, sigma, alpha, eps_abs, eps_rel, batch_tile,
-               iter_precision):
-    """The wrapper's path to the tensor-core form of ``csrc/shared_chunk.cu``
-    on inputs checked by ``_contract``: the operators' bf16 hi/lo
-    fragments (:func:`mma_fragments`: ``Ab`` for the rhs product, ``OP``
-    for the x product, ``Ab^T`` for ``zt`` at ``"high"``), outputs, votes
-    and the launches."""
+               iter_precision, l2_bytes=None):
+    """The wrapper's path to the tensor-core form ``csrc/shared_chunk_tc.cu``
+    on inputs checked by ``_contract``: room for the operators' bf16 hi/lo
+    slices (``Ab`` for the rhs product, ``OP`` for the x product, ``Ab^T``
+    for ``zt`` at ``"high"``, which the entry point packs as
+    :func:`tc_operator_slices` does), outputs, votes and the launches.
+    ``l2_bytes`` (an int64 ``(1,)`` tensor), where given, gets the bytes
+    the kernel's bulk copies brought from L2 added to it; the kernel counts
+    nothing without it."""
     B, n = x.shape
     m = z.shape[1]
     dev = x.device
@@ -457,15 +489,19 @@ def _launch_tc(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z
         return outs[:3] + (outs[3].bool(),) + outs[4:]
     rows = _block_rows(rows_per_block, B, batch_tile, n, m, dev, True)
     AbT = Ab.T.contiguous()
-    f_ab, f_op = mma_fragments(Ab), mma_fragments(OP)
-    # "mixed" runs zt as an FP32 chain and never reads the third.
-    f_abt = mma_fragments(AbT) if iter_precision == "high" else f_op
+
+    def slices(K, J):
+        return torch.empty(2 * _pad(K, 16) * _pad(J, 64), dtype=torch.bfloat16, device=dev)
+
+    s_ab, s_op = slices(m, n), slices(n, n)
+    # "mixed" runs zt as an FP32 chain and never packs or reads the third.
+    s_abt = slices(n, m) if iter_precision == "high" else s_op
     n_checks = max(1, -(-bound // check_every))
     votes = torch.zeros((B // batch_tile, n_checks), dtype=torch.int32, device=dev)
     launch_chunk(
-        "shared_admm_chunk", "shared_chunk", "ocp_shared_admm_chunk_tc_f32",
+        "shared_admm_chunk", "shared_chunk_tc", "ocp_shared_admm_chunk_tc_f32",
         [done0, OP, Ab, AbT, Pb, rho, lb, ub, qb, Dinv, Einv, cinv,
-         x, z, y, *outs, votes, f_ab, f_op, f_abt],
+         x, z, y, *outs, votes, s_ab, s_op, s_abt, l2_bytes],
         (B, n, m, batch_tile, rows, bound, check_every, n_checks,
          ITER_PRECISIONS.index(iter_precision)),
         (sigma, alpha, eps_abs, eps_rel), dev,

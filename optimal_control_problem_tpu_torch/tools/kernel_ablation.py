@@ -2,7 +2,8 @@
 one run on one card.
 
     python3 -m optimal_control_problem_tpu_torch.tools.kernel_ablation
-        [--only cr,shared,dl] [--baseline OLD_admm_device_loop.cu]
+        [--only cr,shared,dl,tc] [--baseline OLD_admm_device_loop.cu]
+        [--tc-baseline OLD_shared_chunk.cu]
 
 Run from the repository root (it takes its inputs from ``chip_smoke.py``).
 Each variant is a copy of a shipped source with one piece of text
@@ -19,6 +20,17 @@ with the shipped flags (``ops/build._FLAGS``) into
   place of 8, so each SM runs twice the warps at the same scenarios per
   block (one block per SM either way: the panels and slices fill its
   shared memory);
+* ``csrc/shared_chunk_tc.cu`` (the shared-operator chunk's tensor-core
+  form, ``iter_precision`` "high" and "mixed"): a ring of 4, 3 and 2
+  slots in place of 5 (``kRingStages``; the shipped kernel takes fewer
+  where 5 do not fit) and 16 epilogue elements loaded at once in place of
+  8 (``kEpiChunk``).  No cluster multicast is shipped, so the shipped
+  kernel is the cluster-of-1 variant.  With ``--tc-baseline``,
+  the tensor-core form of an earlier ``csrc/shared_chunk.cu`` (for example
+  ``git show <rev>:optimal_control_problem_tpu_torch/csrc/shared_chunk.cu``
+  of the parent of the commit that added ``shared_chunk_tc.cu``), whose
+  entry point takes the operators as ``mma.sync`` B fragments
+  (``old_mma_fragments``);
 * ``csrc/admm_device_loop.cu`` (the dense device loop): two output rows
   a thread in the row products in place of one (``OUTS2_ROW_PRODUCT``:
   two chains side by side, one float4 of the vector serving both) and
@@ -42,7 +54,8 @@ batch (N=100, w=16, r=12, r2=1; B=64 and B=8) through the batch solver's
 prepare, two iterations a launch (the main path's ~2) and the prologue
 alone (``interval=0``); the shared chunk on the first chunk of a random
 shared QP solve at n=120, m=196 (the double integrator h20's sizes), B=4096
-and B=64, 25 iterations a launch; the device loop on the recorded launches
+and B=64, 25 iterations a launch (its tensor-core form likewise, at "high"
+and "mixed"); the device loop on the recorded launches
 of the first three SQP steps of a cold and of all ten of a steady (fifth)
 dense cart-pole h20 tick at B=256 (``chip_smoke.py``'s phase 4d path,
 n=100, m=196), and on the first entry of a random dense solve at n=120,
@@ -51,7 +64,10 @@ m=236, B=64 (tier 2; tier 3 forced beside it) and at n=200, m=392, B=32
 scenario's latency, also as us per iteration).  The probed copy runs the
 first launch of the steady tick at B=1 and B=256 with a forced budget of
 100 iterations in tiers 1 and 2.  Every variant is first
-held bitwise to the plain version on the same inputs (it fails otherwise);
+held bitwise to the plain version on the same inputs (it fails otherwise;
+the tensor-core form's to ``chip_smoke.py`` phase 3's rule: each of x, z,
+y within three times the plain version's own gap to its products summed
+in float64, iteration counts and verdicts equal);
 then the variants are timed with CUDA events, round by round, the order
 reversed every other round, and each reports its median ms per launch.
 Prints the card's name and power limit first and a JSON record as the last
@@ -177,6 +193,14 @@ VARIANTS = [
     ("cr_threads1024", "banded_cr_chunk", "constexpr int kThreads = 512;",
      "constexpr int kThreads = 1024;"),
     ("sh_warps16", "shared_chunk", "constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
+    ("tc_chunk16", "shared_chunk_tc", "constexpr int kEpiChunk = 8;",
+     "constexpr int kEpiChunk = 16;"),
+    ("tc_stages4", "shared_chunk_tc", "constexpr int kRingStages = 5;",
+     "constexpr int kRingStages = 4;"),
+    ("tc_stages3", "shared_chunk_tc", "constexpr int kRingStages = 5;",
+     "constexpr int kRingStages = 3;"),
+    ("tc_stages2", "shared_chunk_tc", "constexpr int kRingStages = 5;",
+     "constexpr int kRingStages = 2;"),
     ("dl_outs2", "admm_device_loop", _ROW_PRODUCT, OUTS2_ROW_PRODUCT),
     ("dl_plaindiv", "admm_device_loop", "div_rn(yo, rho)", "yo / rho"),
 ]
@@ -197,6 +221,55 @@ PHASE_PROBES = [
     ("    __syncthreads();  // sred, rhs and xt are rewritten next\n", 8),
     (_RHS, 2), (_XT, 4), (_ZT, 6),
 ]
+
+
+# clock64() probes of the tensor-core form (thread 0 of block 0, which also
+# issues the ring's bulk copies): (text, slot, before) -- the slot's cycles
+# since the previous probe are added before or after the text.
+TC_PHASE_NAMES = ["prologue", "full waits", "products (issue, wait<1>, release, refill)",
+                  "last slice's wait<0>", "barrier before the epilogue", "epilogues and splits",
+                  "barrier after the epilogue", "zt FP32 chain (mixed)", "check"]
+TC_PHASE_PROBES = [
+    ("      mbar_wait(ring.full(st), (g / ring.stages) & 1);\n"
+     "      const uint32_t slot = ring.base + st * ring.stage_bytes;\n", 2, True),
+    ("      mbar_wait(ring.full(st), (g / ring.stages) & 1);\n"
+     "      const uint32_t slot = ring.base + st * ring.stage_bytes;\n", 1, False),
+    ("    wgmma_wait<0>();\n", 2, True),
+    ("    const bool last = p == P - 1;\n", 3, True),
+    ("    if (last) consumer_sync();  // nobody reads the split panel any more\n", 4, False),
+    ("  fence_proxy_async();\n  consumer_sync();\n", 5, True),
+    ("  fence_proxy_async();\n  consumer_sync();\n", 6, False),
+    ("        fence_proxy_async();\n        consumer_sync();\n", 7, False),
+    ("    residual_check<TR>(a, d, chk, g, n, m, sx, sz, sy, srhs, fstage, ks, ci, grow, s_conv, s_rp,\n"
+     "                       s_rd, s_rpr, s_rdr);\n", 8, False),
+    ("  fence_proxy_async();\n  __syncthreads();\n", 0, False),
+]
+
+
+def tc_phases_source(src):
+    """``csrc/shared_chunk_tc.cu`` with the ``TC_PHASE_PROBES``: cycles
+    into a ``__device__`` array that ``ocp_tc_probe(out, reset)`` reads."""
+    start = "  const int tid = threadIdx.x;\n  const int lane = tid & 31;\n  const int warp = tid >> 5;\n"
+    inc = '#include "shared_chunk_common.cuh"\n'
+    for text in [start, inc] + [t for t, _, _ in TC_PHASE_PROBES]:
+        if src.count(text) != 1:
+            raise SystemExit(f"tc phase probes: {text!r} is not in the source exactly once")
+    src = src.replace(inc, inc + (
+        "__device__ long long g_probe[16];\n"
+        "#define PROBE(s) do { if (blockIdx.x == 0 && threadIdx.x == 0) { "
+        "const long long t2_ = clock64(); g_probe[s] += t2_ - g_probe[15]; g_probe[15] = t2_; } "
+        "} while (0)\n"))
+    for text, slot, before in TC_PHASE_PROBES:
+        probe = f"  PROBE({slot});\n"
+        src = src.replace(text, probe + text if before else text + probe)
+    src = src.replace(start, start + "  if (blockIdx.x == 0 && threadIdx.x == 0) g_probe[15] = clock64();\n")
+    return src + (
+        '\nextern "C" int ocp_tc_probe(long long* out, int reset) {\n'
+        "  cudaDeviceSynchronize();\n"
+        "  cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n"
+        "  if (reset) {\n    long long z[16] = {};\n"
+        "    cudaMemcpyToSymbol(g_probe, z, sizeof(z));\n  }\n"
+        "  return static_cast<int>(cudaGetLastError());\n}\n")
 
 
 def phases_source(src):
@@ -224,19 +297,43 @@ def phases_source(src):
         + check1)
 
 
-def build_variants(build, out_dir, names, baseline=None):
+def old_mma_fragments(w):
+    """``w (K, J)`` as the tensor-core form before ``csrc/shared_chunk_tc.cu``
+    read it: split into bf16 hi / lo, padded to K a multiple of 16 and J of
+    8, in the B-fragment order of ``mma.sync`` m16n8k16 (int32 words
+    ``(J / 8, K / 16, 32 lanes, 4)``: hi's two registers, then lo's)."""
+    import torch
+
+    K, J = w.shape
+    Kp, Jp = -(-K // 16) * 16, -(-J // 8) * 8
+    wp = torch.zeros((Kp, Jp), dtype=torch.float32, device=w.device)
+    wp[:K, :J] = w
+    hi = wp.to(torch.bfloat16)
+    lo = (wp - hi.to(torch.float32)).to(torch.bfloat16)
+    parts = torch.stack([hi, lo]).reshape(2, Kp // 16, 2, 4, 2, Jp // 8, 8)
+    frag = parts.permute(5, 1, 6, 3, 0, 2, 4).contiguous()
+    return frag.view(torch.int32).reshape(Jp // 8, Kp // 16, 32, 4)
+
+
+def build_variants(build, out_dir, names, baseline=None, tc_baseline=None):
     """Compile every variant of the kernels ``names`` and the ``baseline``
-    source, if any (one nvcc each, all at once): ``{key: path}``."""
+    and ``tc_baseline`` sources, if any (one nvcc each, all at once):
+    ``{key: path}``."""
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     extra = [("dl_phases", "admm_device_loop", None, None)] if "admm_device_loop" in names else []
     extra += [("dl_baseline", None, None, None)] if baseline else []
+    extra += [("tc_baseline", None, None, None)] if tc_baseline else []
+    extra += [("tc_phases", "shared_chunk_tc", None, None)] if "shared_chunk_tc" in names else []
+    texts = {}  # every text first, so that a patch that fails starts no compiler
     for key, name, old, new in VARIANTS + extra:
         if name is None:
-            with open(baseline) as f:
+            with open(baseline if key == "dl_baseline" else tc_baseline) as f:
                 text = f.read()
         elif key == "dl_phases":
             text = phases_source(build.SOURCES[name].read_text())
+        elif key == "tc_phases":
+            text = tc_phases_source(build.SOURCES[name].read_text())
         elif name in names:
             src = build.SOURCES[name].read_text()
             if src.count(old) != 1:
@@ -244,11 +341,14 @@ def build_variants(build, out_dir, names, baseline=None):
             text = src.replace(old, new)
         else:
             continue
+        texts[key] = text
+    inc = ["-I", str(build.SOURCES["shared_chunk"].parent)]  # csrc/*.cuh
+    for key, text in texts.items():
         path = os.path.join(out_dir, f"{key}.cu")
         with open(path, "w") as f:
             f.write(text)
         lib = os.path.join(out_dir, f"lib{key}.so")
-        procs[key] = (subprocess.Popen([build._nvcc(), *build._FLAGS, "-o", lib, path],
+        procs[key] = (subprocess.Popen([build._nvcc(), *build._FLAGS, *inc, "-o", lib, path],
                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), lib)
     libs = {}
@@ -297,10 +397,13 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="cr,shared,dl",
-                    help="comma list of kernels to ablate: cr, shared, dl")
+    ap.add_argument("--only", default="cr,shared,dl,tc",
+                    help="comma list of kernels to ablate: cr, shared, dl, tc")
     ap.add_argument("--baseline", default=None,
                     help="an earlier csrc/admm_device_loop.cu to time beside the shipped one")
+    ap.add_argument("--tc-baseline", default=None,
+                    help="an earlier csrc/shared_chunk.cu whose tensor-core form to time beside "
+                         "csrc/shared_chunk_tc.cu")
     opts = ap.parse_args(argv)
     only = set(opts.only.split(","))
     if not torch.cuda.is_available():
@@ -327,11 +430,13 @@ def main(argv=None) -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     names = [n for key, n in (("cr", "banded_cr_chunk"), ("shared", "shared_chunk"),
-                              ("dl", "admm_device_loop")) if key in only]
+                              ("dl", "admm_device_loop"), ("tc", "shared_chunk_tc"))
+             if key in only]
     t0 = time.perf_counter()
     build.build(names)
     paths = build_variants(build, str(build.BUILD_DIR.parent / "kernel_ablation"), names,
-                           opts.baseline if "dl" in only else None)
+                           opts.baseline if "dl" in only else None,
+                           opts.tc_baseline if "tc" in only else None)
     print(f"built the shipped kernels and {len(paths)} variants in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     libs = {key: ctypes.CDLL(p) for key, p in paths.items()}
@@ -353,17 +458,25 @@ def main(argv=None) -> int:
         sync()
         return e0.elapsed_time(e1) / REPS
 
-    def ablate(name, label, keys, kernel, plain, lib_of=lambda key: key):
-        """Bitwise check of each variant, then the interleaved timing;
-        ``kernel(key)`` runs the variant ``key`` on library ``lib_of(key)``."""
+    def ablate(name, label, keys, kernel, plain, lib_of=lambda key: key, agree=None):
+        """Bitwise check of each variant (or ``agree(out, ref)``), then the
+        interleaved timing; ``kernel(key)`` runs the variant ``key`` on
+        library ``lib_of(key)``."""
         ref = plain()
         sync()
+        bad = []
         for key in keys:
             use(name, lib_of(key))
             out = kernel(key)
             sync()
-            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-                raise SystemExit(f"{label}: {key} disagrees with the plain version")
+            ok = (agree(out, ref) if agree is not None
+                  else all(torch.equal(a, b) for a, b in zip(out, ref)))
+            if not ok:
+                print(f"{label}: {key} disagrees with the plain version", flush=True)
+                bad.append(key)
+        if bad:
+            use(name, "shipped")
+            raise SystemExit(f"{label}: {', '.join(bad)} disagree with the plain version")
         times = {key: [] for key in keys}
         for rnd in range(ROUNDS):
             for key in keys if rnd % 2 == 0 else keys[::-1]:
@@ -371,12 +484,13 @@ def main(argv=None) -> int:
                 times[key].append(event_ms(lambda: kernel(key)))
         use(name, "shipped")
         res = {key: statistics.median(v) for key, v in times.items()}
-        print(f"{label}: bitwise equal to the plain version; ms/launch (median of {ROUNDS} "
+        print(f"{label}: {'within the tolerance of' if agree else 'bitwise equal to'} the "
+              f"plain version; ms/launch (median of {ROUNDS} "
               f"rounds of {REPS}): " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()),
               flush=True)
         return res
 
-    record = {"card": card, "cr": {}, "shared": {}, "dl": {}}
+    record = {"card": card, "cr": {}, "shared": {}, "dl": {}, "tc": {}}
     if "cr" in only:
         cr_keys = ["shipped"] + [k for k, n, _, _ in VARIANTS if n == "banded_cr_chunk"]
         st = ADMMSettings(method="banded", eps_abs=0.0, eps_rel=0.0, max_iter=2,
@@ -416,6 +530,108 @@ def main(argv=None) -> int:
                     "a block, 25 iterations", ["shipped", "sh_warps16"],
                     lambda key: sk.shared_admm_chunk(*a, **k, rows_per_block=rows),
                     lambda: sk.shared_admm_chunk_plain(*a, **k))
+
+    if "tc" in only:
+        tc_keys = ["shipped"] + [k for k, n, _, _ in VARIANTS if n == "shared_chunk_tc"]
+        probe_fn = libs["tc_phases"].ocp_tc_probe
+        probe_fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        probe_fn.restype = ctypes.c_int
+        tc_keys += ["tc_baseline"] if "tc_baseline" in libs else []
+        st_s = ADMMSettings(**cs.DI_ADMM, backend="pallas")
+
+        def split_f64(a, w_split):
+            a_hi, a_lo = sk.split_bf16(a)
+            d64 = [t.double() for t in (a_hi, a_lo, *w_split)]
+            return (d64[0] @ d64[2] + d64[0] @ d64[3] + d64[1] @ d64[2]).float()
+
+        def rel_gap(a, b):
+            fin = torch.isfinite(b)
+            if not torch.equal(torch.isfinite(a), fin):
+                return float("inf")
+            return float((a[fin] - b[fin]).abs().max() / b[fin].abs().max().clamp(min=1e-30))
+
+        def tc_agree(a, k):
+            """``chip_smoke.py`` phase 3's rule for a forced budget."""
+            real = sk.matmul_split
+            sk.matmul_split = split_f64
+            try:
+                ref64 = sk.shared_admm_chunk_plain(*a, **k)
+            finally:
+                sk.matmul_split = real
+
+            def agree(out, ref):
+                lims = [max(3 * rel_gap(r, d), 1e-5) for r, d in zip(ref[:3], ref64[:3])]
+                gaps = [rel_gap(o, r) for o, r in zip(out[:3], ref[:3])]
+                print("  max |kernel - plain| / max |plain| x, z, y: " + ", ".join(
+                    f"{g:.3g} (limit {lim:.3g})" for g, lim in zip(gaps, lims)), flush=True)
+                return (all(g <= lim for g, lim in zip(gaps, lims))
+                        and torch.equal(out[3], ref[3]) and torch.equal(out[4], ref[4]))
+            return agree
+
+        def old_tc(a, k, rows):
+            """The earlier source's tensor-core form on the same inputs."""
+            B_, n_, m_, bound_, done_, cinv_ = sk._contract(*a, k["check_every"],
+                                                             k["batch_tile"])
+            OP_, Ab_ = a[2], a[3]
+            AbT_ = Ab_.T.contiguous()
+            outs = sk._outputs(B_, n_, m_, dev)
+            f_ab, f_op = old_mma_fragments(Ab_), old_mma_fragments(OP_)
+            f_abt = old_mma_fragments(AbT_) if k["iter_precision"] == "high" else f_op
+            n_checks = max(1, -(-bound_ // k["check_every"]))
+            votes = torch.zeros((B_ // k["batch_tile"], n_checks), dtype=torch.int32, device=dev)
+            bk.launch_chunk("shared_admm_chunk", "shared_chunk_tc", "ocp_shared_admm_chunk_tc_f32",
+                            [done_, OP_, Ab_, AbT_, *a[4:11], cinv_, *a[12:], *outs, votes,
+                             f_ab, f_op, f_abt],
+                            (B_, n_, m_, k["batch_tile"], rows, bound_, k["check_every"], n_checks,
+                             sk.ITER_PRECISIONS.index(k["iter_precision"])),
+                            (k["sigma"], k["alpha"], k["eps_abs"], k["eps_rel"]), dev)
+            return outs[:3] + (outs[3].bool(),) + outs[4:]
+
+        for B in (4096, 64):
+            P, A, q, lo, hi = (torch.as_tensor(a, device=dev)
+                               for a in cs.random_shared_qp(0, B, 120, 196))
+            fac = tab.prepare_shared(P, A, lo, hi, q, st_s)
+            calls = []
+            real = tab.shared_admm_chunk
+            tab.shared_admm_chunk = lambda *a, **k: calls.append((a, k)) or real(*a, **k)
+            try:
+                tab.admm_iterate_prepared(fac, q, lo, hi, st_s)
+            finally:
+                tab.shared_admm_chunk = real
+            a, k = calls[0]
+            a = (a[0], 25) + a[2:]
+            rows = sk.shared_block_rows(B, k["batch_tile"], 120, 196,
+                                        torch.cuda.get_device_properties(dev).multi_processor_count,
+                                        tensor_cores=True)
+            for mode in ("high", "mixed"):
+                k_m = {**k, "eps_abs": 0.0, "eps_rel": 0.0, "iter_precision": mode}
+
+                def run(key, a=a, k_m=k_m, rows=rows):
+                    if key == "tc_baseline":
+                        return old_tc(a, k_m, rows)
+                    return sk.shared_admm_chunk(*a, **k_m)
+
+                record["tc"][f"B{B} {mode}"] = ablate(
+                    "shared_chunk_tc", f"shared_admm_chunk tensor-core form ({mode}), n=120, m=196, "
+                    f"B={B}, {rows} scenarios a block, 25 iterations", tc_keys, run,
+                    lambda a=a, k_m=k_m: sk.shared_admm_chunk_plain(*a, **k_m),
+                    agree=tc_agree(a, k_m))
+                # Where a launch's cycles go: the probed copy, block 0's
+                # thread 0, one warm launch (the first one read is reset).
+                use("shared_chunk_tc", "tc_phases")
+                out = (ctypes.c_longlong * 16)()
+                run("shipped")
+                probe_fn(out, 1)
+                run("shipped")
+                probe_fn(out, 1)
+                use("shared_chunk_tc", "shipped")
+                cyc = {nm: out[i] for i, nm in enumerate(TC_PHASE_NAMES)}
+                total = sum(cyc.values())
+                record["tc"][f"B{B} {mode} phases"] = cyc
+                print(f"shared_admm_chunk tensor-core form ({mode}) phases, B={B}, one launch of 25 "
+                      f"iterations (block 0, thread 0; cycles, share): " + ", ".join(
+                          f"{nm} {c} ({c / max(total, 1):.3f})" for nm, c in cyc.items()),
+                      flush=True)
 
     if "dl" in only:
         # Keys: the shipped kernel in the rule's tier and with another tier

@@ -1,6 +1,6 @@
-"""The port's five CUDA kernels run on the CPU through a thread emulation of
-CUDA, each held bitwise to its plain PyTorch version (B3's tensor-core form
-at a tolerance: see its test).
+"""The port's CUDA kernels (five sources and B3's tensor-core form) run on
+the CPU through a thread emulation of CUDA, each held bitwise to its plain
+PyTorch version (B3's tensor-core form at a tolerance: see its test).
 
 There is no GPU or ``nvcc`` here, so each ``csrc/*.cu`` is compiled with
 ``g++ -std=c++20 -ffp-contract=off`` (no FMA contraction, as ``nvcc
@@ -13,17 +13,28 @@ for the CUDA runtime:
   the blocks of a launch one after another.  So the emulation needs one
   core, whatever else runs beside it, and a barrier no thread can pass
   (a deadlock) aborts at once;
-* ``__syncthreads()`` releases when every thread of the block that has
-  not exited waits at it, ``__syncwarp()`` likewise over the warp;
+* ``__syncthreads()`` releases when every thread of the block waits at
+  it (one reached after a thread exited, or a thread exiting while others
+  wait at it, aborts: on the card that barrier would never release),
+  ``__syncwarp()`` when every thread of the warp that has not exited does;
   ``__syncthreads_or/and``, ``__any_sync`` and the shuffles go through
   exchange arrays between two barriers;
-* ``mma_bf16_16816`` (the one device function that issues ``mma.sync``
-  m16n8k16 bf16) is a warp-collective stand-in: each lane hands its A, B
-  and C fragment registers to an exchange array, every lane rebuilds the
-  warp's 16x16 A, 16x8 B and C from them by the PTX fragment layout and
-  computes its own D elements (the exact dot product of the bf16 values,
-  plus C, rounded once to float32), so a fragment-layout error in the
-  kernel shows here;
+* Hopper's asynchronous primitives, for ``csrc/shared_chunk_tc.cu``
+  (behind the ``OCP_MMA_EMULATED`` guard): a shared address is the
+  offset into the launch's dynamic shared memory; an ``mbarrier`` counts
+  its phase's arrivals and transaction bytes, and a thread whose parity
+  wait finds the phase open gives way to the others (a sweep in which
+  every runnable thread only waits on an mbarrier, and nothing arrives
+  or lands, is a deadlock and aborts); a bulk copy (``cp.async.bulk``,
+  16-byte aligned, a multiple of 16 bytes) lands when the scheduler's
+  sweep ends and then completes its bytes on the mbarrier; ``bar.sync id,
+  count`` releases at its count; ``wgmma``'s fence, commit and wait are
+  warpgroup barriers, and the product is a warpgroup-collective stand-in
+  (every thread must pass the same descriptors) that is carried out at
+  the ``wait_group`` that retires it: it decodes each matrix descriptor
+  (start address, leading and stride byte offsets; a swizzle or base
+  offset aborts), reads A and B from the emulated shared memory and adds
+  each thread's k16 dot products, summed exactly and rounded once;
 * ``__shared__`` arrays are ``static``, ``extern __shared__`` is a buffer of
   the launch's size, ``__ldg`` a plain load, the ``cuda_pipeline.h`` copies
   synchronous ones, and the attribute and occupancy calls are stubs with
@@ -78,6 +89,7 @@ EMU_HEADER = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <functional>
+#include <map>
 #include <ucontext.h>
 #include <vector>
 
@@ -116,24 +128,55 @@ namespace emu {
 constexpr long kSmemOptin = 232448;
 constexpr long kSmemPerSM = 233472;
 constexpr size_t kStack = 256 * 1024;  // bytes of stack per CUDA thread
-enum { kRun, kAtBlock, kAtWarp, kDone };
+constexpr int kNamed = 16;              // named barriers of a block
+enum { kRun, kAtBlock, kAtWarp, kAtWarpgroup, kAtNamed, kDone };
 struct Fiber {
   ucontext_t ctx;
   std::unique_ptr<char[]> stack;
   int state = kRun;
+  int named = 0;         // the named barrier it waits at
+  bool yielded = false;  // it gave way in an mbarrier wait
+};
+// An mbarrier: arrivals still expected in the current phase, the bytes of
+// transactions still pending, and the phases completed.
+struct Mbar {
+  int expected = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;
+};
+// A bulk copy in flight: it lands when the scheduler's sweep ends.
+struct Copy {
+  std::uint32_t dst;
+  const void* src;
+  unsigned bytes;
+  std::uint32_t bar;
+};
+// A wgmma product issued and not yet waited for: d = A B (+ d if acc).
+struct WgOp {
+  float* d;
+  int regs;
+  std::uint64_t da, db;
+  int acc;
 };
 // One thread block: its CUDA threads as fibers (user-level threads) that a
 // scheduler on the calling OS thread runs in turn, each until it reaches a
-// barrier or exits.  A barrier releases once every thread of the block (of
-// the warp) that has not exited waits at it.
+// barrier, gives way in an mbarrier wait, or exits.  A barrier releases once
+// every thread of the block (of the warp, of the warpgroup) that has not
+// exited waits at it; a named barrier once its count of threads waits.
 struct Block {
   int nt = 0, live = 0, at_block = 0;
   std::vector<Fiber> f;
   std::vector<int> warp_live, at_warp;
+  std::vector<int> wg_live, at_wg;
+  int at_named[kNamed] = {}, named_count[kNamed] = {};
   std::vector<int> xi;            // per-thread exchange slots (votes)
   std::vector<std::uint32_t> xw;  // per-thread exchange slots (shuffles)
-  std::vector<std::uint32_t> xm;  // per-thread exchange slots (mma fragments, 10 words)
+  std::vector<std::uint64_t> xd;  // per-thread exchange slots (wgmma descriptors, 2 words)
   std::vector<unsigned char> dyn;
+  std::map<std::uint32_t, Mbar> mbars;  // by shared address
+  std::vector<Copy> copies;
+  std::vector<std::vector<std::vector<WgOp>>> wg_groups;  // per thread: committed groups, then the open one
+  long progress = 0;  // mbarrier arrivals and completed transactions
   std::function<void()> body;
   ucontext_t sched;
 };
@@ -146,14 +189,36 @@ inline cudaError_t last_error = cudaSuccess;
 
 inline int nwarp_threads(int w) { return std::min(32, blk->nt - 32 * w); }
 
-// Park the running fiber at the block (kAtBlock) or warp (kAtWarp) barrier.
-inline void park(int at) {
+[[noreturn]] inline void die(const char* what) {
+  std::fprintf(stderr, "emulated kernel fault: %s\n", what);
+  std::abort();
+}
+
+// Park the running fiber at the block (kAtBlock), warp (kAtWarp) or
+// warpgroup (kAtWarpgroup) barrier, or at named barrier `id`.
+inline void park(int at, int id = 0) {
   Fiber& me = blk->f[ltid];
   me.state = at;
+  // bar.sync 0 counts every thread of the block: one that has exited can
+  // never arrive (a thread that runs no product still passes them all).
+  if (at == kAtBlock && blk->live != blk->nt) die("__syncthreads() after a thread of the block exited");
   if (at == kAtBlock)
     ++blk->at_block;
-  else
+  else if (at == kAtWarp)
     ++blk->at_warp[ltid / 32];
+  else if (at == kAtWarpgroup)
+    ++blk->at_wg[ltid / 128];
+  else {
+    me.named = id;
+    ++blk->at_named[id];
+  }
+  swapcontext(&me.ctx, &blk->sched);
+}
+
+// Give way: the fiber stays runnable and the scheduler runs the others.
+inline void yield() {
+  Fiber& me = blk->f[ltid];
+  me.yielded = true;
   swapcontext(&me.ctx, &blk->sched);
 }
 
@@ -169,14 +234,53 @@ inline void release(Block& b) {
         if (b.f[t].state == kAtWarp) b.f[t].state = kRun;
       b.at_warp[w] = 0;
     }
+  for (size_t w = 0; w < b.at_wg.size(); ++w)
+    if (b.at_wg[w] > 0 && b.at_wg[w] == b.wg_live[w]) {
+      for (int t = 128 * static_cast<int>(w); t < std::min(b.nt, 128 * static_cast<int>(w) + 128); ++t)
+        if (b.f[t].state == kAtWarpgroup) b.f[t].state = kRun;
+      b.at_wg[w] = 0;
+    }
+  for (int id = 0; id < kNamed; ++id)
+    if (b.at_named[id] > 0 && b.at_named[id] == b.named_count[id]) {
+      for (auto& x : b.f)
+        if (x.state == kAtNamed && x.named == id) x.state = kRun;
+      b.at_named[id] = 0;
+      b.named_count[id] = 0;
+    }
+}
+
+inline Mbar& mbar_at(std::uint32_t a) {
+  auto it = blk->mbars.find(a);
+  if (it == blk->mbars.end()) die("mbarrier used before mbarrier.init");
+  return it->second;
+}
+inline void mbar_settle(Mbar& m) {
+  if (m.pending == 0 && m.tx == 0) {
+    ++m.phase;
+    m.pending = m.expected;
+  }
+}
+
+// The bulk copies of the sweep land: their bytes, then their transactions.
+inline void land_copies(Block& b) {
+  for (const Copy& c : b.copies) {
+    std::memcpy(b.dyn.data() + c.dst, c.src, c.bytes);
+    Mbar& m = mbar_at(c.bar);
+    m.tx -= c.bytes;
+    mbar_settle(m);
+    ++b.progress;
+  }
+  b.copies.clear();
 }
 
 inline void trampoline() {
   blk->body();
   Block& b = *blk;
+  if (b.at_block > 0) die("a thread exited while others wait at __syncthreads()");
   b.f[ltid].state = kDone;
   --b.live;
   --b.warp_live[ltid / 32];
+  --b.wg_live[ltid / 128];
   // uc_link returns to the scheduler.
 }
 
@@ -209,9 +313,14 @@ void launch(K kernel, Cfg c, A... args) {
           b.warp_live.push_back(static_cast<int>(std::min<long>(32, nt - 32 * w)));
           b.at_warp.push_back(0);
         }
+        for (int w = 0; 128 * w < nt; ++w) {
+          b.wg_live.push_back(static_cast<int>(std::min<long>(128, nt - 128 * w)));
+          b.at_wg.push_back(0);
+        }
         b.xi.assign(nt, 0);
         b.xw.assign(nt, 0);
-        b.xm.assign(10 * nt, 0);
+        b.xd.assign(2 * nt, 0);
+        b.wg_groups.assign(nt, std::vector<std::vector<WgOp>>(1));
         b.dyn.assign(c.smem + 16, 0);
         b.body = [&] { kernel(args...); };
         b.f.resize(nt);
@@ -228,7 +337,8 @@ void launch(K kernel, Cfg c, A... args) {
           makecontext(&x.ctx, trampoline, 0);
         }
         while (b.live > 0) {
-          bool ran = false;
+          bool ran = false, moved = false;
+          const long before = b.progress;
           for (int t = 0; t < b.nt; ++t) {
             if (b.f[t].state != kRun) continue;
             ran = true;
@@ -236,11 +346,19 @@ void launch(K kernel, Cfg c, A... args) {
             tidx = uint3{static_cast<unsigned>(t % c.block.x),
                          static_cast<unsigned>((t / c.block.x) % c.block.y),
                          static_cast<unsigned>(t / (c.block.x * c.block.y))};
+            b.f[t].yielded = false;
             swapcontext(&b.sched, &b.f[t].ctx);
+            moved |= !b.f[t].yielded;
             release(b);
           }
+          const bool landed = !b.copies.empty();
+          land_copies(b);
           if (!ran) {
             std::fprintf(stderr, "emulated block deadlocked: no thread can run\n");
+            std::abort();
+          }
+          if (!moved && !landed && b.progress == before) {
+            std::fprintf(stderr, "emulated block deadlocked: every thread waits on an mbarrier\n");
             std::abort();
           }
         }
@@ -311,11 +429,7 @@ inline int __any_sync(unsigned, int p) {
   __syncwarp();
   return r;
 }
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 for the warp, by
-// the PTX fragment layout (lane l: g = l / 4, t = l % 4; the lower index in
-// the low 16 bits): a[e] holds A row g + 8 (e & 1) at columns
-// 2t + 8 (e >> 1) + {0, 1}; b[e] B rows 2t + 8 e + {0, 1} of column g;
-// d[e] D row g + 8 (e >> 1), column 2t + (e & 1).
+// The kernels' device primitives of Hopper are the stand-ins below.
 #define OCP_MMA_EMULATED 1
 inline float emu_bf16(std::uint32_t h) {
   const std::uint32_t u = (h & 0xffffu) << 16;
@@ -323,38 +437,142 @@ inline float emu_bf16(std::uint32_t h) {
   std::memcpy(&f, &u, 4);
   return f;
 }
-inline void mma_bf16_16816(float d[4], const unsigned a[4], const unsigned b[2]) {
-  const int base = emu::ltid & ~31, lane = emu::ltid & 31;
-  std::uint32_t* const x = emu::blk->xm.data();
-  std::uint32_t* const me = x + 10 * emu::ltid;
-  for (int e = 0; e < 4; ++e) me[e] = a[e];
-  me[4] = b[0];
-  me[5] = b[1];
-  std::memcpy(me + 6, d, 16);
-  __syncwarp();
-  float A[16][16], Bm[16][8], C[16][8];
-  for (int l = 0; l < 32; ++l) {
-    const std::uint32_t* f = x + 10 * (base + l);
-    const int g = l >> 2, t = l & 3;
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e & 1), col = 2 * t + 8 * (e >> 1);
-      A[row][col] = emu_bf16(f[e]);
-      A[row][col + 1] = emu_bf16(f[e] >> 16);
-    }
-    for (int e = 0; e < 2; ++e) {
-      Bm[2 * t + 8 * e][g] = emu_bf16(f[4 + e]);
-      Bm[2 * t + 8 * e + 1][g] = emu_bf16(f[4 + e] >> 16);
-    }
-    for (int e = 0; e < 4; ++e) std::memcpy(&C[g + 8 * (e >> 1)][2 * t + (e & 1)], f + 6 + e, 4);
+// Hopper's asynchronous primitives (sm_90a), for csrc/shared_chunk_tc.cu.
+// A shared address is the offset into the launch's dynamic shared memory.
+inline std::uint32_t smem_addr(const void* p) {
+  const unsigned char* b = emu::blk->dyn.data();
+  const unsigned char* q = static_cast<const unsigned char*>(p);
+  if (q < b || q >= b + emu::blk->dyn.size()) emu::die("shared address outside dynamic shared memory");
+  return static_cast<std::uint32_t>(q - b);
+}
+// mbarrier.init / arrive / arrive.expect_tx / try_wait.parity: the phase
+// completes when its arrivals and its transaction bytes are all in; a wait
+// on a phase that has not completed gives way to the other threads.
+inline void mbar_init(std::uint32_t a, unsigned count) {
+  if (a % 8 != 0 || count < 1) emu::die("mbarrier.init: misaligned or no arrivals");
+  emu::Mbar& m = emu::blk->mbars[a];
+  m = emu::Mbar{static_cast<int>(count), static_cast<int>(count), 0, 0};
+}
+inline void fence_mbar_init() {}
+inline void mbar_arrive(std::uint32_t a) {
+  emu::Mbar& m = emu::mbar_at(a);
+  --m.pending;
+  emu::mbar_settle(m);
+  ++emu::blk->progress;
+}
+inline void mbar_arrive_expect_tx(std::uint32_t a, unsigned bytes) {
+  emu::Mbar& m = emu::mbar_at(a);
+  m.tx += bytes;
+  --m.pending;
+  emu::mbar_settle(m);
+  ++emu::blk->progress;
+}
+inline bool mbar_try_wait(std::uint32_t a, unsigned parity) {
+  if ((emu::mbar_at(a).phase & 1u) != (parity & 1u)) return true;
+  emu::yield();
+  return false;
+}
+// cp.async.bulk global -> shared with complete_tx on the mbarrier: 16-byte
+// aligned, a multiple of 16 bytes; lands when the scheduler's sweep ends.
+inline void bulk_copy_g2s(std::uint32_t dst, const void* src, unsigned bytes, std::uint32_t bar) {
+  if (dst % 16 != 0 || reinterpret_cast<std::uintptr_t>(src) % 16 != 0 || bytes % 16 != 0 || bytes == 0)
+    emu::die("cp.async.bulk: address or size not a multiple of 16 bytes");
+  if (dst + static_cast<size_t>(bytes) > emu::blk->dyn.size()) emu::die("cp.async.bulk: past shared memory");
+  emu::mbar_at(bar);
+  emu::blk->copies.push_back(emu::Copy{dst, src, bytes, bar});
+}
+inline void fence_proxy_async() {}
+// bar.sync id, count: releases once `count` threads wait at it.
+inline void named_sync(int id, int count) {
+  emu::Block& b = *emu::blk;
+  if (id < 0 || id >= emu::kNamed || count < 1 || count % 32 != 0) emu::die("bar.sync: bad barrier or count");
+  if (b.named_count[id] != 0 && b.named_count[id] != count) emu::die("bar.sync: threads disagree on the count");
+  b.named_count[id] = count;
+  emu::park(emu::kAtNamed, id);
+}
+// The warpgroup's 128 threads at one point (wgmma's .sync.aligned).
+inline void wg_sync() { emu::park(emu::kAtWarpgroup); }
+// Element (row, k) of a K-major shared-memory matrix through a wgmma
+// descriptor: start address bits 0-13, leading byte offset (between core
+// matrices along k) bits 16-29, stride byte offset (between 8-row groups)
+// bits 32-45, all in 16-byte units; base offset bits 49-51 and swizzle
+// bits 62-63 must be 0 (no swizzle: core matrices of 8 rows x 16 bytes).
+inline float wgmma_operand(std::uint64_t desc, int row, int k) {
+  const size_t start = (desc & 0x3FFFu) << 4;
+  const size_t lbo = ((desc >> 16) & 0x3FFFu) << 4;
+  const size_t sbo = ((desc >> 32) & 0x3FFFu) << 4;
+  if (((desc >> 49) & 7u) != 0 || ((desc >> 62) & 3u) != 0)
+    emu::die("wgmma: swizzled layouts are not emulated (the kernel uses none)");
+  const size_t off = start + (row >> 3) * sbo + (k >> 3) * lbo + (row & 7) * 16 + (k & 7) * 2;
+  if (off + 2 > emu::blk->dyn.size()) emu::die("wgmma: operand past shared memory");
+  std::uint16_t h;
+  std::memcpy(&h, emu::blk->dyn.data() + off, 2);
+  return emu_bf16(h);
+}
+// A waited-for product: this thread's accumulator registers (rows 16 w + g
+// (+ 8) of A, columns 8 i + 2 t (+ 1) of B) get each k16 dot product, plus
+// the register where the product accumulates (scale-d 1), summed exactly
+// and rounded once to float32.
+inline void wgmma_run(const emu::WgOp& op) {
+  const int w = (emu::ltid >> 5) & 3, lane = emu::ltid & 31, g = lane >> 2, t = lane & 3;
+  for (int e = 0; e < op.regs; ++e) {
+    const int row = 16 * w + g + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * t + (e & 1);
+    double acc = op.acc ? op.d[e] : 0.0;
+    for (int k = 0; k < 16; ++k)
+      acc += static_cast<double>(wgmma_operand(op.da, row, k)) * wgmma_operand(op.db, col, k);
+    op.d[e] = static_cast<float>(acc);
   }
-  __syncwarp();
-  const int g = lane >> 2, t = lane & 3;
-  for (int e = 0; e < 4; ++e) {
-    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
-    double acc = C[row][col];
-    for (int k = 0; k < 16; ++k) acc += static_cast<double>(A[row][k]) * Bm[k][col];
-    d[e] = static_cast<float>(acc);
+}
+inline void wgmma_fence() { wg_sync(); }
+inline void wgmma_commit() {
+  wg_sync();
+  emu::blk->wg_groups[emu::ltid].emplace_back();
+}
+// wgmma.wait_group N: the products of all but the N newest committed
+// groups are carried out now (reading shared memory as it is now).
+template <int N>
+inline void wgmma_wait() {
+  wg_sync();
+  auto& gs = emu::blk->wg_groups[emu::ltid];
+  while (static_cast<int>(gs.size()) - 1 > N) {
+    for (const emu::WgOp& op : gs.front()) wgmma_run(op);
+    gs.erase(gs.begin());
   }
+}
+// wgmma.mma_async m64nNk16 bf16 -> f32 (N = 2 regs), scale-d `acc`:
+// warpgroup-collective, every thread must pass the same descriptors.
+template <int L>
+inline void wgmma_bf16(float (&d)[L], std::uint64_t da, std::uint64_t db, int acc) {
+  static_assert(L == 8 || L == 16, "m64n16k16 or m64n32k16");
+  emu::Block& b = *emu::blk;
+  const int base = emu::ltid & ~127;
+  if (b.wg_live[emu::ltid / 128] != 128) emu::die("wgmma: the warpgroup is not whole");
+  b.xd[2 * emu::ltid] = da;
+  b.xd[2 * emu::ltid + 1] = db;
+  wg_sync();
+  for (int i = 0; i < 128; ++i)
+    if (b.xd[2 * (base + i)] != da || b.xd[2 * (base + i) + 1] != db)
+      emu::die("wgmma: the warpgroup's threads disagree on a descriptor");
+  wg_sync();
+  b.wg_groups[emu::ltid].back().push_back(emu::WgOp{d, L, da, db, acc != 0});
+}
+// setmaxnreg.dec / .inc: warpgroup-collective; registers are not modelled.
+template <int N>
+inline void setmaxnreg_dec() {
+  static_assert(N >= 24 && N <= 256 && N % 8 == 0, "setmaxnreg: 24..256, a multiple of 8");
+  wg_sync();
+}
+template <int N>
+inline void setmaxnreg_inc() {
+  static_assert(N >= 24 && N <= 256 && N % 8 == 0, "setmaxnreg: 24..256, a multiple of 8");
+  wg_sync();
+}
+// cvt.rn.bf16.f32: round to nearest even (a NaN gives a NaN: 0x7fc0 here).
+inline unsigned bf16_bits(float v) {
+  std::uint32_t u;
+  std::memcpy(&u, &v, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
 }
 inline int __all_sync(unsigned, int p) {
   const int base = emu::ltid & ~31;
@@ -444,8 +662,8 @@ import numpy as np
 spec = pickle.load(open(sys.argv[1], "rb"))
 lib = ctypes.CDLL(spec["lib"])
 fn = getattr(lib, spec["symbol"])
-arrs = [np.ascontiguousarray(a) for a in spec["arrays"]]
-ptrs = (ctypes.c_void_p * len(arrs))(*[a.ctypes.data for a in arrs])
+arrs = [None if a is None else np.ascontiguousarray(a) for a in spec["arrays"]]
+ptrs = (ctypes.c_void_p * len(arrs))(*[None if a is None else a.ctypes.data for a in arrs])
 fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * len(spec["ints"])
                + [ctypes.c_double] * len(spec["floats"]) + [ctypes.c_void_p])
 fn.restype = ctypes.c_int
@@ -489,20 +707,33 @@ def emu_lib(tmp_path_factory):
     (inc / "cuda_pipeline.h").write_text(PIPELINE_HEADER)
     (root / "child.py").write_text(CHILD)
     built = {}
+    variants = {}  # name -> (source name, shipped text, variant text)
 
     def get(name):
         if name not in built:
+            base, old, new = variants.get(name, (name, None, None))
+            text = build.SOURCES[base].read_text()
+            if old is not None:
+                assert text.count(old) == 1, f"{old!r} is not in {base} exactly once"
+                text = text.replace(old, new)
             src = root / f"{name}.cpp"
-            src.write_text(_source_for_gxx(build.SOURCES[name].read_text()))
+            src.write_text(_source_for_gxx(text))
             out = root / f"lib{name}.so"
             cmd = [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fno-strict-aliasing", "-fPIC", "-shared",
-                   "-pthread", "-w", "-I", str(inc), "-o", str(out), str(src)]
+                   "-pthread", "-w", "-I", str(inc), "-I", str(build.SOURCES[base].parent),
+                   "-o", str(out), str(src)]
             res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
             assert res.returncode == 0, res.stderr[-4000:]
             built[name] = out
         return built[name]
 
+    def variant(name, base, old, new):
+        """Register ``name``: source ``base`` with ``old`` replaced by ``new``."""
+        variants[name] = (base, old, new)
+        return name
+
     get.root = root
+    get.variant = variant
     return get
 
 
@@ -512,7 +743,11 @@ def _run_entry(emu_lib, lib_name, symbol, tensors, ints, floats):
     root = emu_lib.root
     spec_path = root / f"spec_{os.getpid()}.pkl"
     out_path = root / f"out_{os.getpid()}.pkl"
-    arrays = [t.detach().numpy() for t in tensors]
+    # numpy has no bfloat16: such tensors travel as their int16 bits; None
+    # as a null pointer.
+    bits = [t.view(torch.int16) if t is not None and t.dtype == torch.bfloat16 else t
+            for t in tensors]
+    arrays = [None if t is None else t.detach().numpy() for t in bits]
     with open(spec_path, "wb") as f:
         pickle.dump({"lib": str(emu_lib(lib_name)), "symbol": symbol, "arrays": arrays,
                      "ints": [int(i) for i in ints], "floats": [float(x) for x in floats]}, f)
@@ -525,8 +760,9 @@ def _run_entry(emu_lib, lib_name, symbol, tensors, ints, floats):
     assert res.returncode == 0, res.stderr[-4000:]
     with open(out_path, "rb") as f:
         got = pickle.load(f)
-    for t, a in zip(tensors, got["arrays"]):
-        t.copy_(torch.from_numpy(a))
+    for t, a in zip(bits, got["arrays"]):
+        if t is not None:
+            t.copy_(torch.from_numpy(a))
     return got["rc"]
 
 
@@ -1057,11 +1293,14 @@ def rel_gap(a, b):
 
 
 # (B, n, m, rows, mode, variation).  n=40, m=36: the rhs product's K = m
-# pads to 48, the x and z products' to 48; n=232, m=12: fifteen n8 tiles
-# for a warp's 29 in the x product, two m16 tiles at 32 rows.  Variations:
-# one forced iteration (check_every 1), a forced budget of 10 iterations,
-# converging, four termination groups with one done at entry, a NaN
-# scenario.
+# pads to 48, the x and z products' to 48, their output columns to 64 (one
+# m64 tile: the second warpgroup idles); n=232, m=12: the x product's 232
+# output columns are four m64 tiles (two a warpgroup), zt's K = 232 pads to
+# 240; n=120, m=196 (the main path): 128 and 256 output columns, K = 208 and
+# 128.  Variations: one forced iteration (check_every 1), a forced budget
+# of 10 iterations, converging, four termination groups with one done at
+# entry (at B=96 and 16 rows each group is a block of 16 and a ragged block
+# of 8), a NaN scenario, a ragged last block (B=40 in blocks of 32).
 TC_CASES = [
     (16, 40, 36, 16, "high", "one"),
     (32, 40, 36, 32, "mixed", "one"),
@@ -1071,6 +1310,9 @@ TC_CASES = [
     (16, 40, 36, 16, "high", "nan"),
     (16, 40, 36, 16, "mixed", "nan"),
     (32, 232, 12, 32, "high", "one"),
+    (40, 40, 36, 32, "high", "ragged"),
+    (96, 40, 36, 16, "mixed", "groups"),
+    (32, 120, 196, 32, "high", "one"),
 ]
 
 # Tolerances of the tensor-core form against its plain version, relative to
@@ -1091,16 +1333,16 @@ TC_CHUNK = 5e-4
 TC_CONVERGED = 1e-3
 
 
-@pytest.mark.parametrize("B,n,m,rows,mode,variation", TC_CASES,
-                         ids=[f"B{c[0]}-n{c[1]}-m{c[2]}-rows{c[3]}-{c[4]}-{c[5]}" for c in TC_CASES])
-def test_shared_chunk_tc_emulated_matches_plain(emulate, B, n, m, rows, mode, variation):
+def tc_case(B, n, m, mode, variation):
+    """``(args, kw)`` of a tensor-core case: the fused driver's first chunk
+    of a random shared QP batch, varied as ``TC_CASES`` says."""
     args, kw = shared_chunk_case(B, n, m)
     args = list(args)
     kw = {**kw, "iter_precision": mode}
     if variation == "one":
         kw = {**kw, "eps_abs": 0.0, "eps_rel": 0.0, "check_every": 1}
         args[1] = 1
-    elif variation == "forced":
+    elif variation in ("forced", "ragged"):
         kw = {**kw, "eps_abs": 0.0, "eps_rel": 0.0}
         args[1] = 7
     elif variation == "converging":
@@ -1114,12 +1356,24 @@ def test_shared_chunk_tc_emulated_matches_plain(emulate, B, n, m, rows, mode, va
         args[0] = torch.zeros(B, dtype=torch.bool)
         args[0][B // 2:3 * B // 4] = True
         args[1] = 10
-    out_p = sk.shared_admm_chunk_plain(*args, **kw)
+    return args, kw
+
+
+def run_tc(args, kw, rows):
+    """The tensor-core form through the wrapper's launch path (emulated)."""
     run_kw = {k: v for k, v in kw.items() if k != "iter_precision"}
     B_, n_, m_, bound, done0, cinv = sk._contract(
         *args[:11], args[11], *args[12:], kw["check_every"], kw["batch_tile"])
-    out_k = sk._launch_tc(done0, bound, *args[2:11], cinv, *args[12:], rows, **run_kw,
-                          iter_precision=mode)
+    return sk._launch_tc(done0, bound, *args[2:11], cinv, *args[12:], rows, **run_kw,
+                         iter_precision=kw["iter_precision"])
+
+
+@pytest.mark.parametrize("B,n,m,rows,mode,variation", TC_CASES,
+                         ids=[f"B{c[0]}-n{c[1]}-m{c[2]}-rows{c[3]}-{c[4]}-{c[5]}" for c in TC_CASES])
+def test_shared_chunk_tc_emulated_matches_plain(emulate, B, n, m, rows, mode, variation):
+    args, kw = tc_case(B, n, m, mode, variation)
+    out_p = sk.shared_admm_chunk_plain(*args, **kw)
+    out_k = run_tc(args, kw, rows)
     assert emulate.rcs == [0]
     if variation == "converging":
         assert int((out_k[4] - out_p[4]).abs().max()) <= kw["check_every"]
@@ -1151,29 +1405,144 @@ def test_shared_chunk_tc_emulated_matches_plain(emulate, B, n, m, rows, mode, va
         assert torch.equal(out_k[3], out_p[3])
 
 
+def tc_variant_launch(emu_lib, monkeypatch, lib):
+    """Route the tensor-core form's launches to the emulated library
+    ``lib``; returns the entry points' return codes."""
+    rcs = []
+
+    def fake_launch(label, lib_name, symbol, tensors, ints, floats, dev):
+        assert lib_name == "shared_chunk_tc"
+        rcs.append(_run_entry(emu_lib, lib, symbol, tensors, ints, floats))
+        if rcs[-1] != 0:
+            raise RuntimeError(f"{label} launch failed: cudaError {rcs[-1]}")
+
+    monkeypatch.setattr(sk, "launch_chunk", fake_launch)
+    return rcs
+
+
+@pytest.mark.parametrize("name,old,new", [
+    ("stages2", "constexpr int kRingStages = 5;", "constexpr int kRingStages = 2;"),
+], ids=["stages2"])
+def test_shared_chunk_tc_variant_emulated_matches_plain(emu_lib, monkeypatch, name, old, new):
+    """A variant ``tools/kernel_ablation.py`` times on the card: a ring of
+    two slots (the fewest it runs with; the producer then waits on every
+    slot), held to its plain version like the shipped kernel."""
+    lib = emu_lib.variant(f"shared_chunk_tc_{name}", "shared_chunk_tc", old, new)
+    rcs = tc_variant_launch(emu_lib, monkeypatch, lib)
+    for rows, mode in ((32, "high"), (16, "mixed")):
+        args, kw = tc_case(32, 232, 12, mode, "one") if mode == "high" else \
+            tc_case(16, 40, 36, mode, "forced")
+        out_p = sk.shared_admm_chunk_plain(*args, **kw)
+        out_k = run_tc(args, kw, rows)
+        assert torch.equal(out_k[4], out_p[4]) and torch.equal(out_k[3], out_p[3])
+        gaps = [rel_gap(a, b) for a, b in zip(out_k[:3], out_p[:3])]
+        assert max(gaps) <= (TC_ONE_ITER if mode == "high" else TC_CHUNK), gaps
+    assert rcs == [0, 0]
+
+
+def test_tc_descriptor_stand_in_reads_the_layout_it_is_given(emu_lib, monkeypatch):
+    """The wgmma stand-in is not vacuous: with the descriptors' leading
+    byte offset (between the k halves of a core-matrix pair) doubled, the
+    products read the wrong core matrices and one iteration leaves its
+    plain version far behind the tolerance."""
+    lib = emu_lib.variant("shared_chunk_tc_lbo256", "shared_chunk_tc",
+                          "constexpr unsigned kCoreLbo = 128;", "constexpr unsigned kCoreLbo = 256;")
+    rcs = tc_variant_launch(emu_lib, monkeypatch, lib)
+    args, kw = tc_case(16, 40, 36, "high", "one")
+    out_p = sk.shared_admm_chunk_plain(*args, **kw)
+    out_k = run_tc(args, kw, 16)
+    assert rcs == [0]
+    assert max(rel_gap(a, b) for a, b in zip(out_k[:3], out_p[:3])) > 100 * TC_ONE_ITER
+
+
+@pytest.mark.parametrize("B,n,m,rows,mode", [(64, 40, 36, 16, "mixed"),
+                                              (96, 40, 260, 16, "high")])
+def test_tc_l2_byte_count_is_the_slices_each_open_block_streams(emulate, B, n, m, rows, mode):
+    """The kernel's own count of the bytes its bulk copies bring (asked for
+    with ``l2_bytes``; a launch without it passes a null counter): every
+    thread block of an open group streams the packed slices of each
+    tensor-core product once an iteration.  Four groups, one done at entry;
+    at B=96 in blocks of 16 each group is a block of 16 and a ragged one of
+    8, and zt's operator (260 columns, padded to 320) streams in passes of
+    256 and 64 columns."""
+    args, kw = tc_case(B, n, m, mode, "groups")
+    counter = torch.zeros(1, dtype=torch.int64)
+    run_kw = {k: v for k, v in kw.items() if k != "iter_precision"}
+    _, _, _, bound, done0, cinv = sk._contract(*args, kw["check_every"], kw["batch_tile"])
+    out_k = sk._launch_tc(done0, bound, *args[2:11], cinv, *args[12:], rows, **run_kw,
+                          iter_precision=mode, l2_bytes=counter)
+    assert emulate.rcs == [0]
+    per_iter = sk.tc_operator_slices(args[3]).numel() + sk.tc_operator_slices(args[2]).numel()
+    if mode == "high":
+        per_iter += sk.tc_operator_slices(args[3].T).numel()
+    per_iter *= 2  # bytes of bf16
+    tile = kw["batch_tile"]
+    open_blocks = 3 * -(-tile // rows)
+    assert int(out_k[4].max()) == 10
+    assert int(counter) == open_blocks * 10 * per_iter
+
+
+@pytest.mark.parametrize("K,J", [(196, 120), (120, 196), (37, 300), (12, 232)])
+def test_tc_pack_kernel_matches_tc_operator_slices(emu_lib, K, J):
+    """The entry point's packing kernel lays an operator out bit for bit as
+    its plain version ``tc_operator_slices`` does: the main path's Ab
+    (196 x 120) and Ab^T, an operator of two passes (300 output columns:
+    256 and 64), and one whose k pads from 12 to 16."""
+    w = torch.as_tensor(np.random.default_rng(K + J).normal(size=(K, J)), dtype=torch.float32)
+    w[0, 0] = float("nan")
+    want = sk.tc_operator_slices(w)
+    out = torch.zeros_like(want)
+    rc = _run_entry(emu_lib, "shared_chunk_tc", "ocp_shared_tc_pack_f32", [w, out], (K, J), ())
+    assert rc == 0
+    # A NaN's bits are not specified (torch's CPU conversion gives 0xffff
+    # here, the emulated cvt.rn 0x7fc0): NaN where NaN, every other half
+    # bitwise.
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(out), nan) and bool(nan.any())
+    assert torch.equal(out.view(torch.int16)[~nan], want.view(torch.int16)[~nan])
+
+
 @pytest.fixture(scope="module")
-def tc_stage_rows(emu_lib):
-    """The C entry point's ``ocp_shared_tc_stage_rows``."""
-    fn = ctypes.CDLL(str(emu_lib("shared_chunk"))).ocp_shared_tc_stage_rows
-    fn.argtypes = [ctypes.c_int] * 3
-    return fn
+def tc_layout(emu_lib):
+    """The C entry point's ``ocp_shared_tc_layout``: ``(rows, n, m, mode) ->
+    (ring slots, slot bytes, FP32 slice rows, shared memory bytes)`` or
+    ``None`` where the block does not fit."""
+    fn = ctypes.CDLL(str(emu_lib("shared_chunk_tc"))).ocp_shared_tc_layout
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+
+    def get(rows, n, m, mode):
+        out = (ctypes.c_longlong * 4)()
+        return tuple(out) if fn(rows, n, m, mode, out) == 0 else None
+
+    return get
 
 
 @pytest.mark.parametrize("n,m", [(120, 196), (160, 236), (40, 36), (232, 12), (600, 1200)])
-def test_tc_block_rows_rule_takes_only_shapes_the_entry_point_takes(tc_stage_rows, n, m):
-    """The tensor-core form's block-shape rule (its split panel in the
-    per-row bytes) agrees with the C entry point: a shape it picks fits
-    there, and it raises only where not even 16 rows fit.  At the main
-    path's n=120, m=196 (B=4096) it takes 32 rows with slices of 32
-    operator rows (224,896 of 232,448 bytes), at the augmented n=160,
-    m=236 32 rows with slices of 16."""
+def test_tc_block_rows_rule_takes_only_shapes_the_entry_point_takes(tc_layout, n, m):
+    """The tensor-core form's block-shape rule (its split panel and two
+    ring slots in the bytes, ``tc_block_bytes``) agrees with the C entry
+    point: a shape it picks fits there in both modes, and it raises only
+    where not even 16 rows fit.  At the main path's n=120, m=196 (B=4096)
+    it takes 32 rows with five ring slots of 16 KiB at "high" and FP32
+    slices of 32 rows in the ring (230,656 bytes with the static results),
+    at "mixed" five slots of 8 KiB and FP32 slices of 16 rows beside them;
+    at the augmented n=160, m=236 32 rows with two slots of 16 KiB at
+    "high" and three of 12 KiB at "mixed"."""
     try:
         rows = sk.shared_block_rows(4096, 4096, n, m, 132, tensor_cores=True)
     except ValueError:
-        assert tc_stage_rows(16, n, m) == -1
+        assert tc_layout(16, n, m, 1) is None
         return
-    assert tc_stage_rows(rows, n, m) >= 0
+    for mode in (1, 2):
+        lay = tc_layout(rows, n, m, mode)
+        assert lay is not None and lay[3] + 5 * rows * 4 <= sk.SMEM_LIMIT
+    assert tc_layout(rows, n, m, 1)[0] >= sk.TC_MIN_STAGES
+    assert sk.tc_block_bytes(rows, n, m) <= sk.SMEM_LIMIT
     if (n, m) == (120, 196):
-        assert (rows, tc_stage_rows(rows, n, m)) == (32, 32)
+        assert rows == 32
+        assert tc_layout(32, n, m, 1) == (5, 16384, 32, 230656 - 640)
+        assert tc_layout(32, n, m, 2)[:3] == (5, 8192, 16)
     if (n, m) == (160, 236):
-        assert (rows, tc_stage_rows(rows, n, m)) == (32, 16)
+        assert rows == 32
+        assert tc_layout(32, n, m, 1)[:2] == (2, 16384)
+        assert tc_layout(32, n, m, 2)[:2] == (3, 12288)

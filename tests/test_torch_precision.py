@@ -158,38 +158,44 @@ def test_fused_gemm_keeps_jax_zt_precision(monkeypatch):
 
 
 def test_mma_fragments_follow_the_ptx_layout():
-    """``mma_fragments`` holds each operator entry at the B-fragment place
-    of ``mma.sync.aligned.m16n8k16.row.col`` (lane l: column l // 4, rows
-    2 (l % 4) + {0, 1} in word 0 and + {8, 9} in word 1, the lower row in
-    the low half; hi's words, then lo's): rebuilt from the words, hi and lo
-    are ``split_bf16`` of the zero-padded operator."""
-    w = torch.as_tensor(np.random.default_rng(3).normal(size=(37, 21)), dtype=torch.float32)
-    f = sk.mma_fragments(w)
-    assert f.shape == (3, 3, 32, 4) and f.dtype == torch.int32
-    vals = f.contiguous().view(torch.bfloat16).float().reshape(3, 3, 32, 2, 2, 2)
-    hi, lo = torch.zeros(48, 24), torch.zeros(48, 24)
-    for nt in range(3):
-        for kt in range(3):
-            for lane in range(32):
-                g, t = divmod(lane, 4)
-                for part, dst in ((0, hi), (1, lo)):
-                    for half in range(2):
-                        for pair in range(2):
-                            dst[16 * kt + 8 * half + 2 * t + pair, 8 * nt + g] = \
-                                vals[nt, kt, lane, part, half, pair]
-    wp = torch.zeros(48, 24)
-    wp[:37, :21] = w
+    """``tc_operator_slices`` holds each operator entry where the
+    tensor-core kernel's matrix descriptors read it: ``A[j, k] = w[k, j]``
+    in K-major core matrices of 8 rows by 8 k (16 bytes a row), the k
+    halves of a row group 128 bytes apart and the row groups 256 bytes
+    apart, one k16 slice (hi, then lo) after another, in passes of 256
+    output columns; rebuilt from the flat values, hi and lo are
+    ``split_bf16`` of the zero-padded operator."""
+    w = torch.as_tensor(np.random.default_rng(3).normal(size=(37, 300)), dtype=torch.float32)
+    flat = sk.tc_operator_slices(w)
+    Kp, Jp = 48, 320  # 37 -> 48, 300 -> 320: passes of 256 and 64 columns
+    assert flat.dtype == torch.bfloat16 and flat.shape == (2 * Kp * Jp,)
+    vals = flat.float()
+    hi, lo = torch.zeros(Kp, Jp), torch.zeros(Kp, Jp)
+    off = 0
+    for p0, W in ((0, 256), (256, 64)):
+        for s_ in range(Kp // 16):
+            for part, dst in ((0, hi), (1, lo)):
+                for j in range(W):
+                    for k in range(16):
+                        at = off + part * W * 32 + (j // 8) * 256 + (k // 8) * 128 \
+                            + (j % 8) * 16 + (k % 8) * 2
+                        dst[16 * s_ + k, p0 + j] = vals[at // 2]
+            off += W * 16 * 2 * 2  # bytes of the slice: hi and lo
+    wp = torch.zeros(Kp, Jp)
+    wp[:37, :300] = w
     h, lo_ = sk.split_bf16(wp)
     assert torch.equal(hi, h) and torch.equal(lo, lo_)
 
 
 def test_tc_block_rows_rule():
     """The tensor-core form holds 16 or 32 scenarios a block, its split
-    panel in the budget: 32 at the main path's B=4096, n=120, m=196 (and
-    at the augmented n=160, m=236), 16 at the B=64 latency batch."""
+    panel and two ring slots in the budget: 32 at the main path's B=4096,
+    n=120, m=196 (and at the augmented n=160, m=236), 16 at the B=64
+    latency batch."""
     assert sk.shared_block_rows(4096, 4096, 120, 196, 132, tensor_cores=True) == 32
     assert sk.shared_block_rows(4096, 4096, 160, 236, 132, tensor_cores=True) == 32
     assert sk.shared_block_rows(64, 64, 120, 196, 132, tensor_cores=True) == 16
-    assert sk.tc_split_floats(120, 196) == 216
+    assert sk.tc_split_floats(120, 196) == 208
+    assert sk.tc_block_bytes(32, 120, 196) == 128 + 2 * 16384 + 26624 + 121344 + 640
     with pytest.raises(ValueError, match="16 scenarios"):
         sk.shared_block_rows(64, 64, 1200, 1960, 132, tensor_cores=True)
