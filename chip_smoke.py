@@ -103,7 +103,17 @@ Phases:
      the device loop); 5k. the parity oracle (f64 derivatives, native C++
      QPs) against the port's product loop on the card, double integrator
      and cart-pole; 5l. ``TpuQP`` solves on the card; 5m. an
-     ``export_solver``/``import_solver`` round trip on the card;
+     ``export_solver``/``import_solver`` round trip of a toy solve
+     (``toy_export_job``), then the batched kernel ticks exported and
+     reloaded (``export_job``), all in three worker processes on the card
+     started before phase 5, each batched solve cut
+     to ``EXPORT_STEPS`` SQP steps): cart-pole h20 banded B=1024 (B1), the
+     quadrotor h100 B=64 with "thomas" (B2) and "cr" (B4), the double
+     integrator B=4096 "pallas" at "highest" and "high" (B3 in both forms)
+     and the dense cart-pole B=256 "pallas" (B5); each loaded tick from
+     phase 4's state gives the direct tick's QP iterations exactly and its
+     plan within 1e-5, holds its kernel's op node and raises the kernel
+     counters as the direct tick does;
   6. time each kernel at its main path's own inputs beside its plain
      version and its bound, the banded ones with their prologue and the
      mean and largest iteration count per launch (the rolled one also
@@ -120,7 +130,8 @@ Phases:
      cold and steady ticks, the shared chunk on the augmented double
      integrator's steady tick; the tensor-core form on 4i's steady ticks,
      beside its plain version and a loop of torch.matmul bf16_3x
-     products);
+     products); and each kernel's custom op against its direct ctypes
+     launch on one recorded call: the op's dispatch overhead a launch;
   7. the multi-device paths of ``parallel/`` on the card (see ``phase7``):
      ``DistributedSolver`` in-process over the cart-pole B=1024 batch
      (kernel B1), ``HorizonShardedSolver`` on the cart-pole YAML h20 over
@@ -136,6 +147,7 @@ The line before the last is the ``kernels`` JSON record; the last line is
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import os
@@ -217,6 +229,12 @@ DENSE_ADMM = {
     "adaptive_rho": False,
     "rho": 0.05,
 }
+
+
+# Phase 5m exports the batched ticks with their SQP steps cut to this many
+# (the trace unrolls the step loop: host time grows with it); the ticks it
+# compares are of that solve, direct and reloaded.
+EXPORT_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -469,6 +487,150 @@ def closed_loop(device):
         states.append(np.r_[pos, vel])
         us.append(u)
     return np.array(errs), np.array(states), np.array(us), time.perf_counter() - t0
+
+
+def export_job(case):
+    """Phase 5m's round trip of one batched solve, in a worker process on
+    the card: ``models.<model>.build(cfg)``'s batch function exported by
+    ``export_solver`` at the tick's inputs (``case``: the frames,
+    references and the phase 4 state it ticks from, numpy), saved, reloaded
+    by ``import_solver``; then the direct tick and the loaded program's tick
+    from that state, the kernels' launch counters reset before each and
+    read after, and ``reps`` more of each, interleaved, for their ms.
+    Returns what phase 5m checks and logs."""
+    import importlib
+
+    import torch
+
+    from optimal_control_problem_tpu_torch.ops import admm_kernel as ak
+    from optimal_control_problem_tpu_torch.ops import banded_cr_kernel as bck
+    from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
+    from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
+    from optimal_control_problem_tpu_torch.ops import shared_kernel as sk
+    from optimal_control_problem_tpu_torch.parallel import BatchedSolver
+    from optimal_control_problem_tpu_torch.utils.serialization import (
+        export_program,
+        import_solver,
+    )
+
+    counted = ((bk.banded_admm_chunk, "launches"), (brk.banded_admm_chunk_rolled, "launches"),
+               (bck.banded_admm_chunk_cr, "launches"), (sk.shared_admm_chunk, "launches"),
+               (sk.shared_admm_chunk, "tc_launches"), (ak.admm_device_loop, "launches"))
+
+    def launches(run):
+        for fn, attr in counted:
+            setattr(fn, attr, 0)
+        out = run()
+        torch.cuda.synchronize()
+        return out, {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counted}
+
+    t_job = time.perf_counter()
+    mod = importlib.import_module(f"optimal_control_problem_tpu_torch.models.{case['model']}")
+    ocp = mod.build(case["cfg"], **case["build_kw"], device="cuda")
+    if "iter_precision" in case:  # not a key of the configuration: set, then generate again
+        ocp.solver_settings.admm = ocp.solver_settings.admm.replace(
+            iter_precision=case["iter_precision"])
+        ocp.gen_solver()
+    solver = BatchedSolver(ocp)
+    dev = solver.device
+    fr = torch.as_tensor(case["frames"], device=dev)
+    B, fs = fr.shape[0], solver.frame_size
+    lbx = solver._lbx_tail.expand(B, -1).clone()
+    ubx = solver._ubx_tail.expand(B, -1).clone()
+    lbx[:, :fs] = fr
+    ubx[:, :fs] = fr
+    x, qp_x, qp_y = (torch.as_tensor(a, device=dev) for a in case["state"])
+    args = (x, torch.as_tensor(case["refs"], device=dev), lbx, ubx,
+            solver._lbg.expand(B, -1).contiguous(), solver._ubg.expand(B, -1).contiguous(),
+            qp_x, qp_y)
+    fn = solver._solve_batch
+    t0 = time.perf_counter()
+    program = export_program(fn, args)
+    t_trace = time.perf_counter() - t0
+    nodes = {}
+    for gname, gm in program.graph_module.named_modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                if str(node.target).startswith("ocp_torch."):
+                    key = f"{gname or 'top'}:{str(node.target).split('.')[1]}"
+                    nodes[key] = nodes.get(key, 0) + 1
+    torch.export.save(program, case["path"])
+    t0 = time.perf_counter()
+    loaded = import_solver(case["path"])
+    t_load = time.perf_counter() - t0
+    direct, n_direct = launches(lambda: fn(*args))
+    out, n_loaded = launches(lambda: loaded(*args))
+    # One more tick of each under torch.profiler: the device's kernel time
+    # against the tick's wall time (the rest is the host's share).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = {}
+    for which, run in (("direct", lambda: fn(*args)), ("loaded", lambda: loaded(*args))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                     if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+        busy[which] = (dev_ms, wall)
+    ms = {"direct": [], "loaded": []}
+    for _ in range(case["reps"]):
+        for which, run in (("direct", lambda: fn(*args)), ("loaded", lambda: loaded(*args))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms[which].append((time.perf_counter() - t0) * 1e3)
+    return {
+        "trace_s": t_trace, "load_s": t_load, "bytes": os.path.getsize(case["path"]),
+        "nodes": nodes, "n_direct": n_direct, "n_loaded": n_loaded,
+        "iters_equal": bool(torch.equal(direct.qp_iters, out[5])),
+        "qp_iters": direct.qp_iters.float().mean().item(),
+        "gap": float((direct.x - out[0]).abs().max()),
+        "qp_x_gap": float((direct.qp_x - out[2]).abs().max()),
+        "device": str(out[0].device), "finite": bool(torch.isfinite(out[0]).all()),
+        "direct_ms": statistics.median(ms["direct"]),
+        "loaded_ms": statistics.median(ms["loaded"]), "job_s": time.perf_counter() - t_job,
+        "device_ms": {k: v[0] for k, v in busy.items()},
+        "profiled_ms": {k: v[1] for k, v in busy.items()},
+    }
+
+
+def toy_export_job(path):
+    """Phase 5m's first round trip, in a worker process on the card: the
+    dense SQP solve of tests/test_serialization.py (2 SQP steps here, 5
+    there), exported on CUDA tensors to ``path``, reloaded, and called
+    beside the direct call on the same inputs."""
+    import torch
+
+    from optimal_control_problem_tpu_torch import SQPOptimizationSolver, SQPOptions
+    from optimal_control_problem_tpu_torch import sym as S
+    from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
+    from optimal_control_problem_tpu_torch.utils.serialization import (
+        export_solver,
+        import_solver,
+    )
+
+    xs_ = S.sym("x", 2)
+    solver = SQPOptimizationSolver(
+        {"x": xs_, "f": xs_[0] ** 2 + xs_[1] ** 2, "g": xs_[0] + xs_[1] - 1.0},
+        SQPOptions(max_iter=2, alpha=0.5, admm=ADMMSettings(eps_abs=1e-4, eps_rel=1e-4)),
+        device="cuda")
+    c32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    args = (c32([0.3, -0.2]), c32(np.zeros(0)), c32([-50.0, -100.0]), c32([50.0, 100.0]),
+            c32([0.0]), c32([0.0]), c32(np.zeros(2)), c32(np.zeros(3)))
+    t0 = time.perf_counter()
+    export_solver(solver.solve_fn, args, path)
+    t_trace = time.perf_counter() - t0
+    direct = solver.solve_fn(*args)
+    loaded = import_solver(path)(*args)
+    torch.cuda.synchronize()
+    return {"trace_s": t_trace, "bytes": os.path.getsize(path), "device": str(loaded[0].device),
+            "gap": float((direct.x - loaded[0]).abs().max()),
+            "iters_equal": bool(torch.equal(direct.qp_iters, loaded[5]))}
 
 
 def _cpu_worker(todo, done, threads):
@@ -1744,6 +1906,9 @@ def main(argv) -> int:
     refs = np.full((Bm, 1), np.pi, np.float32)
     state, launches = drive(solver, frames, refs, ticks, f"phase 4 cart-pole h20 B={Bm}",
                             (step_num * ticks, 0, 0, 0, 0))
+    # Phase 5m's solves tick from the states phase 4 leaves: (config,
+    # frames, references, state) by kernel.
+    export_from = {"B1": (cfg, frames, refs, state)}
     # One more tick records the chunk inputs the main path produces.
     record(lambda: solver.solve(frames, refs, state))
     sync()
@@ -1797,6 +1962,7 @@ def main(argv) -> int:
         if Bq == 64:
             record(lambda: qsolver.solve(qfr, qrf, qstate))
             sync()
+            export_from["B2"] = (qcfg, qfr, qrf, qstate)
     if len(captured["banded_admm_chunk_rolled"]) != q_steps or len(
             captured["banded_admm_chunk"]) != step_num:
         raise SystemExit("phase 4/4b: the recorded ticks did not go through the expected kernels")
@@ -2021,6 +2187,8 @@ def main(argv) -> int:
         qcfg, qfr, qrf = quad_case(Bq, admm=QUAD_CR_ADMM)
         crs = BatchedSolver(quadrotor.build(qcfg, stagewise=True, device="cuda"))
         cr_state, n = drive(crs, qfr, qrf, q_ticks, label, (0, 0, 0, 0, q_steps * q_ticks))
+        if Bq == 64:
+            export_from["B4"] = (qcfg, qfr, qrf, cr_state)
         cr_launches += n
         # One more tick records the chunk inputs of a steady-state tick.
         record(lambda: crs.solve(qfr, qrf, cr_state))
@@ -2224,6 +2392,50 @@ def main(argv) -> int:
                               "highest_ms_per_tick": statistics.median(hi_ms[warm:]),
                               "qp_iters": it_t[-1], "highest_qp_iters": it_h[-1]}
 
+    # -- 5m, started here: export round trips -------------------------------
+    # A toy solve (toy_export_job), then the batched kernel ticks: each
+    # solve's trace, reload and ticks run in a worker process on the card
+    # (export_job) while phases 5-5l run here: a trace is host work, tens of
+    # seconds a solve.  Read after 5l.
+    e_dir = os.path.join(HERE, "build")  # git-ignored, inside the checkout
+    os.makedirs(e_dir, exist_ok=True)
+
+    def cut_steps(cfg_):
+        cfg_ = copy.deepcopy(cfg_)
+        cfg_["solver_settings"]["SQP_settings"]["step_num"] = EXPORT_STEPS
+        return cfg_
+
+    # label: (model, config, frames, references, phase 4 state, build
+    # keywords, kernel counter the loaded tick must raise).
+    export_cases = {
+        f"B1 cart-pole h20 banded B={Bm}": (
+            "cartpole", *export_from["B1"], dict(stagewise=True), "banded_admm_chunk.launches"),
+        "B2 quadrotor h100 banded B=64": (
+            "quadrotor", *export_from["B2"], dict(stagewise=True),
+            "banded_admm_chunk_rolled.launches"),
+        "B4 quadrotor h100 banded_solver=cr B=64": (
+            "quadrotor", *export_from["B4"], dict(stagewise=True),
+            "banded_admm_chunk_cr.launches"),
+        f"B3 double integrator h20 B={B_di} iter_precision=highest": (
+            "double_integrator", di_config("pallas"), di_frames, di_refs, di_state, {},
+            "shared_admm_chunk.launches"),
+        f"B3 double integrator h20 B={B_di} iter_precision=high": (
+            "double_integrator", di_config("pallas"), di_frames, di_refs, di_state, {},
+            "shared_admm_chunk.tc_launches"),
+        f"B5 cart-pole h20 dense B={B_cd}": (
+            "cartpole", cd_config("pallas"), cd_frames, cd_refs, cd_state,
+            dict(stagewise=False), "admm_device_loop.launches"),
+    }
+    export_jobs = [(export_job, (dict(
+        model=model, cfg=cut_steps(cfg_), frames=fr, refs=rf,
+        state=tuple(t.cpu().numpy() for t in (st_.x, st_.qp_x, st_.qp_y)), build_kw=kw_,
+        path=os.path.join(e_dir, f"chip_smoke_export_{i}.pt2"), reps=3,
+        **({"iter_precision": "high"} if counter.endswith("tc_launches") else {})),))
+        for i, (model, cfg_, fr, rf, st_, kw_, counter) in enumerate(export_cases.values())]
+    toy_job = (toy_export_job, (os.path.join(e_dir, "chip_smoke_solver.pt2"),))
+    t_5m = time.perf_counter()
+    export_wait = process_map([toy_job] + export_jobs, workers=3, threads=1)
+
     # -- 5. card vs CPU ---------------------------------------------------
     # The CPU sides (the plain kernels, host-bound: seconds to a minute and
     # a half each) run in worker processes while the card's sides run here;
@@ -2342,7 +2554,6 @@ def main(argv) -> int:
     # -- 5j. the host side: MIXED, the parity oracle, TpuQP, export ----------
     from optimal_control_problem_tpu_torch.solvers import oracle
     from optimal_control_problem_tpu_torch.solvers.qp_interface import TpuQP
-    from optimal_control_problem_tpu_torch.utils.serialization import export_solver, import_solver
 
     # MIXED on the dense cart-pole h20 (the JAX bench's cartpole_h20_pallas
     # settings, one scenario): tick 1 on the host backend (scipy over
@@ -2421,44 +2632,46 @@ def main(argv) -> int:
     if not tqp_gap <= 2e-3:
         raise SystemExit("phase 5l: TpuQP's solution is wrong")
 
-    # export_solver / import_solver on the card: the dense SQP solve of
-    # tests/test_serialization.py (2 SQP steps here, 5 there: the trace
-    # runs on the host, ~15 s a step on that machine), traced on CUDA
-    # tensors; the reloaded program equals the direct call to 1e-6.
-    from optimal_control_problem_tpu_torch import SQPOptimizationSolver, SQPOptions
-    from optimal_control_problem_tpu_torch import sym as S
-
-    xs_ = S.sym("x", 2)
-    e_solver = SQPOptimizationSolver(
-        {"x": xs_, "f": xs_[0] ** 2 + xs_[1] ** 2, "g": xs_[0] + xs_[1] - 1.0},
-        SQPOptions(max_iter=2, alpha=0.5, admm=ADMMSettings(eps_abs=1e-4, eps_rel=1e-4)),
-        device="cuda")
-    c32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
-    e_args = (c32([0.3, -0.2]), c32(np.zeros(0)), c32([-50.0, -100.0]), c32([50.0, 100.0]),
-              c32([0.0]), c32([0.0]), c32(np.zeros(2)), c32(np.zeros(3)))
-    e_dir = os.path.join(HERE, "build")  # git-ignored, inside the checkout
-    os.makedirs(e_dir, exist_ok=True)
-    e_path = os.path.join(e_dir, "chip_smoke_solver.pt2")
+    # The batched kernel ticks, exported and reloaded in the workers started
+    # before phase 5: each loaded tick from phase 4's state gives the direct
+    # tick's QP iterations exactly and its plan within 1e-5, holds its
+    # kernel's op node and raises the kernel's counter as the direct tick
+    # does (every counter equal; the banded ones by one launch a step).
     t0 = time.perf_counter()
-    export_solver(e_solver.solve_fn, e_args, e_path)
-    t_export = time.perf_counter() - t0
-    loaded = import_solver(e_path)
-    e_direct = e_solver.solve_fn(*e_args)
-    e_loaded = loaded(*e_args)
-    sync()
-    e_gap = float((e_direct.x - e_loaded[0]).abs().max())
-    log(f"phase 5m export_solver/import_solver on the card: traced in {t_export:.1f} s, "
-        f"{os.path.getsize(e_path)} bytes, loaded program on {e_loaded[0].device}; max |direct "
-        f"- loaded| {e_gap:.3g} (limit 1e-6), qp_iters equal: "
-        f"{torch.equal(e_direct.qp_iters, e_loaded[5])}")
-    if not (e_gap <= 1e-6 and e_loaded[0].device.type == "cuda"):
+    toy, *export_results = export_wait()
+    t_wait = time.perf_counter() - t0
+    log(f"phase 5m export_solver/import_solver on the card: traced in {toy['trace_s']:.1f} s, "
+        f"{toy['bytes']} bytes, loaded program on {toy['device']}; max |direct - loaded| "
+        f"{toy['gap']:.3g} (limit 1e-6), qp_iters equal: {toy['iters_equal']}")
+    if not (toy["gap"] <= 1e-6 and toy["device"].startswith("cuda")):
         raise SystemExit("phase 5m: the exported solve differs from the direct call")
-    try:
-        export_solver(cd_pallas.solver.solve_fn, e_args, e_path + ".refused")
-    except ValueError as err:
-        log(f"phase 5m: export of a kernel path refused: {err}")
-    else:
-        raise SystemExit("phase 5m: export_solver traced a path that reaches a hand kernel")
+    for (label, case), r in zip(export_cases.items(), export_results):
+        counter = case[-1]
+        kernel = counter.split(".")[0]
+        n_kernel = r["n_loaded"][counter]
+        per_step = kernel.startswith("banded")
+        counts_ok = r["n_loaded"] == r["n_direct"] and (
+            n_kernel == EXPORT_STEPS if per_step else n_kernel >= EXPORT_STEPS)
+        held = any(k.endswith(f":{kernel}") for k in r["nodes"])
+        log(f"phase 5m {label} ({EXPORT_STEPS} SQP steps): traced in {r['trace_s']:.1f} s, "
+            f"{r['bytes']} bytes, loaded in {r['load_s']:.1f} s; op nodes {r['nodes']}; "
+            f"loaded tick on {r['device']}: {counter} {n_kernel} (direct tick "
+            f"{r['n_direct'][counter]}; all counters equal: {r['n_loaded'] == r['n_direct']}), "
+            f"qp_iters equal {r['iters_equal']} (mean {r['qp_iters']:.1f}), max |direct - "
+            f"loaded| plan {r['gap']:.3g}, QP primal {r['qp_x_gap']:.3g} (limit 1e-5); "
+            f"ms/tick direct {r['direct_ms']:.3f}, loaded {r['loaded_ms']:.3f} (median of 3, "
+            f"interleaved; worker beside phase 5); one profiled tick: device kernel time "
+            f"direct {r['device_ms']['direct']:.3f} of {r['profiled_ms']['direct']:.3f} ms, "
+            f"loaded {r['device_ms']['loaded']:.3f} of {r['profiled_ms']['loaded']:.3f} ms "
+            f"(host share {1 - r['device_ms']['loaded'] / r['profiled_ms']['loaded']:.3f}); "
+            f"job {r['job_s']:.1f} s")
+        if not (held and counts_ok and r["iters_equal"] and r["gap"] <= 1e-5 and r["finite"]
+                and r["device"].startswith("cuda")):
+            raise SystemExit(f"phase 5m {label}: the loaded program differs from the direct "
+                             "tick or did not launch its kernel")
+    log(f"phase 5m: the toy and the {len(export_results)} batched exports took "
+        f"{time.perf_counter() - t_5m:.1f} s from their start before phase 5 (3 worker "
+        f"processes); waited here {t_wait:.1f} s")
 
     # -- 6. kernel timing at the main paths' inputs ------------------------
     def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces, calls=None):
@@ -2927,6 +3140,69 @@ def main(argv) -> int:
     row5.update({f"b8_{k}": cr_rows[8][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "rolled_same_inputs_ms", "prologue_ms",
         "mean_it_inc", "max_it_inc")})
+
+    # The custom ops' dispatch: each kernel's op against its direct ctypes
+    # launch (the module's kernel path, which the op's CUDA implementation
+    # calls) on one recorded main-path call.  The host time of the call,
+    # which returns once the launch is enqueued (synchronised before and
+    # after, outside the timed span), interleaved, median of 30 each; the
+    # difference is the op's per-launch overhead.
+    def host_us(calls, reps=30):
+        out = {k: [] for k in calls}
+        for _ in range(reps):
+            for k, fn in calls.items():
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                sync()
+                out[k].append((t1 - t0) * 1e6)
+        return {k: statistics.median(v) for k, v in out.items()}
+
+    def banded_pair(name, mod, args, kw):
+        ts = bk.chunk_tensors(*args)
+        inputs, dims = bk.chunk_contract(name, *ts, kw["check_every"])
+        sc = bk.chunk_scalars(*(kw[k] for k in ("interval", "check_every", "max_iter", "sigma",
+                                                 "alpha", "eps_abs", "eps_rel")))
+        sc += (kw["cr1"],) if "cr1" in kw else ()
+        op = getattr(torch.ops.ocp_torch, name)
+        return lambda: op(inputs, *sc), lambda: mod._launch(inputs, dims, *sc)
+
+    def shared_pair(args, kw):
+        _, _, _, bound_, done_, cinv_ = sk._contract(*args, kw["check_every"], kw["batch_tile"])
+        rest = (*args[2:11], cinv_, *args[12:])
+        sc = (kw["check_every"], float(kw["sigma"]), float(kw["alpha"]), float(kw["eps_abs"]),
+              float(kw["eps_rel"]), kw["batch_tile"])
+        launch = sk._launch if kw["iter_precision"] == "highest" else sk._launch_tc
+        run_kw = {k: v for k, v in kw.items() if k != "iter_precision"}
+        bound_t = torch.tensor(bound_)
+        return (lambda: torch.ops.ocp_torch.shared_admm_chunk(
+                    done_, bound_t, *rest, *sc, kw["iter_precision"], None),
+                lambda: launch(done_, bound_, *rest, None, **run_kw,
+                               iter_precision=kw["iter_precision"]))
+
+    def loop_pair(args, kw):
+        sc = tuple(float(v) for v in args[10:14])
+        return (lambda: torch.ops.ocp_torch.admm_device_loop(
+                    *args[:10], *sc, args[14], args[15], kw["max_iter"], kw["check_every"]),
+                lambda: ak._launch(*args, kw["max_iter"], kw["check_every"]))
+
+    dispatch_cases = (
+        (row1, banded_pair("banded_admm_chunk", bk, *captured["banded_admm_chunk"][0])),
+        (row2, banded_pair("banded_admm_chunk_rolled", brk,
+                           *captured["banded_admm_chunk_rolled"][0])),
+        (row3, shared_pair(*scalls[0])),
+        *((r_, shared_pair(*d_["calls"][0])) for r_, d_ in zip(tc_rows, tc_rows_data.values())),
+        (row4, loop_pair(*cd_steady[0])),
+        (row5, banded_pair("banded_admm_chunk_cr", bck, *cr_calls[64][0])),
+    )
+    for row, (via_op, direct) in dispatch_cases:
+        us = host_us({"op": via_op, "direct": direct})
+        row.update(op="ocp_torch::" + row["name"].split("[")[0], op_host_us=us["op"],
+                   direct_host_us=us["direct"], dispatch_us=us["op"] - us["direct"])
+        log(f"phase 6: {row['name']} through its op {row['op']}: {us['op']:.1f} us of host "
+            f"time a launch, the direct ctypes launch {us['direct']:.1f} us: dispatch "
+            f"{us['op'] - us['direct']:.1f} us a launch (kernel {row['ms'] * 1e3:.1f} us)")
 
     # -- 7. the multi-device paths on the card ----------------------------
     t0 = time.perf_counter()

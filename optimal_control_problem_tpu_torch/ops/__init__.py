@@ -14,4 +14,11 @@ shared-operator chunk of the LTI path, ``shared_kernel.shared_admm_chunk``
 (``backend="pallas"`` of ``solvers/admm_batched.py``); and the dense
 per-scenario device loop, ``admm_kernel.admm_device_loop``
 (``backend="pallas"`` of ``solvers/admm.py``).
+
+Importing this package registers each kernel as a custom op,
+``torch.ops.ocp_torch.<wrapper name>`` (the five modules below), which
+``torch.export`` programs of the solves hold (``utils/serialization``).
 """
+
+from . import admm_kernel, banded_cr_kernel, banded_kernel, banded_rolled_kernel  # noqa: F401
+from . import shared_kernel  # noqa: F401

@@ -23,7 +23,9 @@ kernel's, not the ``"xla"`` loop's: an f32 inverse (and a Hessian from
 ``torch.func``) need not be exactly symmetric, so ``rhs @ OP`` and
 ``OP @ rhs`` differ.
 
-:func:`admm_device_loop` is the wrapper: for CUDA tensors it launches the
+:func:`admm_device_loop` is the wrapper: it checks the call and runs the
+custom op ``torch.ops.ocp_torch.admm_device_loop``, one node of known
+output shapes to ``torch.export``.  For CUDA tensors the op launches the
 hand-written kernel ``csrc/admm_device_loop.cu`` (built by ``nvcc`` at
 first use; one thread block per scenario) and counts the launch in
 ``admm_device_loop.launches``.  :func:`kernel_tier` picks where the
@@ -48,11 +50,13 @@ FMA contraction off), so they round alike and agree bitwise.
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import torch
+from torch import Tensor
 
 from ..device import as_tensors
-from .banded_kernel import _check, launch_chunk, refuse_export
+from .banded_kernel import _check, launch_chunk
 from .build import load_library
 
 __all__ = [
@@ -194,7 +198,8 @@ def admm_device_loop(
     x0, y0, max_iter: int = 10000, check_every: int = 25, *, device=None,
 ):
     """Run the dense device loop for a batch of QPs; same contract as
-    :func:`admm_device_loop_plain`.
+    :func:`admm_device_loop_plain`, through the op
+    ``ocp_torch::admm_device_loop``.
 
     CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
     launch ``csrc/admm_device_loop.cu`` on the current stream, one thread
@@ -202,19 +207,12 @@ def admm_device_loop(
     the launch is refused.  Arrays that are not tensors go to ``device``
     (:func:`..device.as_tensors`).
     """
-    refuse_export("admm_device_loop")
     OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0 = as_tensors(
         OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, device=device)
-    B, n, m = _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
-    kw = dict(max_iter=max_iter, check_every=check_every)
-    dev = x0.device
-    if dev.type == "cpu":
-        return admm_device_loop_plain(
-            OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv,
-            sigma, alpha, eps_abs, eps_rel, x0, y0, **kw,
-        )
-    return _launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs,
-                   eps_rel, x0, y0, max_iter, check_every)
+    _contract(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, x0, y0, check_every)
+    return tuple(torch.ops.ocp_torch.admm_device_loop(
+        OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, float(sigma), float(alpha),
+        float(eps_abs), float(eps_rel), x0, y0, int(max_iter), int(check_every)))
 
 
 def _launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs, eps_rel,
@@ -247,3 +245,32 @@ def _launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs
 
 
 admm_device_loop.launches = 0
+
+
+@torch.library.custom_op("ocp_torch::admm_device_loop", mutates_args=(), device_types="cpu")
+def _device_loop_op(OP: Tensor, Ab: Tensor, Pb: Tensor, qb: Tensor, lb: Tensor, ub: Tensor,
+                    rho: Tensor, Dinv: Tensor, Einv: Tensor, cinv: Tensor, sigma: float,
+                    alpha: float, eps_abs: float, eps_rel: float, x0: Tensor, y0: Tensor,
+                    max_iter: int, check_every: int) -> List[Tensor]:
+    """The op's CPU implementation: the plain version, its outputs copied
+    (an op may return no input: a scenario that runs no check block keeps
+    its warm start)."""
+    return [o.clone() for o in admm_device_loop_plain(
+        OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs, eps_rel, x0, y0,
+        max_iter=max_iter, check_every=check_every)]
+
+
+@_device_loop_op.register_kernel("cuda")
+def _(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs, eps_rel, x0, y0,
+      max_iter, check_every):
+    """The CUDA implementation: the kernel path, which counts the launch.
+    No input is written (the outputs and tier 3's slab are the launch's)."""
+    return list(_launch(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs,
+                        eps_rel, x0, y0, max_iter, check_every))
+
+
+@_device_loop_op.register_fake
+def _(OP, Ab, Pb, qb, lb, ub, rho, Dinv, Einv, cinv, sigma, alpha, eps_abs, eps_rel, x0, y0,
+      max_iter, check_every):
+    it = torch.empty((x0.shape[0],), dtype=torch.int32, device=x0.device)
+    return [torch.empty_like(x0), torch.empty_like(y0), torch.empty_like(y0), it]

@@ -46,13 +46,14 @@ from .banded_kernel import (
     block_inv,
     chunk_contract,
     chunk_outputs,
+    chunk_scalars,
     chunk_tensors,
     launch_chunk,
-    refuse_export,
     mm,
     mtv,
     mv,
     outer_r,
+    register_chunk_op,
 )
 
 __all__ = [
@@ -250,33 +251,36 @@ def banded_admm_chunk_cr(
     """Run one rho-constant banded-ADMM chunk through the cyclic-reduction
     kernel; all arrays batch-last.
 
-    Same contract as :func:`banded_admm_chunk_cr_plain`.  CPU tensors take
+    Same contract as :func:`banded_admm_chunk_cr_plain`, through the op
+    ``ocp_torch::banded_admm_chunk_cr``.  CPU tensors take
     the plain version; CUDA tensors launch ``csrc/banded_cr_chunk.cu`` on
     the current stream (f32, contiguous, ``w <= MAX_CR_WIDTH``,
     ``r, r2 >= 1``) or raise.  Arrays that are not tensors go to
     ``device`` (:func:`chunk_tensors`).
     """
-    refuse_export("banded_admm_chunk_cr")
     (it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
      xT, yxT, ydT, ycT, zxT, zdT, zcT) = chunk_tensors(
         it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
         xT, yxT, ydT, ycT, zxT, zdT, zcT, device=device)
-    kw = dict(
-        interval=interval, check_every=check_every, max_iter=max_iter,
-        sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
-    )
     inputs, dims = chunk_contract(
         "banded_admm_chunk_cr", it0, done0, HbT, J0T, J1T, JcT, qT, boundsT,
         scaleT, xT, yxT, ydT, ycT, zxT, zdT, zcT, check_every,
     )
-    dev = qT.device
-    if dev.type == "cpu":
-        return banded_admm_chunk_cr_plain(
-            it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
-            xT, yxT, ydT, ycT, zxT, zdT, zcT, **kw,
+    if qT.device.type != "cpu":
+        _card_width(dims[1])
+    return tuple(torch.ops.ocp_torch.banded_admm_chunk_cr(
+        inputs, *chunk_scalars(interval, check_every, max_iter, sigma, alpha, eps_abs,
+                               eps_rel)))
+
+
+def _card_width(w: int) -> None:
+    """Raise for a block width the CUDA kernel does not take (checked by the
+    wrapper before the op, so a trace for the card refuses it too)."""
+    if w > MAX_CR_WIDTH:
+        raise ValueError(
+            f"banded_admm_chunk_cr: block width w={w} exceeds the CUDA "
+            f"kernel's {MAX_CR_WIDTH}"
         )
-    return _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs,
-                   eps_rel)
 
 
 def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs, eps_rel):
@@ -284,11 +288,7 @@ def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs
     ``csrc/banded_cr_chunk.cu`` on ``inputs`` (checked by
     ``chunk_contract``)."""
     N, w, r, r2, B = dims
-    if w > MAX_CR_WIDTH:
-        raise ValueError(
-            f"banded_admm_chunk_cr: block width w={w} exceeds the CUDA "
-            f"kernel's {MAX_CR_WIDTH}"
-        )
+    _card_width(w)
     dev = inputs[0].device
     outs = chunk_outputs(dims, dev)
     if B == 0:
@@ -308,3 +308,4 @@ def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs
 
 
 banded_admm_chunk_cr.launches = 0
+register_chunk_op("banded_admm_chunk_cr", banded_admm_chunk_cr_plain, _launch)

@@ -10,19 +10,27 @@ granularity.  Every array is batch-last::
 
     blocks  (N, w, w, B)    vectors  (N, w, B)    per-scenario  (B,)
 
-:func:`banded_admm_chunk` is the wrapper: for CUDA tensors it launches the
-hand-written kernel ``csrc/banded_chunk.cu`` (one warp per scenario, its
-factors, state and operators in a slab of shared memory; built by ``nvcc``
-at first use) and counts the launch in ``banded_admm_chunk.launches``; for
-CPU tensors it runs :func:`banded_admm_chunk_plain`, the straightforward
-PyTorch transcription of the same contract that the CPU tests hold against
-the Pallas kernel.  There is no fallback from one to the other.
+:func:`banded_admm_chunk` is the wrapper: it checks the call and runs the
+custom op ``torch.ops.ocp_torch.banded_admm_chunk`` (:func:`register_chunk_op`).
+For CUDA tensors the op launches the hand-written kernel
+``csrc/banded_chunk.cu`` (one warp per scenario, its factors, state and
+operators in a slab of shared memory; built by ``nvcc`` at first use) and
+counts the launch in ``banded_admm_chunk.launches``; for CPU tensors it
+runs :func:`banded_admm_chunk_plain`, the straightforward PyTorch
+transcription of the same contract that the CPU tests hold against the
+Pallas kernel.  There is no fallback from one to the other.  As a custom
+op the kernel is one node of known output shapes to ``torch.export``
+(``utils/serialization.export_solver``): an exported program holds the
+op, and reloaded in a process that imported the port, it launches the
+same kernel on the card.
 
 The iteration loop (:func:`admm_chunk_iterate_plain`), the ascending-chain
 block algebra (:func:`mv`, :func:`mm`, ...) and the wrapper's contract
 checks and launch (:func:`chunk_contract`, :func:`launch_chunk`) are
-shared with the rolled two-way kernel of ``banded_rolled_kernel.py``:
-the two chunks differ only in how they factor ``M`` and solve with it.
+shared with the rolled two-way kernel of ``banded_rolled_kernel.py`` and
+the cyclic-reduction kernel of ``banded_cr_kernel.py``, and so is their
+registration as custom ops (:func:`register_chunk_op`): the chunks differ
+only in how they factor ``M`` and solve with it.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ __all__ = [
     "admm_chunk_iterate_plain",
     "chunk_contract",
     "launch_chunk",
+    "register_chunk_op",
     "slab_floats",
     "slab_in_shared_memory",
     "KERNEL_WIDTHS",
@@ -418,12 +427,14 @@ def chunk_contract(
     return [t for _, t, _, _ in inputs], (N, w, r, r2, B)
 
 
-def chunk_outputs(dims, dev) -> tuple:
-    """The 13 output tensors of a chunk launch, uninitialised."""
+def chunk_outputs(dims, dev, dtype=torch.float32) -> tuple:
+    """The 13 output tensors of a chunk launch, uninitialised (floats of
+    ``dtype``: float32 on the card, the plain version's input type on the
+    CPU)."""
     N, w, r, r2, B = dims
     vx, vd, vc = (N, w, B), (N - 1, r, B), (N, r2, B)
 
-    def empty(shape, dt=torch.float32):
+    def empty(shape, dt=dtype):
         return torch.empty(shape, dtype=dt, device=dev)
 
     i32 = torch.int32
@@ -463,17 +474,6 @@ def _lib_fn(lib_name: str, symbol: str, n_int: int):
     return _LIB_FNS[key]
 
 
-def refuse_export(label: str) -> None:
-    """Raise inside a ``torch.export`` trace: a hand-written CUDA kernel
-    cannot be traced, and its plain version is never traced in its place
-    (``utils/serialization.export_solver`` refuses such functions)."""
-    if torch.compiler.is_exporting():
-        raise RuntimeError(
-            f"{label} is a hand-written CUDA kernel: torch.export cannot trace it, and "
-            "the port never traces its plain version in its place"
-        )
-
-
 def launch_chunk(
     label: str, lib_name: str, symbol: str, tensors: Sequence[Optional[torch.Tensor]],
     ints: Sequence[int], floats: Sequence[float], dev,
@@ -494,6 +494,60 @@ def launch_chunk(
     if err != 0:
         msg = err_fn(err).decode()
         raise RuntimeError(f"{label} launch failed: cudaError {err} ({msg})")
+
+
+def chunk_scalars(interval, check_every, max_iter, sigma, alpha, eps_abs, eps_rel) -> tuple:
+    """A chunk op's scalar arguments, as the schema's ints and floats."""
+    return (int(interval), int(check_every), int(max_iter), float(sigma), float(alpha),
+            float(eps_abs), float(eps_rel))
+
+
+def chunk_dims(inputs: Sequence[torch.Tensor]) -> Tuple[int, int, int, int, int]:
+    """``(N, w, r, r2, B)`` of a chunk's inputs in the kernels' pointer order."""
+    N, w, B = inputs[6].shape
+    return N, w, inputs[3].shape[1], inputs[5].shape[1], B
+
+
+def register_chunk_op(name: str, plain: Callable, launch: Callable, flags: Sequence[str] = ()):
+    """Register a banded chunk kernel as the custom op ``ocp_torch::<name>``
+    and return it.
+
+    Its schema: the 28 inputs in the kernels' pointer order (``inputs``,
+    :func:`chunk_contract`'s list: the two dicts of sections flattened),
+    ``interval``, ``check_every``, ``max_iter``, ``sigma``, ``alpha``,
+    ``eps_abs``, ``eps_rel`` and one ``bool`` per name in ``flags``;
+    returns the 13 outputs.  The CPU implementation is the plain version
+    ``plain`` (its outputs copied: an op may return no input, and no
+    output twice, where a frozen chunk returns its inputs); the CUDA
+    implementation is ``launch``, the module's kernel path
+    ``launch(inputs, dims, interval, ..., eps_rel, *flags)``, which counts
+    the launch; the fake implementation gives the outputs' shapes and
+    types (:func:`chunk_outputs`).  No input is written (``mutates_args``
+    is empty): each kernel writes its outputs and a slab the launch
+    allocates."""
+    schema = ("(Tensor[] inputs, int interval, int check_every, int max_iter, float sigma, "
+              "float alpha, float eps_abs, float eps_rel"
+              + "".join(f", bool {f}" for f in flags) + ") -> Tensor[]")
+    keys = ("interval", "check_every", "max_iter", "sigma", "alpha", "eps_abs", "eps_rel",
+            *flags)
+
+    def cpu(inputs, *args):
+        plain_args = (*inputs[:7], dict(zip(_BOUNDS, inputs[7:16])),
+                      dict(zip(_SCALES, inputs[16:21])), *inputs[21:])
+        return [o.clone() for o in plain(*plain_args, **dict(zip(keys, args)))]
+
+    op = torch.library.custom_op(f"ocp_torch::{name}", cpu, mutates_args=(),
+                                 device_types="cpu", schema=schema)
+
+    @op.register_kernel("cuda")
+    def _(inputs, *args):
+        return list(launch(inputs, chunk_dims(inputs), *args))
+
+    @op.register_fake
+    def _(inputs, *args):
+        return list(chunk_outputs(chunk_dims(inputs), inputs[6].device, inputs[6].dtype))
+
+    return op
 
 
 def banded_admm_chunk(
@@ -525,44 +579,43 @@ def banded_admm_chunk(
 ):
     """Run one rho-constant banded-ADMM chunk; all arrays batch-last.
 
-    Same contract as :func:`banded_admm_chunk_plain`.  CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/banded_chunk.cu`` on the
-    current stream (f32, contiguous, ``w`` in :data:`KERNEL_WIDTHS`,
-    ``r, r2 >= 1``) or raise.  Arrays that are not tensors go to
-    ``device`` (:func:`chunk_tensors`).
+    Same contract as :func:`banded_admm_chunk_plain`, through the op
+    ``ocp_torch::banded_admm_chunk``: CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/banded_chunk.cu`` on the current stream
+    (f32, contiguous, ``w`` in :data:`KERNEL_WIDTHS`, ``r, r2 >= 1``) or
+    raise.  Arrays that are not tensors go to ``device``
+    (:func:`chunk_tensors`).
     """
-    refuse_export("banded_admm_chunk")
     (it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
      xT, yxT, ydT, ycT, zxT, zdT, zcT) = chunk_tensors(
         it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
         xT, yxT, ydT, ycT, zxT, zdT, zcT, device=device)
-    kw = dict(
-        interval=interval, check_every=check_every, max_iter=max_iter,
-        sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
-    )
     inputs, dims = chunk_contract(
         "banded_admm_chunk", it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
         xT, yxT, ydT, ycT, zxT, zdT, zcT, check_every,
     )
-    dev = qT.device
-    if dev.type == "cpu":
-        return banded_admm_chunk_plain(
-            it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
-            xT, yxT, ydT, ycT, zxT, zdT, zcT, **kw,
+    if qT.device.type != "cpu":
+        _card_width(dims[1])
+    return tuple(torch.ops.ocp_torch.banded_admm_chunk(
+        inputs, *chunk_scalars(interval, check_every, max_iter, sigma, alpha, eps_abs,
+                               eps_rel)))
+
+
+def _card_width(w: int) -> None:
+    """Raise for a block width the CUDA kernel does not take (checked by the
+    wrapper before the op, so a trace for the card refuses it too)."""
+    if w not in KERNEL_WIDTHS:
+        raise ValueError(
+            f"banded_admm_chunk: block width w={w} has no CUDA instantiation "
+            f"(built for {KERNEL_WIDTHS}); the rolled chunk takes it"
         )
-    return _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs,
-                   eps_rel)
 
 
 def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs, eps_rel):
     """The wrapper's kernel path: outputs, slab and the launch of
     ``csrc/banded_chunk.cu`` on ``inputs`` (checked by ``chunk_contract``)."""
     N, w, r, r2, B = dims
-    if w not in KERNEL_WIDTHS:
-        raise ValueError(
-            f"banded_admm_chunk: block width w={w} has no CUDA instantiation "
-            f"(built for {KERNEL_WIDTHS}); the rolled chunk takes it"
-        )
+    _card_width(w)
     dev = inputs[0].device
     outs = chunk_outputs(dims, dev)
     if B == 0:
@@ -581,3 +634,4 @@ def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs
 
 
 banded_admm_chunk.launches = 0
+register_chunk_op("banded_admm_chunk", banded_admm_chunk_plain, _launch)

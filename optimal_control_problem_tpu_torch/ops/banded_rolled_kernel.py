@@ -44,15 +44,16 @@ from .banded_kernel import (
     block_inv,
     chunk_contract,
     chunk_outputs,
+    chunk_scalars,
     chunk_tensors,
     launch_chunk,
-    refuse_export,
     mm,
     mmt,
     mtm,
     mtv,
     mv,
     outer_r,
+    register_chunk_op,
 )
 
 __all__ = [
@@ -251,36 +252,39 @@ def banded_admm_chunk_rolled(
     """Run one rho-constant banded-ADMM chunk through the rolled two-way
     kernel; all arrays batch-last.
 
-    Same contract as :func:`banded_admm_chunk_rolled_plain`.  CPU tensors
+    Same contract as :func:`banded_admm_chunk_rolled_plain`, through the op
+    ``ocp_torch::banded_admm_chunk_rolled``.  CPU tensors
     take the plain version; CUDA tensors launch
     ``csrc/banded_rolled_chunk.cu`` on the current stream (f32,
     contiguous, ``w <= MAX_ROLLED_WIDTH``, ``r, r2 >= 1``) or raise.
     Arrays that are not tensors go to ``device`` (:func:`chunk_tensors`).
     """
-    refuse_export("banded_admm_chunk_rolled")
     (it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
      xT, yxT, ydT, ycT, zxT, zdT, zcT) = chunk_tensors(
         it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
         xT, yxT, ydT, ycT, zxT, zdT, zcT, device=device)
-    kw = dict(
-        interval=interval, check_every=check_every, max_iter=max_iter,
-        sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
-    )
     inputs, dims = chunk_contract(
         "banded_admm_chunk_rolled", it0, done0, HbT, J0T, J1T, JcT, qT, boundsT,
         scaleT, xT, yxT, ydT, ycT, zxT, zdT, zcT, check_every,
     )
-    N, w, r, r2, B = dims
+    N = dims[0]
     if cr1 and (N % 2 or N < 4):
         raise ValueError(f"cr1 needs an even horizon N >= 4 (got N={N})")
-    dev = qT.device
-    if dev.type == "cpu":
-        return banded_admm_chunk_rolled_plain(
-            it0, done0, HbT, J0T, J1T, JcT, qT, boundsT, scaleT,
-            xT, yxT, ydT, ycT, zxT, zdT, zcT, cr1=cr1, **kw,
+    if qT.device.type != "cpu":
+        _card_width(dims[1])
+    return tuple(torch.ops.ocp_torch.banded_admm_chunk_rolled(
+        inputs, *chunk_scalars(interval, check_every, max_iter, sigma, alpha, eps_abs,
+                               eps_rel), bool(cr1)))
+
+
+def _card_width(w: int) -> None:
+    """Raise for a block width the CUDA kernel does not take (checked by the
+    wrapper before the op, so a trace for the card refuses it too)."""
+    if w > MAX_ROLLED_WIDTH:
+        raise ValueError(
+            f"banded_admm_chunk_rolled: block width w={w} exceeds the CUDA "
+            f"kernel's {MAX_ROLLED_WIDTH}"
         )
-    return _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs,
-                   eps_rel, cr1)
 
 
 def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs, eps_rel, cr1):
@@ -288,11 +292,7 @@ def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs
     ``csrc/banded_rolled_chunk.cu`` on ``inputs`` (checked by
     ``chunk_contract``)."""
     N, w, r, r2, B = dims
-    if w > MAX_ROLLED_WIDTH:
-        raise ValueError(
-            f"banded_admm_chunk_rolled: block width w={w} exceeds the CUDA "
-            f"kernel's {MAX_ROLLED_WIDTH}"
-        )
+    _card_width(w)
     dev = inputs[0].device
     outs = chunk_outputs(dims, dev)
     if B == 0:
@@ -311,3 +311,5 @@ def _launch(inputs, dims, interval, check_every, max_iter, sigma, alpha, eps_abs
 
 
 banded_admm_chunk_rolled.launches = 0
+register_chunk_op("banded_admm_chunk_rolled", banded_admm_chunk_rolled_plain, _launch,
+                  flags=("cr1",))

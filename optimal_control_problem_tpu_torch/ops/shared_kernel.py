@@ -24,12 +24,17 @@ inputs with ``it_inc = 0`` and infinite residuals.  The driver's group is
 the fused path's iteration counts equal the ``"xla"`` loop's), tiles of
 6,536 above.
 
-:func:`shared_admm_chunk` is the wrapper: for CUDA tensors it launches the
+:func:`shared_admm_chunk` is the wrapper: it checks the call and runs the
+custom op ``torch.ops.ocp_torch.shared_admm_chunk``, one node of known
+output shapes to ``torch.export``.  For CUDA tensors the op launches the
 hand-written kernel ``csrc/shared_chunk.cu`` (built by ``nvcc`` at first
 use) and counts the launch in ``shared_admm_chunk.launches``; for CPU
 tensors it runs :func:`shared_admm_chunk_plain`, the plain PyTorch version
 of the same contract that the CPU tests hold against the Pallas kernel.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  The op takes the chunk's
+budget ``bound`` as a tensor, so that a loop on the device can compute
+it; the kernel path reads it on the host, where it enqueues one launch
+per check block.
 
 Both versions form every product as an ascending chain over the
 contraction index, one multiply and one add per term (the CUDA build has
@@ -64,12 +69,13 @@ is the reference's bf16_3x.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
+from torch import Tensor
 
 from ..device import as_tensors
-from .banded_kernel import _check, launch_chunk, refuse_export
+from .banded_kernel import _check, launch_chunk
 
 __all__ = [
     "shared_admm_chunk",
@@ -269,7 +275,9 @@ def tc_operator_slices(w: torch.Tensor) -> torch.Tensor:
 def _contract(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
               check_every, batch_tile):
     """Check a chunk call on either device; returns ``(B, n, m, bound,
-    done0 as int32, cinv as a (1,) tensor)``."""
+    done0 as int32, cinv as a (1,) tensor)``, ``bound`` an int or, given
+    as a tensor, a 0-d one (read nowhere here: it may lie on the card or
+    be traced)."""
     dev = x.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"shared_admm_chunk: unsupported device {dev}")
@@ -286,6 +294,12 @@ def _contract(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z,
     ft = torch.float32 if dev.type == "cuda" else x.dtype
     cinv = torch.as_tensor(cinv, dtype=ft, device=dev).reshape(1)
     done0 = done0.to(torch.int32)
+    if isinstance(bound, Tensor):
+        if bound.numel() != 1 or bound.is_floating_point():
+            raise ValueError("shared_admm_chunk: bound must be an int or a 0-d integer tensor")
+        bound = bound.reshape(())
+    else:
+        bound = int(bound)
     for name, t, shape in (
         ("OP", OP, (n, n)), ("Ab", Ab, (m, n)), ("Pb", Pb, (n, n)), ("rho", rho, (m,)),
         ("lb", lb, (B, m)), ("ub", ub, (B, m)), ("qb", qb, (B, n)),
@@ -294,7 +308,7 @@ def _contract(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z,
     ):
         _check(name, t, shape, ft, dev)
     _check("done0", done0, (B,), torch.int32, dev)
-    return B, n, m, int(bound), done0, cinv
+    return B, n, m, bound, done0, cinv
 
 
 def _check_iter_precision(iter_precision: str) -> None:
@@ -319,7 +333,8 @@ def shared_admm_chunk_plain(
     JAX ``_kernel``.
 
     ``done0 (B,)`` bool/int: scenario enters converged or certified;
-    ``bound``: the chunk's iteration budget (an int; need not be a multiple
+    ``bound``: the chunk's iteration budget (an int or a 0-d integer
+    tensor; need not be a multiple
     of ``check_every``, the last check block still runs whole); panels and
     operators as in the module docstring; ``Dinv (n,)``, ``Einv (m,)``,
     ``cinv`` (scalar) unscale the residuals; ``iter_precision`` as in the
@@ -332,6 +347,7 @@ def shared_admm_chunk_plain(
         done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
         check_every, batch_tile,
     )
+    bound = int(bound)
     AbT = Ab.T.contiguous()
     one_m_alpha = 1.0 - alpha
     high_x = iter_precision != "highest"
@@ -406,7 +422,9 @@ def shared_admm_chunk(
     device=None,
 ):
     """Run one rho-constant shared-operator ADMM chunk; same contract as
-    :func:`shared_admm_chunk_plain`.
+    :func:`shared_admm_chunk_plain`, through the op
+    ``ocp_torch::shared_admm_chunk`` (``bound`` an int or a 0-d integer
+    tensor).
 
     CPU tensors take the plain version.  CUDA tensors (f32, contiguous)
     launch a hand-written kernel on the current stream, one launch per
@@ -425,27 +443,21 @@ def shared_admm_chunk(
     form's up to the order of its sums).  Arrays that are not tensors go to
     ``device`` (:func:`..device.as_tensors`).
     """
-    refuse_export("shared_admm_chunk")
     done0, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y = as_tensors(
         done0, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, device=device)
     _check_iter_precision(iter_precision)
-    B, n, m, bound, done0, cinv = _contract(
+    _, _, _, bound, done0, cinv = _contract(
         done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
         check_every, batch_tile,
     )
-    kw = dict(check_every=check_every, sigma=sigma, alpha=alpha, eps_abs=eps_abs,
-              eps_rel=eps_rel, batch_tile=batch_tile)
-    dev = x.device
-    if dev.type == "cpu":
-        return shared_admm_chunk_plain(
-            done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, **kw,
-            iter_precision=iter_precision,
-        )
-    if iter_precision != "highest":
-        return _launch_tc(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z,
-                          y, rows_per_block, **kw, iter_precision=iter_precision)
-    return _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
-                   rows_per_block, **kw)
+    if x.device.type != "cpu":
+        _check_rows(rows_per_block, iter_precision != "highest")
+    if not isinstance(bound, Tensor):
+        bound = torch.tensor(bound)
+    return tuple(torch.ops.ocp_torch.shared_admm_chunk(
+        done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+        int(check_every), float(sigma), float(alpha), float(eps_abs), float(eps_rel),
+        int(batch_tile), iter_precision, rows_per_block))
 
 
 def _outputs(B, n, m, dev):
@@ -460,13 +472,20 @@ def _outputs(B, n, m, dev):
     )
 
 
-def _block_rows(rows_per_block, B, batch_tile, n, m, dev, tensor_cores):
+def _check_rows(rows_per_block, tensor_cores) -> None:
+    """Raise for a forced scenarios-per-block count the kernel has no
+    instantiation for (checked by the wrapper before the op, so a trace
+    for the card refuses it too)."""
     allowed = ROWS_PER_BLOCK_TC if tensor_cores else ROWS_PER_BLOCK
+    if rows_per_block is not None and rows_per_block not in allowed:
+        raise ValueError(f"rows_per_block must be one of {allowed}, got {rows_per_block}")
+
+
+def _block_rows(rows_per_block, B, batch_tile, n, m, dev, tensor_cores):
     if rows_per_block is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         return shared_block_rows(B, batch_tile, n, m, sms, tensor_cores)
-    if rows_per_block not in allowed:
-        raise ValueError(f"rows_per_block must be one of {allowed}, got {rows_per_block}")
+    _check_rows(rows_per_block, tensor_cores)
     return rows_per_block
 
 
@@ -544,3 +563,42 @@ def _launch(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y
 
 shared_admm_chunk.launches = 0
 shared_admm_chunk.tc_launches = 0
+
+
+@torch.library.custom_op("ocp_torch::shared_admm_chunk", mutates_args=(), device_types="cpu")
+def _shared_op(done0: Tensor, bound: Tensor, OP: Tensor, Ab: Tensor, Pb: Tensor, rho: Tensor,
+               lb: Tensor, ub: Tensor, qb: Tensor, Dinv: Tensor, Einv: Tensor, cinv: Tensor,
+               x: Tensor, z: Tensor, y: Tensor, check_every: int, sigma: float, alpha: float,
+               eps_abs: float, eps_rel: float, batch_tile: int, iter_precision: str,
+               rows_per_block: Optional[int]) -> List[Tensor]:
+    """The op's CPU implementation: the plain version (``done0`` int32,
+    ``cinv`` (1,), as :func:`_contract` gives them), its outputs copied
+    (an op may return no input: a group all done at entry returns its
+    panels).  ``rows_per_block`` is the card's alone."""
+    return [o.clone() for o in shared_admm_chunk_plain(
+        done0, int(bound), OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
+        check_every=check_every, sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
+        batch_tile=batch_tile, iter_precision=iter_precision)]
+
+
+@_shared_op.register_kernel("cuda")
+def _(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, check_every,
+      sigma, alpha, eps_abs, eps_rel, batch_tile, iter_precision, rows_per_block):
+    """The CUDA implementation: the FP32 form or the tensor-core form,
+    ``bound`` read on the host (a sync where it lies on the card).  No
+    input is written: the group votes and the operator slices live in
+    buffers the launch allocates."""
+    launch = _launch if iter_precision == "highest" else _launch_tc
+    return list(launch(done0, int(bound), OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z,
+                       y, rows_per_block, check_every=check_every, sigma=sigma, alpha=alpha,
+                       eps_abs=eps_abs, eps_rel=eps_rel, batch_tile=batch_tile,
+                       iter_precision=iter_precision))
+
+
+@_shared_op.register_fake
+def _(done0, bound, OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y, *args):
+    B, n = x.shape
+    conv = torch.empty((B,), dtype=torch.bool, device=x.device)
+    it_inc = torch.empty((B,), dtype=torch.int32, device=x.device)
+    return [torch.empty_like(x), torch.empty_like(z), torch.empty_like(y), conv, it_inc,
+            *(x.new_empty((B,)) for _ in range(4))]

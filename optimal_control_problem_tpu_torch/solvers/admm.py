@@ -18,7 +18,8 @@ batched counterpart :func:`admm_solve_batch`, the port of
 Both are eager PyTorch: the loop conditions are read on the host once per
 check block (``backend="xla"``) or kernel entry (``backend="pallas"``, the
 device-loop kernel of ``ops/admm_kernel.py``), where the JAX version runs a
-``lax.while_loop``.
+``lax.while_loop``; ``on_device=True`` runs them as a ``torch.while_loop``
+instead, the form ``torch.export`` traces.
 
 ``settings.precision`` is JAX's ``jax.default_matmul_precision`` around
 the whole solve: every product here (the factorization's ``A^T R A``, the
@@ -315,6 +316,14 @@ def ruiz_equilibrate(P, q, A, iters: int, *, device=None):
     return Pb, qb, Ab, D, E, c
 
 
+def _fresh(ts):
+    """Copies of a tuple of tensors (nested tuples too), each with its
+    strides (a column-major inverse stays one: the products' rounding
+    follows the layout): a ``torch.while_loop`` takes no carried or
+    returned tensor that aliases another."""
+    return tuple(_fresh(t) if isinstance(t, tuple) else t.clone() for t in ts)
+
+
 def _rho_vec(l, u, rho):
     """Per-row rho: loose bounds -> RHO_MIN, equalities -> rho * 1e3 (OSQP).
     ``rho`` is a 0-dim tensor of the working dtype; ``l``/``u`` may carry
@@ -452,15 +461,13 @@ def admm_solve_batch(
     are refactored) and polish; a scenario that has stopped keeps its
     iterates while the loop runs until every scenario has stopped.  The
     loop conditions are read on the host once per check block
-    (``backend="xla"``) or kernel entry (``"pallas"``); ``on_device``
-    (``"xla"`` only) keeps them on the device instead (``torch.while_loop``;
-    the same results), the form ``torch.export`` traces.  Arrays that are
-    not tensors go to ``device`` as in :func:`admm_solve`.
+    (``backend="xla"``) or kernel entry (``"pallas"``); ``on_device`` keeps
+    them on the device instead (``torch.while_loop``; the same results),
+    the form ``torch.export`` traces, the device loop one op node.  Arrays
+    that are not tensors go to ``device`` as in :func:`admm_solve`.
     """
     P, q, A, l, u, x0, y0 = as_tensors(P, q, A, l, u, x0, y0, device=device)
     st = settings
-    if on_device and st.backend != "xla":
-        raise ValueError("on_device takes the 'xla' backend (the device loop is a hand kernel)")
     if st.backend == "pallas":
         if st.method != "condensed":
             raise ValueError("backend='pallas' requires method='condensed'")
@@ -478,10 +485,11 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0,
     """The iteration loops of :func:`admm_solve_batch` on prepared problems;
     ``P, q, A, l, u`` are the unscaled problems, for the certificates.
 
-    ``on_device`` (the ``"xla"`` backend only): the loop conditions stay
-    on the device (one ``torch.while_loop``, an ADMM iteration a trip, the
-    adaptive-rho refactorization applied by mask) instead of being read on
-    the host; the same results, and a form ``torch.export`` can trace."""
+    ``on_device``: the loop conditions stay on the device instead of being
+    read on the host (one ``torch.while_loop``: on ``"xla"`` an ADMM
+    iteration a trip, on ``"pallas"`` a kernel entry a trip; the
+    adaptive-rho refactorization applied by mask); the same results, and a
+    form ``torch.export`` can trace."""
     Pb, qb, Ab, lb, ub, D, E, c, rho_v, OP = prep
     dtype, dev = Pb.dtype, Pb.device
     B, n = qb.shape
@@ -623,11 +631,13 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0,
         # rho); residuals, certificates and adaptive rho in torch between
         # entries.  The round condition is tested between entries only: a
         # scenario the kernel stopped on its own test that the residuals
-        # here find not done gets a fresh interval.
-        while True:
-            act = (it < st.max_iter) & ~(done | pinf | dinf)
-            if not bool(act.any()):
-                break
+        # here find not done gets a fresh interval.  On the device: a
+        # torch.while_loop of entries, the kernel one op node.
+        def active(it, done, pinf, dinf):
+            return (it < st.max_iter) & ~(done | pinf | dinf)
+
+        def entry(it, x, y, z, rho_v, OP, done, pinf, dinf, r_prim, r_dual):
+            act = active(it, done, pinf, dinf)
             # The kernel takes row-major arrays (torch.linalg.inv returns
             # column-major ones); contiguous() is free for the others.
             ops = [t.contiguous() for t in (OP, Ab, Pb, qb, lb, ub, rho_v, Dinv, Einv, cinv)]
@@ -635,7 +645,6 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0,
                 *ops, st.sigma, st.alpha, st.eps_abs, st.eps_rel,
                 x.contiguous(), y.contiguous(), max_iter=interval, check_every=ce,
             )
-            _iterate_dense.entries += 1
             rp, rd, eps_pri, eps_dua, mp, md = residuals(xs, zs, ys)
             done_n = (rp <= eps_pri) & (rd <= eps_dua)
             certs = certify(xs, ys, x, y, done_n)
@@ -647,6 +656,17 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0,
             done = pick(act, done_n, done)
             r_prim, r_dual = pick(act, rp, r_prim), pick(act, rd, r_dual)
             it = it + torch.where(act, kit, torch.zeros_like(kit))
+            return it, x, y, z, rho_v, OP, done, pinf, dinf, r_prim, r_dual
+
+        s = (it, x, y, z, rho_v, OP, done, pinf, dinf, r_prim, r_dual)
+        if on_device:
+            s = torch.while_loop(lambda it, *c: active(it, *c[5:8]).any(),
+                                 lambda *c: _fresh(entry(*c)), _fresh(s))
+        else:
+            while bool(active(s[0], *s[6:9]).any()):
+                s = entry(*s)
+                _iterate_dense.entries += 1
+        it, x, y, z, rho_v, OP, done, pinf, dinf, r_prim, r_dual = s
     else:
         def one_iter(x, z, y, rho_v, OP):
             if st.method == "condensed":
@@ -751,9 +771,8 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0,
                 it, x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual = (
                     torch.where(end, e, c) for e, c in zip(ended, kept))
                 j = torch.where(end | last, torch.zeros_like(j), j + 1)
-                return tuple(t.clone() for t in (
-                    ~end, j, inner, outer, it, k, xs, zs, ys, x, z, y, rho_v, OP, done, pinf,
-                    dinf, r_prim, r_dual, rp, rd, mp, md))
+                return _fresh((~end, j, inner, outer, it, k, xs, zs, ys, x, z, y, rho_v, OP, done,
+                               pinf, dinf, r_prim, r_dual, rp, rd, mp, md))
 
             false_b = torch.zeros((B,), dtype=torch.bool, device=dev)
             s = (torch.zeros((), dtype=torch.bool, device=dev),
@@ -761,8 +780,7 @@ def _iterate_dense(prep: DensePrep, P, q, A, l, u, st: ADMMSettings, x0, y0,
                  torch.zeros_like(it), x, z, y, x, z, y, rho_v, OP, done, pinf, dinf, r_prim,
                  r_dual, inf_b(), inf_b(), inf_b(), inf_b())
             s = torch.while_loop(
-                lambda *s: s[0] | outer_mask(s[4], *s[14:17]).any(), trip,
-                tuple(t.clone() for t in s))
+                lambda *s: s[0] | outer_mask(s[4], *s[14:17]).any(), trip, _fresh(s))
             it = s[4]
             x, z, y, rho_v, OP, done, pinf, dinf, r_prim, r_dual = s[9:19]
 

@@ -49,7 +49,7 @@ from ..ops.banded_cr_kernel import banded_admm_chunk_cr
 from ..ops.banded_kernel import KERNEL_WIDTHS, banded_admm_chunk
 from ..ops.banded_rolled_kernel import banded_admm_chunk_rolled
 from ..ops.block_tridiag import btd_factor, btd_solve
-from .admm import ADMMSettings, QPSolution, _RHO_MAX, _RHO_MIN, f32_matmuls
+from .admm import ADMMSettings, QPSolution, _RHO_MAX, _RHO_MIN, _fresh, f32_matmuls
 from .admm_banded import (
     BandedQP,
     _rho_vec,
@@ -362,32 +362,32 @@ def chunk_kernel(
 
 
 def _solve_banded_batch_T(
-    qpT: BandedQP, st: ADMMSettings, x0T, y0T, scalingsT, rolled: Optional[bool] = None
+    qpT: BandedQP, st: ADMMSettings, x0T, y0T, scalingsT, rolled: Optional[bool] = None,
+    on_device: bool = False,
 ):
+    """The driver.  ``on_device`` keeps the loop over chunks on the device:
+    the first chunk, then (with adaptive rho) a ``torch.while_loop`` of
+    chunks while any scenario is active; the same results as the host
+    loop, and the form ``torch.export`` traces (the chunk kernel one op
+    node).  ``polish=True`` has no such form (its polish runs per scenario
+    on the host) and raises there."""
     dtype, dev = qpT.Hb.dtype, qpT.Hb.device
     N, w, B = qpT.Hb.shape[0], qpT.Hb.shape[1], qpT.Hb.shape[-1]
     n = N * w
+    if on_device and st.polish:
+        raise ValueError(
+            "the banded batch solve with polish=True has no device-side form: its polish "
+            "runs per scenario on the host"
+        )
     prob = prepare_banded_batch_T(qpT, st, x0T, y0T, scalingsT)
     scaled = prob.scaled
     r, r2 = scaled.J0.shape[1], scaled.Jc.shape[1]
     nd = N - 1
 
     chunk_fn, chunk_kw = chunk_kernel(N, w, B, rolled, banded_solver=st.banded_solver)
-    it_b = torch.zeros((B,), dtype=torch.int32, device=dev)
-    x, y, z, rho = prob.x, prob.y, prob.z, prob.rho
-    false_b = torch.zeros((B,), dtype=torch.bool, device=dev)
-    done, pinf, dinf = false_b, false_b, false_b
-    rp = rd = torch.full((B,), float("inf"), dtype=dtype, device=dev)
 
-    n_chunks = 0
-    while B > 0 and st.max_iter > 0:
-        if n_chunks and (
-            prob.interval >= st.max_iter
-            or not bool((~(done | pinf | dinf) & (it_b < st.max_iter)).any())
-        ):
-            # One chunk of max_iter iterations leaves no scenario active.
-            break
-        n_chunks += 1
+    def chunk(it_b, done, pinf, dinf, rp, rd, x, y, z, rho):
+        """One chunk launch and the work between chunks."""
         stop = done | pinf | dinf
         args, kw = chunk_inputs(prob, st, it_b, stop, x, y, z, rho)
         (xT2, yx2, yd2, yc2, zx2, zd2, zc2, kdone, it_inc,
@@ -428,7 +428,27 @@ def _solve_banded_batch_T(
                 torch.clamp(rho * scale[None, :], _RHO_MIN, _RHO_MAX),
                 rho,
             )
-        x, y, z = x_new, y_new, z_new
+        return it_b, done, pinf, dinf, rp, rd, x_new, y_new, z_new, rho
+
+    def active(it_b, done, pinf, dinf, *_):
+        return (~(done | pinf | dinf) & (it_b < st.max_iter)).any()
+
+    false_b = torch.zeros((B,), dtype=torch.bool, device=dev)
+    inf_b = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    s = (torch.zeros((B,), dtype=torch.int32, device=dev), false_b, false_b, false_b,
+         inf_b, inf_b, prob.x, prob.y, prob.z, prob.rho)
+    if B > 0 and st.max_iter > 0:
+        # The first chunk always runs; without adaptive rho its interval is
+        # the whole budget and it is the only one.
+        s = chunk(*s)
+        if prob.interval < st.max_iter:
+            if on_device:
+                s = torch.while_loop(lambda *c: active(*c), lambda *c: _fresh(chunk(*c)),
+                                     _fresh(s))
+            else:
+                while bool(active(*s)):
+                    s = chunk(*s)
+    it_b, done, pinf, dinf, rp, rd, x, y, z, rho = s
 
     if st.polish:
         # Opt-in and per scenario (plain PyTorch), as in the JAX driver's
@@ -469,6 +489,7 @@ def admm_solve_banded_batch_T(
     scalingsT=None,  # optional precomputed (D (n,B), E (m,B), c (B,))
     device=None,
     rolled: Optional[bool] = None,
+    on_device: bool = False,
 ):
     """Solve a batch of stage-structured QPs, batch-LAST: every field of
     ``qpT`` carries a trailing scenario axis (``Hb (N,w,w,B)``, ``q/l/u
@@ -476,16 +497,17 @@ def admm_solve_banded_batch_T(
 
     Runs on ``device`` (default: the GPU; inputs are moved there, numpy
     arrays converted as :func:`..device.as_tensors` converts them);
-    ``rolled`` picks the chunk kernel (:func:`chunk_kernel`).  Returns
-    ``(x (n,B), y (m,B), z (m,B), iters (B,), converged, r_prim,
-    r_dual, prim_inf, dual_inf)``.
+    ``rolled`` picks the chunk kernel (:func:`chunk_kernel`); ``on_device``
+    keeps the chunk loop on the device (the same results; the form
+    ``torch.export`` traces).  Returns ``(x (n,B), y (m,B), z (m,B),
+    iters (B,), converged, r_prim, r_dual, prim_inf, dual_inf)``.
     """
     dev = resolve_device(device)
     mv = lambda a: None if a is None else a.to(dev)  # noqa: E731
     qpT = BandedQP(*(a.to(dev) for a in as_tensors(*qpT, device=dev)))
     x0T, y0T = as_tensors(x0T, y0T, device=dev)
     sc = None if scalingsT is None else tuple(mv(s) for s in as_tensors(*scalingsT, device=dev))
-    return _solve_banded_batch_T(qpT, settings, mv(x0T), mv(y0T), sc, rolled)
+    return _solve_banded_batch_T(qpT, settings, mv(x0T), mv(y0T), sc, rolled, on_device)
 
 
 @f32_matmuls
@@ -497,12 +519,13 @@ def admm_solve_banded_batch(
     scalings=None,  # optional precomputed (D (B,n), E (B,m), c (B,))
     device=None,
     rolled: Optional[bool] = None,
+    on_device: bool = False,
 ) -> QPSolution:
     """Solve a BATCH of stage-structured QPs (leading dim B on every field).
 
     The batch-leading boundary: one transpose per array at entry and exit
-    around :func:`admm_solve_banded_batch_T`.  Returns a
-    :class:`QPSolution` with leading batch dims.
+    around :func:`admm_solve_banded_batch_T` (``on_device`` as there).
+    Returns a :class:`QPSolution` with leading batch dims.
     """
     dev = resolve_device(device)
     qpT = BandedQP(*(_t(a.to(dev)) for a in as_tensors(*qp, device=dev)))
@@ -515,7 +538,7 @@ def admm_solve_banded_batch(
         else (_t(scalings[0].to(dev)), _t(scalings[1].to(dev)), scalings[2].to(dev))
     )
     xT, yT, zT, it_b, done, rp, rd, pinf, dinf = _solve_banded_batch_T(
-        qpT, settings, x0T, y0T, scalingsT, rolled
+        qpT, settings, x0T, y0T, scalingsT, rolled, on_device
     )
     return QPSolution(
         x=xT.T, y=yT.T, z=zT.T,

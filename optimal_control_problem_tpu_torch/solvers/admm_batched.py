@@ -66,6 +66,7 @@ from .admm import (
     _RHO_MIN,
     _RHO_TOL,
     _factor,
+    _fresh,
     _limit_scaling,
     f32_matmuls,
     ruiz_equilibrate,
@@ -133,9 +134,9 @@ def _fused_operator(OP, Ab, precision="highest"):
     Its products at ``precision``.
     """
     mm = lambda a, w: precision_matmul(a, w, precision)  # noqa: E731
-    top = torch.cat([OP, mm(OP, Ab.T)], dim=1)
+    top = torch.cat([OP, mm(OP, Ab.transpose(0, 1))], dim=1)
     AbOP = mm(Ab, OP)
-    bottom = torch.cat([AbOP, mm(AbOP, Ab.T)], dim=1)
+    bottom = torch.cat([AbOP, mm(AbOP, Ab.transpose(0, 1))], dim=1)
     return torch.cat([top, bottom], dim=0)
 
 
@@ -188,9 +189,15 @@ def admm_iterate_prepared(
     settings: ADMMSettings,
     x0: Optional[torch.Tensor] = None,  # (B, n) warm start
     y0: Optional[torch.Tensor] = None,  # (B, m)
+    on_device: bool = False,
 ) -> BatchQPSolution:
     """Run the ADMM loop against a prepared factorization until every
     scenario meets the OSQP termination criteria or ``max_iter``.
+
+    ``on_device`` keeps the loop conditions on the device, on either
+    backend (a ``torch.while_loop`` of chunks or of check blocks, the
+    adaptive refactorization kept by mask): the same results, and the form
+    ``torch.export`` traces, with the chunk kernel one op node.
 
     With ``settings.backend == "pallas"`` and the condensed method the
     loop runs as rho-constant chunks of the fused kernel
@@ -213,8 +220,8 @@ def admm_iterate_prepared(
         and settings.precision == "highest"
         and fac.Ab.shape[0] > 0
     ):
-        return _admm_iterate_fused(fac, q, l, u, settings, x0, y0)
-    return _admm_iterate_impl(fac, q, l, u, settings, x0, y0)
+        return _admm_iterate_fused(fac, q, l, u, settings, x0, y0, on_device=on_device)
+    return _admm_iterate_impl(fac, q, l, u, settings, x0, y0, on_device)
 
 
 def _shared_certificates(dx_b, dy_b, Pb, Ab, D, E, cinv, q_orig, l, u, st):
@@ -259,7 +266,7 @@ def _shared_certificates(dx_b, dy_b, Pb, Ab, D, E, cinv, q_orig, l, u, st):
     cond_q = torch.sum(q_orig * dx_u, dim=1) < -thr
     Pdx = cinv * mm(dx_b, Pb) * Dinv[None, :]
     cond_P = Pdx.abs().amax(dim=1) < thr
-    Adx = mm(dx_b, Ab.T) * Einv[None, :]
+    Adx = mm(dx_b, Ab.transpose(0, 1)) * Einv[None, :]
     cond_A = torch.all((u >= inf) | (Adx < thr[:, None]), dim=1) & torch.all(
         (l <= -inf) | (Adx > -thr[:, None]), dim=1
     )
@@ -293,7 +300,7 @@ def _rho_scale(rp_rel_sum, rd_rel_sum, cnt):
     return torch.clamp(scale, 1e-3, 1e3)
 
 
-def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
+def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None, on_device=False):
     """Chunked driver around :func:`..ops.shared_kernel.shared_admm_chunk`.
 
     Division of labor per solve (mirrors the banded batch driver):
@@ -313,6 +320,14 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
     is padded with replicas of the first scenario.  On CUDA tensors the
     chunk launches its kernel or raises: there is no other fallback to the
     ``"xla"`` loop.
+
+    ``on_device``: the first chunk, then (with adaptive rho) a
+    ``torch.while_loop`` of chunks, each chunk's budget computed on the
+    device from the iteration count (the op takes it as a tensor) and
+    every refactorization computed and kept where the rule triggers.
+    Without adaptive rho the first chunk's budget is the whole of
+    ``max_iter``, and a group stops short of it only when all of its
+    scenarios converge, so no second chunk ever runs.
     """
     dtype = fac.Pb.dtype
     st = settings
@@ -324,7 +339,7 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
         batch_tile = pick_shared_tile(B, n, Ab.shape[0])
     if batch_tile is None:
         # The JAX driver's working set fits at no tile: its XLA loop.
-        return _admm_iterate_impl(fac, q, l, u, settings, x0, y0)
+        return _admm_iterate_impl(fac, q, l, u, settings, x0, y0, on_device)
 
     l, u, q_orig, qb, lb, ub, x, z, y = _scaled_start(fac, q, l, u, x0, y0, st.precision)
 
@@ -352,6 +367,8 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
         # ones.
         k = it // ari + 1
         t_next = -(-(k * ari) // ce) * ce
+        if isinstance(t_next, torch.Tensor):  # the device-side loop's count
+            return torch.clamp(t_next, max=st.max_iter) - it
         return min(t_next, st.max_iter) - it
 
     Dinv = 1.0 / D
@@ -363,8 +380,9 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
     rp = torch.full((Bp,), float("inf"), dtype=dtype, device=dev)
     rd = rp.clone()
     zero = torch.zeros((), dtype=dtype, device=dev)
-    it = 0
-    while it < st.max_iter and not bool(torch.all(conv | pinf | dinf)):
+
+    def chunk(it, conv, pinf, dinf, rp, rd, x, z, y, rho, OP):
+        """One chunk entry and the work between chunks."""
         x2, z2, y2, conv_k, it_inc, rp_k, rd_k, rpr_k, rdr_k = shared_admm_chunk(
             conv | pinf | dinf, chunk_bound(it),
             OP, Ab, Pb, rho, lb, ub, qb, Dinv, Einv, cinv, x, z, y,
@@ -376,7 +394,6 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
             batch_tile=batch_tile,
             iter_precision=st.iter_precision,
         )
-        _admm_iterate_fused.chunks += 1
         ran = it_inc > 0
         conv = torch.where(ran, conv_k, conv)
         rp = torch.where(ran, rp_k, rp)
@@ -388,7 +405,7 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
             pinf = pinf | (pinf_k & ran & ~conv)
             dinf = dinf | (dinf_k & ran & ~conv)
         x, z, y = x2, z2, y2
-        it += int(it_inc.max())
+        it = it + (it_inc.max() if on_device else int(it_inc.max()))
         if st.adaptive_rho:
             # Batch-shared OSQP rho adaptation from the kernel's relative
             # residuals, aggregated over still-active real scenarios only
@@ -405,9 +422,33 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
             trigger = (
                 (scale > st.adaptive_rho_tolerance) | (scale < 1.0 / st.adaptive_rho_tolerance)
             ) & act.any()
-            if bool(trigger):
+            if on_device:
+                new_rho = torch.clamp(rho * scale, _RHO_MIN, _RHO_MAX)
+                new_OP = _factor_shared(Pb, Ab, new_rho, sigma, st.method,
+                                        st.precision).contiguous()
+                rho = torch.where(trigger, new_rho, rho)
+                OP = torch.where(trigger, new_OP, OP)
+            elif bool(trigger):
                 rho = torch.clamp(rho * scale, _RHO_MIN, _RHO_MAX)
                 OP = _factor_shared(Pb, Ab, rho, sigma, st.method, st.precision).contiguous()
+        return it, conv, pinf, dinf, rp, rd, x, z, y, rho, OP
+
+    def going(it, conv, pinf, dinf, *_):
+        return (it < st.max_iter) & ~torch.all(conv | pinf | dinf)
+
+    s = (0, conv, pinf, dinf, rp, rd, x, z, y, rho, OP)
+    if on_device:
+        s = (torch.zeros((), dtype=torch.int32, device=dev),) + s[1:]
+        if st.max_iter > 0 and Bp > 0:
+            s = chunk(*s)
+            if st.adaptive_rho:
+                s = torch.while_loop(lambda *c: going(*c), lambda *c: _fresh(chunk(*c)),
+                                     _fresh(s))
+    else:
+        while bool(going(*s)):
+            s = chunk(*s)
+            _admm_iterate_fused.chunks += 1
+    it, conv, pinf, dinf, rp, rd, x, z, y, rho, OP = s
     return BatchQPSolution(
         x=(x * D[None, :])[:B],
         y=(y * E[None, :] * cinv)[:B],
@@ -425,11 +466,16 @@ def _admm_iterate_fused(fac, q, l, u, settings, x0, y0, batch_tile=None):
 _admm_iterate_fused.chunks = 0
 
 
-def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
+def _admm_iterate_impl(fac, q, l, u, settings, x0, y0, on_device=False):
     """The ``"xla"`` backend: the whole loop in PyTorch ops.  Its products
     are outside any kernel of the JAX package, so they are ``torch.matmul``
     here (TF32 off), on bf16 hi/lo splits where a precision asks for
-    ``HIGH`` (the operators split once per factorization)."""
+    ``HIGH`` (the operators split once per factorization).
+
+    ``on_device``: the loop of check blocks as one ``torch.while_loop``, a
+    check block a trip, the adaptive refactorization (and its split)
+    computed at every adaptation point and kept where the rule triggers;
+    the same results."""
     dtype = fac.Pb.dtype
     st = settings
     B, n = q.shape
@@ -447,7 +493,9 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
         OP = _fused_operator(OP, Ab, st.precision)
 
     l, u, q_orig, qb, lb, ub, x, z, y = _scaled_start(fac, q, l, u, x0, y0, st.precision)
-    AbT = Ab.T
+    # A copy on the device-side loop: a torch.while_loop captures no two
+    # tensors that alias (the same values and strides' products).
+    AbT = Ab.T.clone(memory_format=torch.preserve_format) if on_device else Ab.T
 
     def mm(a, w):
         return precision_matmul(a, w, st.precision)
@@ -466,9 +514,7 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
     def prod(a, w, w_split):
         return a @ w if w_split is None else matmul_split(a, w_split)
 
-    OP_s = op_split(OP)
-
-    def one_iter(x, z, y, rho, OP):
+    def one_iter(x, z, y, rho, OP, OP_s):
         if fused:
             # One (B, n+m) @ (n+m, n+m) GEMM per iteration.
             xtzt = prod(torch.cat([sigma * x - qb, rho[None, :] * z - y], dim=1), OP, OP_s)
@@ -513,18 +559,13 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
         rd_rel = r_dual / torch.clamp(max_dual, min=1e-12)
         return r_prim, r_dual, eps_pri, eps_dua, rp_rel, rd_rel
 
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
-    pinf = torch.zeros_like(conv)
-    dinf = torch.zeros_like(conv)
-    r_prim = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    r_dual = r_prim.clone()
-    it = 0
-    all_done = False
-    while it < st.max_iter and not all_done:
+    def block(it, x, z, y, conv, pinf, dinf, r_prim, r_dual, all_done, rho, OP, OP_s):
+        """One check block, its check and, at an adaptation point, the rho
+        rule."""
         x_old, y_old = x, y
         for _ in range(st.check_every):
-            x, z, y = one_iter(x, z, y, rho, OP)
-        it += st.check_every
+            x, z, y = one_iter(x, z, y, rho, OP, OP_s or None)
+        it = it + st.check_every
         r_prim, r_dual, eps_pri, eps_dua, rp_rel, rd_rel = residuals(x, z, y)
         conv = (r_prim <= eps_pri) & (r_dual <= eps_dua)
         if st.check_infeasibility:
@@ -539,9 +580,10 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
         # Early exit when every scenario is converged OR certified
         # infeasible/unbounded (certified scenarios would otherwise diverge
         # and hold the whole batch at max_iter).
-        all_done = bool(torch.all(conv | pinf | dinf))
+        all_done = torch.all(conv | pinf | dinf)
 
-        if st.adaptive_rho and m and (it % st.adaptive_rho_interval) < st.check_every:
+        at = (it % st.adaptive_rho_interval) < st.check_every
+        if st.adaptive_rho and m and (on_device or at):
             # OSQP rho adaptation, batch-shared, aggregated only over
             # still-active scenarios: a certified scenario's residuals
             # diverge and would poison the shared rho; converged ones sit
@@ -553,12 +595,32 @@ def _admm_iterate_impl(fac, q, l, u, settings, x0, y0):
             trigger = (scale > st.adaptive_rho_tolerance) | (
                 scale < 1.0 / st.adaptive_rho_tolerance
             )
-            if not all_done and bool(trigger):
-                rho = torch.clamp(rho * scale, _RHO_MIN, _RHO_MAX)
-                OP = _factor_shared(Pb, Ab, rho, sigma, st.method, st.precision)
+            if on_device or (not bool(all_done) and bool(trigger)):
+                new_rho = torch.clamp(rho * scale, _RHO_MIN, _RHO_MAX)
+                new_OP = _factor_shared(Pb, Ab, new_rho, sigma, st.method, st.precision)
                 if fused:
-                    OP = _fused_operator(OP, Ab, st.precision)
-                OP_s = op_split(OP)
+                    new_OP = _fused_operator(new_OP, Ab, st.precision)
+                new_s = op_split(new_OP) or ()
+                if on_device:
+                    keep = at & ~all_done & trigger
+                    new_rho = torch.where(keep, new_rho, rho)
+                    new_OP = torch.where(keep, new_OP, OP)
+                    new_s = tuple(torch.where(keep, a, b) for a, b in zip(new_s, OP_s))
+                rho, OP, OP_s = new_rho, new_OP, new_s
+        return it, x, z, y, conv, pinf, dinf, r_prim, r_dual, all_done, rho, OP, OP_s
+
+    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
+    r_prim = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    s = (0, x, z, y, conv, conv, conv, r_prim, r_prim,
+         torch.zeros((), dtype=torch.bool, device=dev), rho, OP, op_split(OP) or ())
+    if on_device:
+        s = (torch.zeros((), dtype=torch.int32, device=dev),) + s[1:]
+        s = torch.while_loop(lambda it, *c: (it < st.max_iter) & ~c[8],
+                             lambda *c: _fresh(block(*c)), _fresh(s))
+    else:
+        while s[0] < st.max_iter and not bool(s[9]):
+            s = block(*s)
+    it, x, z, y, conv, pinf, dinf, r_prim, r_dual = s[:9]
 
     return BatchQPSolution(
         x=x * D[None, :],

@@ -193,7 +193,6 @@ def build_local_system_parts(
     formulation: str,
     dtype,
     hessian_reg="auto",
-    autograd: bool = False,
 ):
     """Composable pieces of the dense local-QP assembly.
 
@@ -217,24 +216,11 @@ def build_local_system_parts(
 
     Derivatives come from ``torch.func``; every output is cast back to
     ``dtype`` (forward mode promotes ``tensor / python_float`` tangents to
-    float64).  ``autograd=True`` takes them from ``torch.autograd.functional``
-    instead, the form ``torch.export`` traces (its trace of the
-    ``torch.func`` transforms fails); the values are the same derivatives.
+    float64).
     """
     if formulation not in ("augmented", "reduced"):
         raise ValueError(f"unknown formulation {formulation!r}")
-    if autograd:
-        fn = torch.autograd.functional
-
-        def hessian(f):
-            return lambda z: fn.hessian(f, z)
-
-        def jacfwd(f):
-            return lambda z: fn.jacobian(f, z)
-
-        grad = jacfwd
-    else:
-        hessian, jacfwd, grad = torch.func.hessian, torch.func.jacfwd, torch.func.grad
+    hessian, jacfwd, grad = torch.func.hessian, torch.func.jacfwd, torch.func.grad
 
     def _regularize(H):
         """Convexify an indefinite objective Hessian (SQPOptions.hessian_reg):
@@ -512,28 +498,15 @@ class SQPOptimizationSolver:
         """Single-scenario solve on the dense local QP: per step the
         ``torch.func`` assembly, then :func:`.admm.admm_solve`.
 
-        The function carries ``kernel`` (the hand kernel it reaches, the
-        dense device loop at ``backend="pallas"``, else None) and
-        ``export_form``: its twin for ``torch.export``
+        The function carries ``export_form``: its twin for ``torch.export``
         (``utils/serialization.export_solver``), built with ``export=True``
-        — derivatives through ``torch.autograd.functional``, the ADMM loop
-        and the early exit decided on the device, the :class:`SQPResult`
-        fields returned as a tuple; the same results.  On stage-wise parts
-        (``stagewise.build_stagewise_parts``) the twin takes their
-        ``export_twin``, the stage loop's derivatives and objective; other
-        custom local-system parts have no export form."""
+        — the ADMM loop (the device-loop kernel's op at
+        ``backend="pallas"``) and the early exit decided on the device, the
+        :class:`SQPResult` fields returned as a tuple; the same results."""
         opt = self.options
         dtype = opt.dtype
         f_fn = self.f_fn
-        if export and self._custom_parts:
-            (matrices, _, vectors, stack_bounds), f_fn = self._parts[0].export_twin()
-        elif export:
-            matrices, _, vectors, stack_bounds = build_local_system_parts(
-                self.f_fn, self.g_fn, self.n_x, self.n_p, self.n_g,
-                opt.formulation, dtype, opt.hessian_reg, autograd=True,
-            )
-        else:
-            matrices, _, vectors, stack_bounds = self._parts
+        matrices, _, vectors, stack_bounds = self._parts
         step = self._step
         x_at = self._x_at
         early, tol = self._early_exit()
@@ -583,19 +556,21 @@ class SQPOptimizationSolver:
             res = _result(x, qpx, qpy, hist)
             return tuple(res) if export else res
 
-        solve.kernel = "admm_device_loop" if opt.admm.backend == "pallas" else None
         if not export:
-            twin = not self._custom_parts or hasattr(self._parts[0], "export_twin")
-            solve.export_form = self._build_solve_fn(export=True) if twin else None
+            solve.export_form = self._build_solve_fn(export=True)
         return solve
 
-    def _build_solve_batch_fn(self):
+    def _build_solve_batch_fn(self, export: bool = False):
         """Batched solve over B scenarios sharing the QP matrices.
 
         Signature: ``(x (B,nx), p (B,np), lbx (B,nx), ubx, lbg (B,ng), ubg,
         qp_x (B,qn), qp_y (B,qm)) -> SQPResult`` with leading batch dims
         (``qp_iters`` is one count per step: the batch iterates together).
         Each step calls the shared-factorization ADMM (admm_batched.py).
+        ``export_form`` (built with ``export=True``) is its twin for
+        ``torch.export``: the ADMM loop on the device (the shared chunk
+        kernel's op at ``backend="pallas"``), the fields as a tuple; the
+        same results.
         """
         from .admm_batched import admm_iterate_prepared, prepare_shared
 
@@ -648,6 +623,7 @@ class SQPOptimizationSolver:
                     fac, grad, lower0 - cval, upper0 - cval, admm_settings,
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
+                    on_device=export,
                 )
                 x_new, step_norm = step(x, sol.x[:, x_at:], p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
@@ -668,12 +644,14 @@ class SQPOptimizationSolver:
                 x = x_new
                 hist.append((f_b(x, p), qp_it, step_norm, sol.converged, sol.prim_inf,
                              sol.dual_inf, took))
-            return _result(x, qpx, qpy, hist)
+            res = _result(x, qpx, qpy, hist)
+            return tuple(res) if export else res
 
-        solve_batch.kernel = "shared_admm_chunk" if opt.admm.backend == "pallas" else None
+        if not export:
+            solve_batch.export_form = self._build_solve_batch_fn(export=True)
         return solve_batch
 
-    def _build_solve_dense_batch_fn(self):
+    def _build_solve_dense_batch_fn(self, export: bool = False):
         """Batched solve on each scenario's own dense local QP: the port of
         ``jax.vmap(solve_fn)``.
 
@@ -682,7 +660,10 @@ class SQPOptimizationSolver:
         result, batch-leading (``f_history``, ``qp_iters``, ``step_norms``
         and the status flags ``(B, step_num)``, ``steps_taken (B,)``).  Per
         step: ``torch.func.vmap`` of the dense assembly, then
-        :func:`.admm.admm_solve_batch`.
+        :func:`.admm.admm_solve_batch`.  ``export_form`` (built with
+        ``export=True``) is its twin for ``torch.export``: the ADMM loop on
+        the device (the device-loop kernel's op at ``backend="pallas"``),
+        the fields as a tuple; the same results.
         """
         opt = self.options
         dtype = opt.dtype
@@ -709,6 +690,7 @@ class SQPOptimizationSolver:
                     H, grad, A, lower - cval, upper - cval, opt.admm,
                     x0=qpx if opt.qp_warm_start else None,
                     y0=qpy if opt.qp_warm_start else None,
+                    on_device=export,
                 )
                 x_new, step_norm = step(x, sol.x[:, x_at:], p, lbx, ubx, lbg, ubg)
                 qp_it = sol.iters
@@ -730,9 +712,11 @@ class SQPOptimizationSolver:
             res = _result(x, qpx, qpy, hist)
             per_step = ("f_history", "qp_iters", "step_norms", "qp_converged",
                         "qp_prim_inf", "qp_dual_inf")
-            return res._replace(**{k: getattr(res, k).T for k in per_step})
+            res = res._replace(**{k: getattr(res, k).T for k in per_step})
+            return tuple(res) if export else res
 
-        solve_batch.kernel = "admm_device_loop" if opt.admm.backend == "pallas" else None
+        if not export:
+            solve_batch.export_form = self._build_solve_dense_batch_fn(export=True)
         return solve_batch
 
     def _build_solve_banded_fn(self, export: bool = False):
@@ -740,23 +724,16 @@ class SQPOptimizationSolver:
         (``solvers/admm_banded.admm_solve_banded``, no hand kernel).
 
         ``export_form``, its twin for ``torch.export``, is built with
-        ``export=True``: the stage derivatives and objective of
-        ``stagewise.build_stage_autograd`` (a stage loop on
-        ``torch.autograd.functional``, not ``torch.func.vmap``), the ADMM
-        loop as one ``torch.while_loop`` on the device, the
-        :class:`SQPResult` fields as a tuple; the same results."""
-        from ..stagewise import build_stage_autograd, build_stage_blocks
+        ``export=True``: the ADMM loop as one ``torch.while_loop`` on the
+        device, the :class:`SQPResult` fields as a tuple; the same results."""
+        from ..stagewise import build_stage_blocks
         from .admm_banded import BandedQP, admm_solve_banded
 
         opt = self.options
         dtype = opt.dtype
         _, _, vectors, stack_bounds = self._parts
-        if export:
-            f_fn, blocks, vectors = build_stage_autograd(self.stage_structure, dtype,
-                                                         opt.hessian_reg)
-        else:
-            blocks = build_stage_blocks(self.stage_structure, dtype, opt.hessian_reg)
-            f_fn = self.f_fn
+        blocks = build_stage_blocks(self.stage_structure, dtype, opt.hessian_reg)
+        f_fn = self.f_fn
         step = self._step
         early, tol = self._early_exit()
 
@@ -796,17 +773,20 @@ class SQPOptimizationSolver:
             res = _result(x, qpx, qpy, hist)
             return tuple(res) if export else res
 
-        solve.kernel = None
         if not export:
             solve.export_form = self._build_solve_banded_fn(export=True)
         return solve
 
-    def _build_solve_banded_batch_fn(self):
+    def _build_solve_banded_batch_fn(self, export: bool = False):
         """Batched banded solve: ``(x (B,nx), p (B,np), lbx (B,nx), ubx,
         lbg (B,ng), ubg, qp_x (B,qn), qp_y (B,qm)) -> SQPResult`` with
         leading batch dims.  Per step: batch-last stage derivatives, then
         ``admm_solve_banded_batch_T`` — one chunk launch for the whole
-        batch (per rho-constant chunk)."""
+        batch (per rho-constant chunk).  ``export_form`` (built with
+        ``export=True``) is its twin for ``torch.export``: the chunk loop on
+        the device, each chunk kernel one op node, the fields as a tuple;
+        the same results.  ``polish=True`` has none (its polish runs per
+        scenario on the host)."""
         from ..stagewise import build_stage_blocks_batch, build_stage_vectors_batch
         from .admm_banded import BandedQP
         from .admm_banded_batch import _solve_banded_batch_T, ruiz_scalings_batch_T
@@ -861,6 +841,7 @@ class SQPOptimizationSolver:
                         qpxT if opt.qp_warm_start else None,
                         qpyT if opt.qp_warm_start else None,
                         scalingsT,
+                        on_device=export,
                     )
                 )
                 x_new, step_norm = step(x, sxT.T, p, lbx, ubx, lbg, ubg)
@@ -878,9 +859,14 @@ class SQPOptimizationSolver:
                     took = torch.ones_like(stop)
                 x = x_new
                 hist.append((f_b(x, p), qp_it, step_norm, s_conv, s_pinf, s_dinf, took))
-            return _result(x, qpxT.T, qpyT.T, hist)
+            res = _result(x, qpxT.T, qpyT.T, hist)
+            return tuple(res) if export else res
 
-        solve_batch.kernel = "banded_admm_chunk / banded_admm_chunk_rolled / banded_admm_chunk_cr"
+        if not export:
+            solve_batch.export_form = (
+                None if admm_settings.polish else self._build_solve_banded_batch_fn(export=True))
+            solve_batch.no_export = ("the banded batch solve with polish=True (its polish runs "
+                                     "per scenario on the host)")
         return solve_batch
 
     # -- reference-parity stateful API ----------------------------------

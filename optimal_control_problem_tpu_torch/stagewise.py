@@ -15,12 +15,6 @@ axis (:func:`_vmap_batch_last`), so every per-stage intermediate is one
 batched driver and the CUDA chunk kernel.  Per-scenario evaluators are the
 same code with a batch of one.  ``build_stagewise_parts`` also embeds the
 blocks in the dense ``(H_mat, A)`` of the dense and shared-system QP paths.
-
-:func:`build_stage_autograd` is the form ``torch.export`` traces (its trace
-of the ``torch.func`` transforms fails): a Python loop over the stages and
-``torch.autograd.functional``, each kind of block from one Jacobian of the
-stage sum — the stages do not couple, so block k of the sum's Jacobian is
-stage k's.  The values are the same derivatives.
 """
 
 from __future__ import annotations
@@ -36,7 +30,6 @@ __all__ = [
     "StageStructure",
     "build_stagewise_fns",
     "build_stagewise_parts",
-    "build_stage_autograd",
     "build_stage_blocks",
     "build_stage_blocks_batch",
     "build_stage_vectors_batch",
@@ -131,7 +124,7 @@ def build_stagewise_fns(ss: StageStructure):
     return f_fn, g_fn, lbg, ubg
 
 
-def build_stagewise_parts(ss: StageStructure, dtype, hessian_reg="auto", autograd: bool = False):
+def build_stagewise_parts(ss: StageStructure, dtype, hessian_reg="auto"):
     """Structured local-system pieces ``(matrices, matrices_raw, vectors,
     stack_bounds)`` compatible with ``solvers/sqp.build_local_system_parts``
     (reduced formulation), with every derivative taken stage-wise.
@@ -144,24 +137,16 @@ def build_stagewise_parts(ss: StageStructure, dtype, hessian_reg="auto", autogra
     (grad (n,), cval (m,))``; ``stack_bounds(p, lbx, ubx, lbg, ubg) ->
     (lower, upper)`` (batched inputs work too: the bound stack concatenates
     along the last axis).  Each piece maps under ``torch.func.vmap``.
-    ``autograd=True`` takes the derivatives from :func:`build_stage_autograd`
-    instead, the form ``torch.export`` traces.  ``matrices.export_twin()``
-    builds that form with this one's settings, with the stage-loop
-    objective: ``((matrices, matrices_raw, vectors, stack_bounds), f_fn)``.
     """
     H, w = ss.horizon, ss.frame_size
     n_x = H * w
-    if autograd:
-        _, blocks, vectors = build_stage_autograd(ss, dtype, hessian_reg)
-        _, blocks_raw, _ = build_stage_autograd(ss, dtype, 0.0)
-    else:
-        vectors_T = build_stage_vectors_batch(ss, dtype)
-        blocks = build_stage_blocks(ss, dtype, hessian_reg)
-        blocks_raw = build_stage_blocks(ss, dtype, 0.0)
+    vectors_T = build_stage_vectors_batch(ss, dtype)
+    blocks = build_stage_blocks(ss, dtype, hessian_reg)
+    blocks_raw = build_stage_blocks(ss, dtype, 0.0)
 
-        def vectors(x, p):
-            gT, cT = vectors_T(x[:, None], p[:, None])
-            return gT[:, 0], cT[:, 0]
+    def vectors(x, p):
+        gT, cT = vectors_T(x[:, None], p[:, None])
+        return gT[:, 0], cT[:, 0]
 
     def _assemble(Hb, J0, J1, Jc):
         rows = [torch.eye(n_x, dtype=dtype, device=Hb.device)]
@@ -183,11 +168,6 @@ def build_stagewise_parts(ss: StageStructure, dtype, hessian_reg="auto", autogra
             torch.cat([ubx, ubg], dim=-1).to(dtype),
         )
 
-    def export_twin():
-        parts = build_stagewise_parts(ss, dtype, hessian_reg, autograd=True)
-        return parts, build_stage_autograd(ss, dtype, hessian_reg)[0]
-
-    matrices.export_twin = export_twin
     return matrices, matrices_raw, vectors, stack_bounds
 
 
@@ -234,8 +214,11 @@ def _vmap_batch_last(fn, n_array_args, scalar_axes=()):
     """
 
     def to_flat(a):
-        # (S, d, B) -> (d, S*B)
-        return a.movedim(0, -2).reshape(a.shape[1:-1] + (a.shape[0] * a.shape[-1],))
+        # (S, d, B) -> (d, S*B), row-major: at B=1 the reshape is a view with
+        # permuted strides, which forward-mode AD under torch.export's trace
+        # rejects ("tangent ... same layout as primal").
+        flat = a.movedim(0, -2).reshape(a.shape[1:-1] + (a.shape[0] * a.shape[-1],))
+        return flat.contiguous()
 
     in_dims = tuple([-1] * n_array_args + [0] * len(scalar_axes))
     mapped = vmap(fn, in_dims=in_dims, out_dims=-1)
@@ -363,67 +346,3 @@ def build_stage_vectors_batch(ss: StageStructure, dtype):
         return gradT, torch.cat(parts, dim=0)
 
     return vectors_T
-
-
-def build_stage_autograd(ss: StageStructure, dtype, hessian_reg="auto"):
-    """Per-scenario ``(f_fn, blocks, vectors)`` without ``torch.func``:
-    ``f_fn(x, p)`` the stage sum, ``blocks(x, p) -> (Hb, J0, J1, Jc)`` and
-    ``vectors(x, p) -> (grad, cval)`` as :func:`build_stage_blocks` and
-    :func:`build_stagewise_parts` give them.  Each stage function runs in a
-    Python loop over the horizon; the derivatives come from
-    ``torch.autograd.functional``: one Jacobian of the stage sum per kind
-    of block (its block k is stage k's, since stages do not couple), one
-    more for the Hessian blocks."""
-    H, w = ss.horizon, ss.frame_size
-    r_dyn, r_sc = _sizes(ss)
-    jac = torch.autograd.functional.jacobian
-
-    def per_stage(fn, *args):
-        """``fn`` of stage k's slices, k = 0..S-1, stacked."""
-        return torch.stack([fn(*(a[k] for a in args)) for k in range(args[0].shape[0])])
-
-    def ks_of(x):
-        return torch.arange(H, device=x.device)
-
-    def cost_sum(frames, refs, ks):
-        return torch.sum(per_stage(ss.stage_cost, frames, refs, ks))
-
-    def f_fn(X, P):
-        return cost_sum(X.reshape(H, w), ss.ref_frames(P), ks_of(X))
-
-    def blocks(x, p):
-        frames = x.reshape(H, w).to(dtype)
-        refs = ss.ref_frames(p.to(dtype))
-        ks = ks_of(x)
-        grad_of = lambda fr: jac(lambda f: cost_sum(f, refs, ks), fr, create_graph=True)  # noqa: E731
-        # d/dframes of sum_k grad_k: (w, H, w), block k = stage k's Hessian.
-        Hb = jac(lambda fr: torch.sum(grad_of(fr), dim=0), frames).permute(1, 0, 2)
-        Hb = _regularize_blocks_T(Hb.to(dtype)[..., None], w, hessian_reg)[..., 0]
-        if r_dyn:
-            dyn_sum = lambda a, b: torch.sum(per_stage(ss.dynamics, a, b), dim=0)  # noqa: E731
-            J0, J1 = (j.permute(1, 0, 2).to(dtype)
-                      for j in jac(dyn_sum, (frames[:-1], frames[1:])))
-        else:
-            J0 = J1 = torch.zeros((H - 1, 0, w), dtype=dtype, device=x.device)
-        if r_sc:
-            fn = ss.stage_constraints[0]
-            sc_sum = lambda fr: torch.sum(per_stage(fn, fr, refs, ks), dim=0)  # noqa: E731
-            Jc = jac(sc_sum, frames).permute(1, 0, 2).to(dtype)
-        else:
-            Jc = torch.zeros((H, 0, w), dtype=dtype, device=x.device)
-        return Hb, J0, J1, Jc
-
-    def vectors(x, p):
-        frames = x.reshape(H, w).to(dtype)
-        refs = ss.ref_frames(p.to(dtype))
-        ks = ks_of(x)
-        g = jac(lambda fr: cost_sum(fr, refs, ks), frames).reshape(H * w).to(dtype)
-        parts = [x.to(dtype)]
-        if r_dyn:
-            parts.append(per_stage(ss.dynamics, frames[:-1], frames[1:]).reshape(-1).to(dtype))
-        if r_sc:
-            fn = ss.stage_constraints[0]
-            parts.append(per_stage(fn, frames, refs, ks).reshape(-1).to(dtype))
-        return g, torch.cat(parts)
-
-    return f_fn, blocks, vectors

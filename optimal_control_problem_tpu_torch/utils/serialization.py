@@ -8,13 +8,19 @@
 * :func:`export_solver` / :func:`import_solver`: a solve function as a
   ``torch.export`` program (``torch.export.save`` / ``load``), the analog
   of the reference's generated ``.so`` solver libraries and of JAX's
-  StableHLO export: it reloads and runs without the Python problem
-  definition.  ``SQPOptimizationSolver.solve_fn`` reads its loop
-  conditions on the host, which ``torch.export`` cannot trace; it carries
-  an ``export_form`` twin with every condition on the device and the same
-  results, and that is what is exported.  A function that reaches a
-  hand-written CUDA kernel is refused: the kernel cannot be traced, and
-  its plain version is never traced in its place.
+  export of a jitted solve: it reloads and runs without the Python
+  problem definition.  The solve functions of ``SQPOptimizationSolver``
+  (``solve_fn``, ``solve_batch_fn``, ``solve_batch_banded_fn``,
+  ``solve_batch_dense_fn``) read their loop conditions on the host, which
+  ``torch.export`` cannot trace; each carries an ``export_form`` twin
+  with every condition on the device (``torch.while_loop``) and the same
+  results, and that is what is exported.  The hand-written CUDA kernels
+  are custom ops (``torch.ops.ocp_torch.*``, registered when the port is
+  imported): the program holds each as one node, never its plain
+  version's operations, and the reloaded program launches the same
+  kernels on the card (their plain versions on the CPU).  An artifact
+  runs on the device it was exported for, as a JAX export runs on its
+  platform.
 * :func:`enable_compilation_cache`: where the port's kernels are built
   (it has no XLA cache; nothing here uses ``torch.compile``).
 """
@@ -27,6 +33,7 @@ from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
+from torch.export._trace import _export
 
 from ..ops import build
 
@@ -35,6 +42,7 @@ __all__ = [
     "load_state",
     "save_solver_state",
     "load_solver_state",
+    "export_program",
     "export_solver",
     "import_solver",
     "enable_compilation_cache",
@@ -81,33 +89,44 @@ class _Exported(torch.nn.Module):
         return tuple(out) if isinstance(out, (tuple, list)) else out
 
 
+def export_program(fn, example_args: Sequence[Any]) -> torch.export.ExportedProgram:
+    """:func:`export_solver`'s trace, unsaved: the ``ExportedProgram`` of
+    ``fn``'s ``export_form`` (or of ``fn``) at ``example_args``.
+
+    The trace is ``torch.export``'s non-strict one at the ATen level
+    (``pre_dispatch=False``): the derivatives of the solves come from
+    ``torch.func`` transforms, which only that level traces (they run as
+    the trace is taken, and the program holds the operations they
+    produce: the direct call's, so its values)."""
+    form = getattr(fn, "export_form", fn)
+    if form is None:
+        raise ValueError(f"export_solver: {getattr(fn, 'no_export', 'this function')} has no "
+                         "export form")
+    args = tuple(a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+                 for a in example_args)
+    return _export(_Exported(form), args, strict=False, pre_dispatch=False)
+
+
 def export_solver(fn, example_args: Sequence[Any], path: str) -> None:
     """Serialize a solve function, traced at ``example_args`` (their
     shapes, dtypes and device), to ``path`` as a ``torch.export`` program.
 
-    ``fn`` may be ``SQPOptimizationSolver.solve_fn`` (its ``export_form``
-    is traced) or any torch function of tensors.  Raises ``ValueError`` for
-    a function that reaches a hand-written CUDA kernel (``fn.kernel``, e.g.
-    ``backend="pallas"``); any other kernel met during the trace raises
-    there (``ops.banded_kernel.refuse_export``).
+    ``fn`` may be one of ``SQPOptimizationSolver``'s solve functions (its
+    ``export_form`` is traced) or any torch function of tensors.  The
+    kernels it reaches are traced as their custom ops.  Raises
+    ``ValueError`` for a solve function without an export form (custom
+    local-system parts without one; the banded batch solve with
+    ``polish=True``, whose polish runs per scenario on the host).
     """
-    kernel = getattr(fn, "kernel", None)
-    if kernel:
-        raise ValueError(
-            f"export_solver: this function reaches the hand-written CUDA kernel {kernel}, "
-            "which torch.export cannot trace; the plain version is never traced in its place "
-            "(solve with backend='xla' to export)"
-        )
-    form = getattr(fn, "export_form", None) or fn
-    args = tuple(a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-                 for a in example_args)
-    program = torch.export.export(_Exported(form), args, strict=False)
-    torch.export.save(program, str(path))
+    torch.export.save(export_program(fn, example_args), str(path))
 
 
 def import_solver(path: str):
     """Load :func:`export_solver`'s program; returns a callable of the same
-    arguments (the outputs as a tuple: ``SQPResult``'s fields in order)."""
+    arguments (the outputs as a tuple: ``SQPResult``'s fields in order).
+    The kernels' custom ops are registered first (``..ops``)."""
+    from .. import ops  # noqa: F401  (registers the ocp_torch ops a program holds)
+
     return torch.export.load(str(path)).module()
 
 

@@ -1,0 +1,22 @@
+"""``export_solver`` / ``import_solver`` on the quadrotor's banded batch
+tick (h4, B=2, one SQP step, the bench settings), which reaches B2, the
+rolled chunk (w=16 has no one-way instantiation): one op node a step;
+held to the direct call and to JAX's exported artifact of the same tick
+as ``torch_export_cases.round_trip`` sets out.  The CR solver's tick is in
+``test_torch_export_cr.py``.
+"""
+
+from optimal_control_problem_tpu.models import quadrotor as jqr
+from optimal_control_problem_tpu.parallel import BatchedSolver as JBatchedSolver
+from optimal_control_problem_tpu_torch.parallel import BatchedSolver
+from torch_export_cases import quadrotor, round_trip, tqr
+from torch_threads import one_torch_thread  # noqa: F401
+
+
+def test_quadrotor_banded_batch_exports_b2(monkeypatch, tmp_path):
+    tb = BatchedSolver(quadrotor(tqr, "thomas"), device="cpu")
+    jb = JBatchedSolver(quadrotor(jqr, "thomas"))
+    direct = round_trip(monkeypatch, tmp_path, tb, jb, "quadrotor", 2,
+                        "banded_admm_chunk_rolled", {("top", "banded_admm_chunk_rolled"): 1},
+                        lambda: 1)
+    assert bool(direct.qp_converged.all())

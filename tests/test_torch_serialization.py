@@ -8,16 +8,17 @@ against the JAX package's — mirrors ``tests/test_serialization.py``.
   conditions on the device) with ``torch.export``; the reloaded program
   equals the direct ``solve_fn`` call to JAX's 1e-6, and both equal JAX's
   exported artifact's answer at the SQP's converged tolerance (2e-3).  A
-  function that reaches a hand kernel is refused, its plain version never
-  traced.
+  solve that reaches a hand kernel (``backend="pallas"``: the dense device
+  loop) exports too, the kernel one custom-op node, and so does a direct
+  call of the kernel's wrapper; the reloaded programs equal the direct
+  calls.
 * A stage-structured cart-pole's ``solve_fn`` exports too, on both of its
   paths: the per-scenario banded solve (``method="banded"``, no hand
   kernel) and the dense solve on stage-wise parts (``"condensed"``).  The
   reloaded program gives the direct call's QP iterations and trajectory
-  (1e-5: the export form takes its stage derivatives from
-  ``torch.autograd.functional``, the direct call from ``torch.func``), and
-  JAX's exported artifact's at 2e-3.  h4, one SQP step: the trace of the
-  unrolled stage loop is most of the test's time.
+  (1e-5; the program holds the operations of the direct call's own
+  ``torch.func`` derivatives), and JAX's exported artifact's at 2e-3.  h4,
+  one SQP step: the trace is most of the test's time.
 """
 
 import jax.numpy as jnp
@@ -118,21 +119,42 @@ def test_export_import_solver_artifact(tmp_path):
     np.testing.assert_allclose(res_loaded[0].numpy(), np.asarray(jres[0]), atol=2e-3)
 
 
-def test_export_refuses_hand_kernels(tmp_path):
-    """``backend="pallas"`` reaches the dense device loop: refused up front;
-    a function that calls a kernel wrapper directly is refused inside the
-    trace (the plain version is never traced in its place)."""
-    s = make_solver(method="condensed", backend="pallas")
-    with pytest.raises(ValueError, match="admm_device_loop"):
-        export_solver(s.solve_fn, (torch.zeros(2),) * 8, str(tmp_path / "x.pt2"))
+def holds_op(program, name):
+    """Whether a graph of ``program`` (the top one or a loop body) calls
+    the op ``ocp_torch::<name>``."""
+    return any(f"ocp_torch.{name}" in gm.code for gm in program.graph_module.modules()
+               if isinstance(gm, torch.fx.GraphModule))
+
+
+def test_export_reaches_hand_kernels(tmp_path):
+    """``backend="pallas"`` reaches the dense device loop: the solve exports
+    with the kernel as its op node and the reloaded program equals the
+    direct call; so does a function that calls the kernel wrapper directly
+    (on the CPU the op runs the plain version)."""
+    s = make_solver(sqp_iters=1, method="condensed", backend="pallas")
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    args = (f32([0.3, -0.2]), torch.zeros(0), f32(ARG["lbx"]), f32(ARG["ubx"]),
+            f32(ARG["lbg"]), f32(ARG["ubg"]), torch.zeros(2), torch.zeros(3))
+    path = tmp_path / "pallas.pt2"
+    export_solver(s.solve_fn, args, str(path))
+    loaded = import_solver(str(path))(*args)
+    direct = s.solve_fn(*args)
+    assert torch.equal(direct.qp_iters, loaded[5])
+    np.testing.assert_allclose(direct.x.numpy(), loaded[0].numpy(), atol=1e-6)
+    assert holds_op(torch.export.load(str(path)), "admm_device_loop")  # in the loop body
     from optimal_control_problem_tpu_torch.ops.admm_kernel import admm_device_loop
 
-    def direct(OP):
-        return admm_device_loop(OP, *([OP] * 9), 1e-6, 1.6, 1e-3, 1e-3, OP[0], OP[0],
-                                max_iter=25, check_every=25)
+    def direct_call(OP):
+        v = OP[:, 0]  # one QP, n = m = 2: P = A = OP, q = v, bounds +-(v + 1)
+        return admm_device_loop(OP, OP, OP, v, -v - 1, v + 1, v + 1, v + 1, v + 1, v[:, 0] + 1,
+                                1e-6, 1.6, 1e-3, 1e-3, 0 * v, 0 * v, max_iter=25,
+                                check_every=25)
 
-    with pytest.raises(RuntimeError, match="hand-written CUDA kernel"):
-        export_solver(direct, (torch.eye(2)[None],), str(tmp_path / "y.pt2"))
+    OP = torch.eye(2)[None]
+    export_solver(direct_call, (OP,), str(tmp_path / "y.pt2"))
+    assert holds_op(torch.export.load(str(tmp_path / "y.pt2")), "admm_device_loop")
+    for a, b in zip(import_solver(str(tmp_path / "y.pt2"))(OP), direct_call(OP)):
+        assert torch.equal(a, b)
 
 
 def test_enable_compilation_cache_moves_the_build_dir(tmp_path, monkeypatch):
