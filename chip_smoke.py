@@ -105,15 +105,28 @@ Phases:
      and cart-pole; 5l. ``TpuQP`` solves on the card; 5m. an
      ``export_solver``/``import_solver`` round trip of a toy solve
      (``toy_export_job``), then the batched kernel ticks exported and
-     reloaded (``export_job``), all in three worker processes on the card
-     started before phase 5, each batched solve cut
+     reloaded (``export_job``), in four worker processes on the card
+     started before phase 5 (the two longest traces, the polish tick's and
+     the sequence-parallel SQP's below, in two started before phase 4: a
+     program holds its inputs' shapes, not their values), each batched
+     solve cut
      to ``EXPORT_STEPS`` SQP steps): cart-pole h20 banded B=1024 (B1), the
-     quadrotor h100 B=64 with "thomas" (B2) and "cr" (B4), the double
+     same with ``polish: true`` (B1, then one batched polish pass a step),
+     the quadrotor h100 B=64 with "thomas" (B2) and "cr" (B4), the double
      integrator B=4096 "pallas" at "highest" and "high" (B3 in both forms)
      and the dense cart-pole B=256 "pallas" (B5); each loaded tick from
      phase 4's state gives the direct tick's QP iterations exactly and its
      plan within 1e-5, holds its kernel's op node and raises the kernel
-     counters as the direct tick does;
+     counters as the direct tick does; with polish, each scenario's
+     residuals after the direct tick's polish passes are no higher than
+     before.  And the sequence-parallel SQP of phase 7c (quadrotor h100
+     over ``"h"`` of 4 in-process shards, ``EXPORT_STEPS`` iterations, cold):
+     ``functools.partial(sqp_solve_seq_parallel, ...)``
+     at ``HorizonShardedSolver``'s settings, whose direct call is the
+     solver's tick bitwise, exported and reloaded: the loaded call's
+     trajectory within 1e-5 of the direct call's, its ADMM iterations and
+     QP flags equal (no kernel on this path, none in JAX either); traced
+     by ``seq_trace_job``, reloaded and called by ``seq_run_job``;
   6. time each kernel at its main path's own inputs beside its plain
      version and its bound, the banded ones with their prologue and the
      mean and largest iteration count per launch (the rolled one also
@@ -235,6 +248,8 @@ DENSE_ADMM = {
 # (the trace unrolls the step loop: host time grows with it); the ticks it
 # compares are of that solve, direct and reloaded.
 EXPORT_STEPS = 2
+# ... and phase 7c's horizon-sharded quadrotor h100 over 4 in-process shards.
+SEQ_EXPORT = {"horizon": 100, "shards": 4}
 
 
 def log(msg: str) -> None:
@@ -489,17 +504,103 @@ def closed_loop(device):
     return np.array(errs), np.array(states), np.array(us), time.perf_counter() - t0
 
 
+def _save_program(program, path):
+    """``torch.export.save`` under a temporary name, then renamed: a job
+    waiting on ``path`` (``_saved_program``) never reads half a file."""
+    import torch
+
+    part = path[:-len(".pt2")] + ".part.pt2"
+    torch.export.save(program, part)
+    os.replace(part, path)
+
+
+def _saved_program(path, limit=900.0):
+    """Wait, in a worker process, for the program a trace job started
+    before phase 4 saves at ``path``; the seconds waited."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > limit:
+            raise RuntimeError(f"no program at {path} after {limit:.0f} s")
+        time.sleep(1.0)
+    return time.perf_counter() - t0
+
+
+def _batched_case(case):
+    """``models.<model>.build(cfg)``'s batched solver on the card and its
+    batch function's arguments for a tick from ``case``'s frames,
+    references and state (numpy; the state ``None`` for a zero one), as
+    ``BatchedSolver`` builds them (first frame pinned)."""
+    import importlib
+
+    import torch
+
+    from optimal_control_problem_tpu_torch.parallel import BatchedSolver
+
+    mod = importlib.import_module(f"optimal_control_problem_tpu_torch.models.{case['model']}")
+    ocp = mod.build(case["cfg"], **case["build_kw"], device="cuda")
+    if "iter_precision" in case:  # not a key of the configuration: set, then generate again
+        ocp.solver_settings.admm = ocp.solver_settings.admm.replace(
+            iter_precision=case["iter_precision"])
+        ocp.gen_solver()
+    solver = BatchedSolver(ocp)
+    dev = solver.device
+    fr = torch.as_tensor(case["frames"], device=dev)
+    B, fs = fr.shape[0], solver.frame_size
+    lbx = solver._lbx_tail.expand(B, -1).clone()
+    ubx = solver._ubx_tail.expand(B, -1).clone()
+    lbx[:, :fs] = fr
+    ubx[:, :fs] = fr
+    state = (solver.init_state(B) if case["state"] is None
+             else (torch.as_tensor(a, device=dev) for a in case["state"]))
+    x, qp_x, qp_y = state
+    args = (x, torch.as_tensor(case["refs"], device=dev), lbx, ubx,
+            solver._lbg.expand(B, -1).contiguous(), solver._ubg.expand(B, -1).contiguous(),
+            qp_x, qp_y)
+    return solver, args
+
+
+def _op_nodes(program):
+    """The program's ``ocp_torch`` op nodes by graph (top, loop bodies)."""
+    import torch
+
+    nodes = {}
+    for gname, gm in program.graph_module.named_modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                if str(node.target).startswith("ocp_torch."):
+                    key = f"{gname or 'top'}:{str(node.target).split('.')[1]}"
+                    nodes[key] = nodes.get(key, 0) + 1
+    return nodes
+
+
+def export_trace_job(case):
+    """A batched solve's export alone (``case`` as ``export_job``'s, any
+    state of the tick's shapes): traced and saved to ``case["path"]`` in a
+    worker process started before phase 4, for a solve whose trace is long
+    (the program holds no input's values, only its shape)."""
+    from optimal_control_problem_tpu_torch.utils.serialization import export_program
+
+    t_job = time.perf_counter()
+    solver, args = _batched_case(case)
+    t0 = time.perf_counter()
+    program = export_program(solver._solve_batch, args)
+    t_trace = time.perf_counter() - t0
+    _save_program(program, case["path"])
+    return {"trace_s": t_trace, "bytes": os.path.getsize(case["path"]),
+            "nodes": _op_nodes(program), "job_s": time.perf_counter() - t_job}
+
+
 def export_job(case):
     """Phase 5m's round trip of one batched solve, in a worker process on
     the card: ``models.<model>.build(cfg)``'s batch function exported by
     ``export_solver`` at the tick's inputs (``case``: the frames,
     references and the phase 4 state it ticks from, numpy), saved, reloaded
-    by ``import_solver``; then the direct tick and the loaded program's tick
-    from that state, the kernels' launch counters reset before each and
-    read after, and ``reps`` more of each, interleaved, for their ms.
-    Returns what phase 5m checks and logs."""
-    import importlib
-
+    by ``import_solver`` (with ``case["traced"]``, the program
+    ``export_trace_job`` saves is waited for and reloaded instead); then
+    the direct tick
+    and the loaded program's tick from that state, the kernels' launch
+    counters reset before each and read after, and ``reps`` more of each,
+    interleaved, for their ms.  Returns what phase 5m checks and logs."""
     import torch
 
     from optimal_control_problem_tpu_torch.ops import admm_kernel as ak
@@ -507,7 +608,6 @@ def export_job(case):
     from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
     from optimal_control_problem_tpu_torch.ops import banded_rolled_kernel as brk
     from optimal_control_problem_tpu_torch.ops import shared_kernel as sk
-    from optimal_control_problem_tpu_torch.parallel import BatchedSolver
     from optimal_control_problem_tpu_torch.utils.serialization import (
         export_program,
         import_solver,
@@ -525,40 +625,40 @@ def export_job(case):
         return out, {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counted}
 
     t_job = time.perf_counter()
-    mod = importlib.import_module(f"optimal_control_problem_tpu_torch.models.{case['model']}")
-    ocp = mod.build(case["cfg"], **case["build_kw"], device="cuda")
-    if "iter_precision" in case:  # not a key of the configuration: set, then generate again
-        ocp.solver_settings.admm = ocp.solver_settings.admm.replace(
-            iter_precision=case["iter_precision"])
-        ocp.gen_solver()
-    solver = BatchedSolver(ocp)
-    dev = solver.device
-    fr = torch.as_tensor(case["frames"], device=dev)
-    B, fs = fr.shape[0], solver.frame_size
-    lbx = solver._lbx_tail.expand(B, -1).clone()
-    ubx = solver._ubx_tail.expand(B, -1).clone()
-    lbx[:, :fs] = fr
-    ubx[:, :fs] = fr
-    x, qp_x, qp_y = (torch.as_tensor(a, device=dev) for a in case["state"])
-    args = (x, torch.as_tensor(case["refs"], device=dev), lbx, ubx,
-            solver._lbg.expand(B, -1).contiguous(), solver._ubg.expand(B, -1).contiguous(),
-            qp_x, qp_y)
+    solver, args = _batched_case(case)
     fn = solver._solve_batch
-    t0 = time.perf_counter()
-    program = export_program(fn, args)
-    t_trace = time.perf_counter() - t0
-    nodes = {}
-    for gname, gm in program.graph_module.named_modules():
-        if isinstance(gm, torch.fx.GraphModule):
-            for node in gm.graph.nodes:
-                if str(node.target).startswith("ocp_torch."):
-                    key = f"{gname or 'top'}:{str(node.target).split('.')[1]}"
-                    nodes[key] = nodes.get(key, 0) + 1
-    torch.export.save(program, case["path"])
+    traced = {}
+    if case.get("traced"):
+        traced["waited_s"] = _saved_program(case["path"])
+    else:
+        t0 = time.perf_counter()
+        program = export_program(fn, args)
+        traced["trace_s"] = time.perf_counter() - t0
+        traced["nodes"] = _op_nodes(program)
+        torch.export.save(program, case["path"])
+        traced["bytes"] = os.path.getsize(case["path"])
     t0 = time.perf_counter()
     loaded = import_solver(case["path"])
     t_load = time.perf_counter() - t0
-    direct, n_direct = launches(lambda: fn(*args))
+    # With polish=True, the residuals each polish pass gets and returns in
+    # the direct tick (polish keeps a scenario's point unless both fall).
+    polished = []
+    if case.get("polish"):
+        from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
+
+        real_polish = abb.banded_polish_T
+
+        def spy(qpT, st, x, y, z, rp, rd, *rest):
+            out = real_polish(qpT, st, x, y, z, rp, rd, *rest)
+            polished.append((rp, rd, out[3], out[4]))
+            return out
+
+        abb.banded_polish_T = spy
+    try:
+        direct, n_direct = launches(lambda: fn(*args))
+    finally:
+        if case.get("polish"):
+            abb.banded_polish_T = real_polish
     out, n_loaded = launches(lambda: loaded(*args))
     # One more tick of each under torch.profiler: the device's kernel time
     # against the tick's wall time (the rest is the host's share).
@@ -585,8 +685,7 @@ def export_job(case):
             torch.cuda.synchronize()
             ms[which].append((time.perf_counter() - t0) * 1e3)
     return {
-        "trace_s": t_trace, "load_s": t_load, "bytes": os.path.getsize(case["path"]),
-        "nodes": nodes, "n_direct": n_direct, "n_loaded": n_loaded,
+        **traced, "load_s": t_load, "n_direct": n_direct, "n_loaded": n_loaded,
         "iters_equal": bool(torch.equal(direct.qp_iters, out[5])),
         "qp_iters": direct.qp_iters.float().mean().item(),
         "gap": float((direct.x - out[0]).abs().max()),
@@ -596,6 +695,107 @@ def export_job(case):
         "loaded_ms": statistics.median(ms["loaded"]), "job_s": time.perf_counter() - t_job,
         "device_ms": {k: v[0] for k, v in busy.items()},
         "profiled_ms": {k: v[1] for k, v in busy.items()},
+        "polish_passes": len(polished),
+        "polish_no_higher": all(bool(((rp2 <= rp) & (rd2 <= rd)).all())
+                                for rp, rd, rp2, rd2 in polished),
+        "polish_accepted": [int(((rp2 < rp) | (rd2 < rd)).sum()) for rp, rd, rp2, rd2 in polished],
+    }
+
+
+def _seq_case(case):
+    """Phase 7c's quadrotor (``case``: horizon, shards, device) at
+    ``HorizonShardedSolver``'s settings with its SQP iterations cut to
+    ``EXPORT_STEPS``: the solver, ``functools.partial(sqp_solve_seq_parallel,
+    ...)`` built from its settings as a user writes it for JAX's
+    ``export_solver``, a cold tick's inputs as the solver builds them (the
+    first frame pinned, per-stage references, zero frames: no initial
+    guess), the frame and the reference."""
+    import functools
+
+    import torch
+
+    from optimal_control_problem_tpu_torch.models import quadrotor
+    from optimal_control_problem_tpu_torch.parallel import (
+        HorizonShardedSolver,
+        make_mesh,
+        sqp_solve_seq_parallel,
+    )
+
+    dev = torch.device(case["device"])
+    H = case["horizon"]
+    qcfg = quadrotor.make_config(horizon=H, dt=0.02, alpha=0.3, step_num=EXPORT_STEPS,
+                                 formulation="reduced", ADMM_settings=dict(QUAD_ADMM))
+    sharded = HorizonShardedSolver(quadrotor.build(qcfg, stagewise=True, device=dev),
+                                   make_mesh(("h",), shape=(case["shards"],), devices=dev))
+    frame = quadrotor.initial_state(pos=(0.3, -0.2, 1.0))
+    ref = quadrotor.reference_hover(H)
+    lx, ux = sharded._lx.copy(), sharded._ux.copy()
+    lx[0] = ux[0] = frame
+    as_t = lambda a: torch.as_tensor(a, dtype=sharded.dtype, device=dev)  # noqa: E731
+    args = (as_t(np.zeros((H, sharded.frame_size))), as_t(sharded._prep_ref(ref, None)),
+            as_t(lx), as_t(ux))
+    fn = functools.partial(
+        sqp_solve_seq_parallel, sharded.ss, sqp_iters=sharded._sqp_iters, alpha=sharded._alpha,
+        admm=sharded._admm, mesh=sharded.mesh, axis=sharded.axis,
+        hessian_reg=sharded._hessian_reg, line_search=sharded._line_search)
+    return sharded, fn, args, frame, ref
+
+
+def seq_trace_job(case):
+    """Phase 5m's sequence-parallel round trip, first half, in a worker
+    process started before phase 4 (its trace is host work only, the
+    longest of phase 5m): ``_seq_case``'s call exported over the in-process
+    mesh and saved to ``case["path"]``."""
+    from optimal_control_problem_tpu_torch.utils.serialization import export_program
+
+    t_job = time.perf_counter()
+    _, fn, args, _, _ = _seq_case(case)
+    t0 = time.perf_counter()
+    program = export_program(fn, args)
+    t_trace = time.perf_counter() - t0
+    _save_program(program, case["path"])
+    return {"trace_s": t_trace, "bytes": os.path.getsize(case["path"]),
+            "job_s": time.perf_counter() - t_job}
+
+
+def seq_run_job(case):
+    """Phase 5m's sequence-parallel round trip, second half, in a worker
+    process beside phase 5: the program ``seq_trace_job`` saves, waited for
+    and reloaded;
+    the solver's own tick, the direct call and the loaded program from the
+    cold tick's inputs, and ``reps`` more of the last two, interleaved, for
+    their ms.  No kernel runs on this path (none in JAX either)."""
+    import torch
+
+    from optimal_control_problem_tpu_torch.utils.serialization import import_solver
+
+    t_job = time.perf_counter()
+    waited = _saved_program(case["path"])
+    sharded, fn, args, frame, ref = _seq_case(case)
+    sync = torch.cuda.synchronize if args[0].is_cuda else (lambda: None)
+    t0 = time.perf_counter()
+    loaded = import_solver(case["path"])
+    t_load = time.perf_counter() - t0
+    tick = sharded.compute_optimal_trajectory(frame, ref)
+    direct = fn(*args)
+    out = loaded(*args)
+    sync()
+    ms = {"direct": [], "loaded": []}
+    for _ in range(case["reps"]):
+        for which, run in (("direct", lambda: fn(*args)), ("loaded", lambda: loaded(*args))):
+            sync()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            ms[which].append((time.perf_counter() - t0) * 1e3)
+    return {
+        "waited_s": waited, "load_s": t_load, "tick_is_call": bool(torch.equal(tick, direct[0])),
+        "gap": float((direct[0] - out[0]).abs().max()),
+        "iters": direct[1].tolist(), "iters_equal": bool(torch.equal(direct[1], out[1])),
+        "status": direct[2].int().tolist(), "status_equal": bool(torch.equal(direct[2], out[2])),
+        "device": str(out[0].device), "finite": bool(torch.isfinite(out[0]).all()),
+        "direct_ms": statistics.median(ms["direct"]),
+        "loaded_ms": statistics.median(ms["loaded"]), "job_s": time.perf_counter() - t_job,
     }
 
 
@@ -1893,6 +2093,33 @@ def main(argv) -> int:
             f"per step at the last tick {', '.join(f'{v:.1f}' for v in qp_iters.tolist())}")
         return state, sum(n)
 
+    # -- 5m's two longest traces, started here in worker processes: host
+    # work that needs nothing from phases 4-5 (a program holds the shapes
+    # of its inputs, not their values): phase 7c's sequence-parallel SQP
+    # and B1's tick with polish: true (phase 4's configuration cut to
+    # EXPORT_STEPS, at its batch's shapes).  5m's jobs that reload them
+    # wait for their files; the main process reads the traces' records
+    # with 5m's results.
+    e_dir = os.path.join(HERE, "build")  # git-ignored, inside the checkout
+    os.makedirs(e_dir, exist_ok=True)
+    seq_case = dict(SEQ_EXPORT, device="cuda", reps=2,
+                    path=os.path.join(e_dir, "chip_smoke_export_seq.pt2"))
+    Bm = 1024
+    polish_case = dict(
+        model="cartpole", build_kw=dict(stagewise=True), state=None,
+        cfg=cartpole.make_config(horizon=20, dt=0.04, alpha=0.3, step_num=EXPORT_STEPS,
+                                 formulation="reduced",
+                                 ADMM_settings=dict(MAIN_ADMM, polish=True)),
+        frames=np.zeros((Bm, cartpole.FRAME), np.float32),
+        refs=np.full((Bm, 1), np.pi, np.float32),
+        path=os.path.join(e_dir, "chip_smoke_export_polish.pt2"))
+    for c in (seq_case, polish_case):
+        if os.path.exists(c["path"]):
+            os.remove(c["path"])
+    t_early = time.perf_counter()
+    early_wait = process_map([(seq_trace_job, (seq_case,)), (export_trace_job, (polish_case,))],
+                             workers=2, threads=1)
+
     # -- 4. the short-horizon main path: cart-pole h20 --------------------
     step_num, ticks, warm = 10, 7, 2
     cfg = cartpole.make_config(horizon=20, dt=0.04, alpha=0.3, step_num=step_num,
@@ -1900,7 +2127,6 @@ def main(argv) -> int:
     ocp = cartpole.build(cfg, stagewise=True, device="cuda")
     solver = BatchedSolver(ocp)
     rng = np.random.default_rng(0)
-    Bm = 1024
     frames = np.zeros((Bm, cartpole.FRAME), np.float32)
     frames[:, 2] = rng.uniform(-0.5, 0.5, Bm).astype(np.float32)
     refs = np.full((Bm, 1), np.pi, np.float32)
@@ -2397,19 +2623,21 @@ def main(argv) -> int:
     # solve's trace, reload and ticks run in a worker process on the card
     # (export_job) while phases 5-5l run here: a trace is host work, tens of
     # seconds a solve.  Read after 5l.
-    e_dir = os.path.join(HERE, "build")  # git-ignored, inside the checkout
-    os.makedirs(e_dir, exist_ok=True)
-
-    def cut_steps(cfg_):
+    def cut_steps(cfg_, **admm):
         cfg_ = copy.deepcopy(cfg_)
         cfg_["solver_settings"]["SQP_settings"]["step_num"] = EXPORT_STEPS
+        cfg_["solver_settings"]["ADMM_settings"].update(admm)
         return cfg_
 
     # label: (model, config, frames, references, phase 4 state, build
     # keywords, kernel counter the loaded tick must raise).
+    polish_label = f"B1 cart-pole h20 banded B={Bm} polish=True"
     export_cases = {
         f"B1 cart-pole h20 banded B={Bm}": (
             "cartpole", *export_from["B1"], dict(stagewise=True), "banded_admm_chunk.launches"),
+        polish_label: (
+            "cartpole", *export_from["B1"], dict(stagewise=True, polish=True),
+            "banded_admm_chunk.launches"),
         "B2 quadrotor h100 banded B=64": (
             "quadrotor", *export_from["B2"], dict(stagewise=True),
             "banded_admm_chunk_rolled.launches"),
@@ -2426,15 +2654,28 @@ def main(argv) -> int:
             "cartpole", cd_config("pallas"), cd_frames, cd_refs, cd_state,
             dict(stagewise=False), "admm_device_loop.launches"),
     }
-    export_jobs = [(export_job, (dict(
-        model=model, cfg=cut_steps(cfg_), frames=fr, refs=rf,
-        state=tuple(t.cpu().numpy() for t in (st_.x, st_.qp_x, st_.qp_y)), build_kw=kw_,
-        path=os.path.join(e_dir, f"chip_smoke_export_{i}.pt2"), reps=3,
-        **({"iter_precision": "high"} if counter.endswith("tc_launches") else {})),))
-        for i, (model, cfg_, fr, rf, st_, kw_, counter) in enumerate(export_cases.values())]
+    export_jobs = []
+    for i, (model, cfg_, fr, rf, st_, kw_, counter) in enumerate(export_cases.values()):
+        case = dict(model=model, cfg=cut_steps(cfg_), frames=fr, refs=rf,
+                    state=tuple(t.cpu().numpy() for t in (st_.x, st_.qp_x, st_.qp_y)),
+                    build_kw={k: v for k, v in kw_.items() if k != "polish"},
+                    path=os.path.join(e_dir, f"chip_smoke_export_{i}.pt2"), reps=3)
+        if counter.endswith("tc_launches"):
+            case["iter_precision"] = "high"
+        if kw_.get("polish"):  # traced before phase 4: its configuration and program
+            case.update(cfg=polish_case["cfg"], path=polish_case["path"], polish=True,
+                        traced=True)
+        export_jobs.append((export_job, (case,)))
+    # The sequence-parallel SQP of phase 7c: reloaded and run here.
+    seq_label = f'seq-parallel quadrotor h{SEQ_EXPORT["horizon"]} over "h" of ' \
+        f'{SEQ_EXPORT["shards"]} (in-process)'
+    # The jobs that wait for a trace started before phase 4 go last.
+    polish_i = list(export_cases).index(polish_label)
     toy_job = (toy_export_job, (os.path.join(e_dir, "chip_smoke_solver.pt2"),))
     t_5m = time.perf_counter()
-    export_wait = process_map([toy_job] + export_jobs, workers=3, threads=1)
+    export_wait = process_map(
+        [toy_job] + [j for i, j in enumerate(export_jobs) if i != polish_i]
+        + [export_jobs[polish_i], (seq_run_job, (seq_case,))], workers=4, threads=1)
 
     # -- 5. card vs CPU ---------------------------------------------------
     # The CPU sides (the plain kernels, host-bound: seconds to a minute and
@@ -2638,8 +2879,11 @@ def main(argv) -> int:
     # kernel's op node and raises the kernel's counter as the direct tick
     # does (every counter equal; the banded ones by one launch a step).
     t0 = time.perf_counter()
-    toy, *export_results = export_wait()
+    toy, *export_results, polish_r, seq_r = export_wait()
+    seq_trace, polish_trace = early_wait()
     t_wait = time.perf_counter() - t0
+    polish_r.update({k: v for k, v in polish_trace.items() if k != "job_s"})
+    export_results.insert(polish_i, polish_r)
     log(f"phase 5m export_solver/import_solver on the card: traced in {toy['trace_s']:.1f} s, "
         f"{toy['bytes']} bytes, loaded program on {toy['device']}; max |direct - loaded| "
         f"{toy['gap']:.3g} (limit 1e-6), qp_iters equal: {toy['iters_equal']}")
@@ -2669,9 +2913,31 @@ def main(argv) -> int:
                 and r["device"].startswith("cuda")):
             raise SystemExit(f"phase 5m {label}: the loaded program differs from the direct "
                              "tick or did not launch its kernel")
-    log(f"phase 5m: the toy and the {len(export_results)} batched exports took "
-        f"{time.perf_counter() - t_5m:.1f} s from their start before phase 5 (3 worker "
-        f"processes); waited here {t_wait:.1f} s")
+        if "polish" in label:
+            log(f"phase 5m {label}: {r['polish_passes']} batched polish passes in the direct "
+                f"tick (one a step), scenarios polished by step {r['polish_accepted']} of {Bm}; "
+                f"every scenario's residuals after polish no higher than before: "
+                f"{r['polish_no_higher']}")
+            if not (r["polish_passes"] == EXPORT_STEPS and r["polish_no_higher"]):
+                raise SystemExit(f"phase 5m {label}: a polish pass raised a scenario's residual")
+    r = seq_r
+    log(f"phase 5m {seq_label} ({EXPORT_STEPS} SQP iterations, cold): traced in "
+        f"{seq_trace['trace_s']:.1f} s (job {seq_trace['job_s']:.1f} s, before phase 4), "
+        f"{seq_trace['bytes']} bytes, loaded in {r['load_s']:.1f} s; the solver's "
+        f"tick is the exported call: {r['tick_is_call']}; loaded program on {r['device']}: "
+        f"ADMM iterations {r['iters']} equal {r['iters_equal']}, QP flags {r['status']} equal "
+        f"{r['status_equal']}, max |direct - loaded| trajectory {r['gap']:.3g} (limit 1e-5); "
+        f"ms direct {r['direct_ms']:.3f}, loaded {r['loaded_ms']:.3f} (median of 2, "
+        f"interleaved; worker beside phase 5); job {r['job_s']:.1f} s")
+    if not (r["tick_is_call"] and r["iters_equal"] and r["status_equal"] and r["gap"] <= 1e-5
+            and r["finite"] and r["device"].startswith("cuda")):
+        raise SystemExit(f"phase 5m {seq_label}: the loaded program differs from the direct call")
+    log(f"phase 5m: the toy, the {len(export_results)} batched exports and the "
+        f"sequence-parallel one took {time.perf_counter() - t_5m:.1f} s from their start before "
+        f"phase 5 (4 worker processes; the traces of the sequence-parallel SQP and of the "
+        f"polish tick in 2 workers from before phase 4, {t_5m - t_early:.1f} s before phase 5; "
+        f"their reloads waited {seq_r['waited_s']:.1f} and {polish_r['waited_s']:.1f} s for "
+        f"them); waited here {t_wait:.1f} s")
 
     # -- 6. kernel timing at the main paths' inputs ------------------------
     def kernel_row(name, kernel, plain, flops_of, launches_, source, replaces, calls=None):

@@ -18,23 +18,34 @@ round-based: each adaptation interval refactors the SPIKE partition with
 the rescaled rho, the trigger a globally reduced scalar so every shard
 runs the same collectives.
 
-JAX's ``while_loop``s are Python loops here.  Each reads one host bool a
-check, after the ``pmax`` that makes it the same on every shard and rank,
-so every rank takes the same branch.  Where JAX ``vmap``s this function
-over a local scenario batch (a 2-D mesh, :mod:`.seq_sqp`), its loops run
-while any scenario's condition holds and freeze the others; the port
-masks the same way.  Local tensors carry the shard dimension S first
-(``parallel/mesh.py``).
+JAX's two ``while_loop``s (the rho rounds, and the check blocks of a
+round) are Python loops here.  Each reads one host bool a check, after
+the ``pmax`` that makes it the same on every shard and rank, so every
+rank takes the same branch.  Where JAX ``vmap``s this function over a
+local scenario batch (a 2-D mesh, :mod:`.seq_sqp`), its loops run while
+any scenario's condition holds and freeze the others; the port masks the
+same way.  ``on_device`` runs both loops, the check block's iterations
+and the Ruiz sweeps as device-side loops (:func:`_while`) instead, the
+conditions on the device and the freezing by the same masks: the same
+results bitwise, no host read, and the form ``torch.export`` traces
+(``admm_solve_seq_parallel.export_form``, which ``export_solver`` finds
+through a ``functools.partial``).  It runs on an in-process mesh only: a
+``torch.distributed`` mesh's collectives are rank-local calls, which
+the device form refuses.  Local tensors carry the shard dimension S
+first (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
+from torch.utils._pytree import _register_namedtuple
 
 from ..device import as_tensors
-from ..ops.block_tridiag import btd_factor, btd_solve, btd_solve_mat
+from ..ops.block_tridiag import BTDFactor, btd_factor, btd_solve, btd_solve_mat
 from ..solvers.admm import (
     ADMMSettings,
     _RHO_EQ_OVER_RHO_INEQ,
@@ -72,6 +83,12 @@ class ShardedBandedQP(NamedTuple):
     ud: torch.Tensor
     lc: torch.Tensor
     uc: torch.Tensor
+
+
+# An exported admm_solve_seq_parallel takes this type: its program names
+# it, and keeps example inputs of it that torch.load reads back.
+_register_namedtuple(ShardedBandedQP, serialized_type_name=f"{__name__}.ShardedBandedQP")
+torch.serialization.add_safe_globals([ShardedBandedQP])
 
 
 def _rho_of(l, u, rho, dtype):
@@ -142,7 +159,57 @@ def _count(mask) -> int:
     return int(mask.sum())
 
 
-def _ruiz_seq_local(ax, Hb, J0, J1, Jc, q, *, iters, axis, keep_first, left_shift, right_shift):
+def _fresh_rows(ts):
+    """Row-major copies of ``ts``: a device loop carries no aliasing
+    tensors, and its body must return each one with the strides it took
+    (the SPIKE solve returns the iterate stage-major)."""
+    return tuple(t.clone(memory_format=torch.contiguous_format) for t in ts)
+
+
+def _while(cond, body, carry, inputs):
+    """``while cond(carry, inputs): carry = body(carry, inputs)`` on the
+    device: torch's ``while_loop`` operator, with the tensors the loop
+    reads besides its carry passed as explicit ``inputs`` (the bodies see
+    them only as arguments).  So the loop runs eagerly as a plain loop,
+    and ``torch.export`` traces each body as it traces the rest of the
+    program (``torch.while_loop`` would first compile it with dynamo,
+    minutes for these bodies).  Carry and results are row-major copies."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    n = len(carry)
+    return while_loop_op(lambda *a: cond(a[:n], a[n:]),
+                         lambda *a: _fresh_rows(body(a[:n], a[n:])),
+                         _fresh_rows(carry), tuple(inputs))
+
+
+def _repeat(n: int, fn, carry, inputs, on_device: bool):
+    """``carry = fn(carry, inputs)`` ``n`` times: a Python loop, or on the
+    device one counted :func:`_while` (JAX's ``fori_loop``)."""
+    if not on_device:
+        for _ in range(n):
+            carry = fn(carry, inputs)
+        return carry
+    j0 = torch.zeros((), dtype=torch.int64, device=carry[0].device)
+    return _while(lambda s, c: s[0] < n, lambda s, c: (s[0] + 1, *fn(s[1:], c)),
+                  (j0, *carry), inputs)[1:]
+
+
+def check_device_form(mesh: Mesh) -> None:
+    """Raise for a ``torch.distributed`` mesh: the device-side loops (and
+    so ``export_solver``) run on an in-process mesh only, since a rank's
+    collectives are calls of its own process group that no program of
+    one process holds."""
+    if mesh.distributed:
+        import torch.distributed as dist
+
+        raise ValueError(
+            f"the sequence-parallel solve has no device-side form over a torch.distributed "
+            f"mesh ({dist.get_backend(mesh.group)} backend): its collectives are rank-local "
+            f"calls, which export_solver does not trace; use an in-process mesh")
+
+
+def _ruiz_seq_local(ax, Hb, J0, J1, Jc, q, *, iters, axis, keep_first, left_shift, right_shift,
+                    on_device=False):
     """Distributed modified Ruiz equilibration over the sharded stages
     (``solvers/admm_banded.ruiz_equilibrate_banded`` with the horizon
     split).  Per sweep: one right shift delivers each residual row's J1
@@ -150,7 +217,8 @@ def _ruiz_seq_local(ax, Hb, J0, J1, Jc, q, *, iters, axis, keep_first, left_shif
     next stage's variable scaling for the J1 row norms, and the cost
     scaling reduces with one psum and one pmax over ``axis``.  Returns
     per-stage factors ``(Dv, Ex, Ed, Ec)`` and the per-shard cost scaling
-    ``c (S,)``; padded dynamics rows keep ``Ed = 1``.
+    ``c (S,)``; padded dynamics rows keep ``Ed = 1``.  ``on_device``: the
+    sweeps as one counted device loop (:func:`_repeat`).
 
     The initial factors are ``1 + 0 * data`` as in JAX (where they type
     the loop carry): a non-finite entry of ``Hb``, ``J0`` or ``Jc`` makes
@@ -165,10 +233,14 @@ def _ruiz_seq_local(ax, Hb, J0, J1, Jc, q, *, iters, axis, keep_first, left_shif
     Ec = 1.0 + 0.0 * Jc[..., 0]
     c = 1.0 + 0.0 * ax.psum(torch.sum(Hb[:, :, 0, 0], dim=1), axis)
 
-    def pcol(c, Dv):
-        return torch.amax(torch.abs(_bvec(c, Hb) * Dv[..., :, None] * Hb * Dv[..., None, :]), dim=2)
+    def sweep(carry, data):
+        Dv, Ex, Ed, Ec, c = carry
+        Hb, J0, J1, Jc, q, keep_first = data
 
-    for _ in range(iters):
+        def pcol(c, Dv):
+            return torch.amax(torch.abs(_bvec(c, Hb) * Dv[..., :, None] * Hb * Dv[..., None, :]),
+                              dim=2)
+
         # Column inf-norms of the scaled [P; A] per variable (pre-update
         # scalings, as in the dense and banded paths).
         norm_x = torch.maximum(pcol(c, Dv), torch.abs(Ex * Dv))
@@ -205,12 +277,66 @@ def _ruiz_seq_local(ax, Hb, J0, J1, Jc, q, *, iters, axis, keep_first, left_shif
         qmax = ax.pmax(torch.amax(torch.abs(_bvec(c, q) * Dv * q).reshape(S, -1), dim=1), axis)
         gamma = 1.0 / _limit_scaling(torch.maximum(mean_pcol, qmax))
         c = c * gamma
-    return Dv, Ex, Ed, Ec, c
+        return Dv, Ex, Ed, Ec, c
+
+    return _repeat(iters, sweep, (Dv, Ex, Ed, Ec, c), (Hb, J0, J1, Jc, q, keep_first), on_device)
+
+
+class _LoopData(NamedTuple):
+    """What :func:`seq_admm_local`'s iteration reads besides its iterates:
+    the scaled data, the scalings and their inverses, the boundary masks,
+    the neighbour rows and the constants (local tensors ``(S, ...)``)."""
+
+    Hb: torch.Tensor
+    J0: torch.Tensor
+    J1: torch.Tensor
+    Jc: torch.Tensor
+    q: torch.Tensor
+    lx: torch.Tensor
+    ux: torch.Tensor
+    ld: torch.Tensor
+    ud: torch.Tensor
+    lc: torch.Tensor
+    uc: torch.Tensor
+    Dv: torch.Tensor
+    Exs: torch.Tensor
+    Eds: torch.Tensor
+    Ecs: torch.Tensor
+    cinv: torch.Tensor
+    exi: torch.Tensor
+    edi: torch.Tensor
+    eci: torch.Tensor
+    dvi: torch.Tensor
+    dyn_valid: torch.Tensor
+    keep_first: torch.Tensor
+    keep_last: torch.Tensor
+    is_first: torch.Tensor
+    is_last: torch.Tensor
+    d: torch.Tensor
+    sigma: torch.Tensor
+    alpha: torch.Tensor
+    J0_prev: torch.Tensor
+    J1_sh: torch.Tensor
+    eye: torch.Tensor
+    empty: torch.Tensor
+
+
+_N_DATA = len(_LoopData._fields)
+
+
+def _flat_ops(ops):
+    """The SPIKE operators ``(fac, WL, WR, Kinv)`` as a flat tuple."""
+    return (*ops[0], *ops[1:])
+
+
+def _ops_of(ts):
+    """:func:`_flat_ops` undone."""
+    return (BTDFactor(*ts[:3]), *ts[3:])
 
 
 def seq_admm_local(
     ax, Hb, J0, J1, Jc, q, lx, ux, ld, ud, lc, uc, *, settings: ADMMSettings, axis: str,
-    sync_axes=None, warm=None,
+    sync_axes=None, warm=None, on_device: bool = False,
 ):
     """The per-device ADMM over local tensors ``(S, C, ...)`` (C stages a
     shard), against the collectives ``ax`` (``parallel/mesh.Shards``).
@@ -221,6 +347,7 @@ def seq_admm_local(
     unscaled units.  Returns ``(x (S, C, w), iters (S,), converged (S,),
     prim_inf (S,), dual_inf (S,), warm_out)``; the flags are reduced over
     the horizon axis, so they are one problem's on each shard.
+    ``on_device``: the loops on the device (module docstring).
     """
     st = settings
     if sync_axes is None:
@@ -249,7 +376,7 @@ def seq_admm_local(
     # ---- distributed Ruiz equilibration (setup, fixed trip count) ----
     Dv, Exs, Eds, Ecs, c = _ruiz_seq_local(
         ax, Hb, J0, J1, Jc, q, iters=st.scaling_iters, axis=axis, keep_first=keep_first,
-        left_shift=left_shift, right_shift=right_shift,
+        left_shift=left_shift, right_shift=right_shift, on_device=on_device,
     )
     Dv_next = torch.cat([Dv[:, 1:], left_shift(Dv[:, 0])[:, None]], dim=1)
     Hb = _bvec(c, Hb) * Dv[..., :, None] * Hb * Dv[..., None, :]
@@ -276,74 +403,285 @@ def seq_admm_local(
     J0_prev = right_shift(J0[:, -1])  # left neighbour's last dynamics row
     J1_prev = right_shift(J1[:, -1])
     J1_sh = torch.cat([J1_prev[:, None], J1[:, :-1]], dim=1)
+    eye = torch.eye(w, dtype=dtype, device=dev)
+    empty = torch.zeros((S, C, 0), dtype=dtype, device=dev)
     g = lambda t: ax.all_gather(t, axis)  # noqa: E731
     nred = 2 * D * w
-    eye = torch.eye(w, dtype=dtype, device=dev)
 
-    def spike_setup(rho_x, rho_d, rho_c):
-        """M = P + sigma I + A^T R A and its SPIKE partition factorization
-        (local block LDL^T, WL/WR spikes, reduced interface inverse).  Once
-        a rho round; rho adaptation re-enters here."""
-        diag = Hb + sigma * eye + torch.diag_embed(rho_x)
-        if r:
-            diag = diag + _rho_outer(rho_d, J0, J0)
-            # Residual row k-1's contribution through J1 on stage k.
-            rho_sh = torch.cat([right_shift(rho_d[:, -1])[:, None], rho_d[:, :-1]], dim=1)
-            J1m = _mask_row(J1_sh, 0, keep_first)
-            diag = diag + _rho_outer(rho_sh, J1m, J1m)
-            # Subdiagonal L_k = J1_{k-1}^T R J0_{k-1}; local row k holds L_k.
-            J0_sh = torch.cat([J0_prev[:, None], J0[:, :-1]], dim=1)
-            lower = _mask_row(_rho_outer(rho_sh, J1m, J0_sh), 0, keep_first)
-        else:
-            lower = torch.zeros((S, C, w, w), dtype=dtype, device=dev)
-        if r2:
-            diag = diag + _rho_outer(rho_c, Jc, Jc)
+    exi, edi, eci, dvi = 1.0 / Exs, 1.0 / Eds, 1.0 / Ecs, 1.0 / Dv
+    # ---- rho rounds: the SPIKE setup once an adaptation interval ----
+    # Each round refactors with the current rho (the trigger a globally
+    # reduced scalar, so every shard scales alike), then up to `interval`
+    # iterations run with early termination synced over `sync_axes`.
+    # adaptive_rho=False is a single round.
+    if st.adaptive_rho:
+        interval = max(st.adaptive_rho_interval, st.check_every)
+        interval = ((interval + st.check_every - 1) // st.check_every) * st.check_every
+    else:
+        interval = st.max_iter
 
-        fac = btd_factor(_stage_first(diag), _stage_first(lower[:, 1:]))
-        zeros = torch.zeros_like(lower[:, 0])
-        L0 = torch.where(is_first[:, None, None], zeros, lower[:, 0])
-        Ln = torch.where(is_last[:, None, None], zeros, left_shift(lower[:, 0]))
-        BL, BR = _spike_blocks(L0, Ln, C)
-        WL = btd_solve_mat(fac, _stage_first(BL)).movedim(0, 1)
-        WR = btd_solve_mat(fac, _stage_first(BR)).movedim(0, 1)
-        K = _reduced_operator(g(WL[:, 0]), g(WL[:, -1]), g(WR[:, 0]), g(WR[:, -1]), D, w)
-        # inv_ex: a singular K gives non-finite entries, as jnp.linalg.inv.
-        Kinv = torch.linalg.inv_ex(K).inverse
-        return fac, WL, WR, Kinv
+    # The functions of the iteration, over the tensors it reads.  The host
+    # loops build them once; on the device each loop body rebuilds them
+    # over its explicit inputs (:func:`_while`).
+    def kit(data: _LoopData):
+        """The iteration's functions over ``data``."""
+        (Hb, J0, J1, Jc, q, lx, ux, ld, ud, lc, uc, Dv, Exs, Eds, Ecs, cinv, exi, edi,
+         eci, dvi, dyn_valid, keep_first, keep_last, is_first, is_last, d, sigma, alpha,
+         J0_prev, J1_sh, eye, empty) = data
 
-    def spike_solve(ops, rhs):
-        fac, WL, WR, Kinv = ops
-        v = btd_solve(fac, _stage_first(rhs)).movedim(0, 1)
-        rred = torch.stack([g(v[:, 0]), g(v[:, -1])], dim=2).reshape(S, nred)
-        u = torch.sum(Kinv * rred[:, None, :], dim=-1)
-        l_prev, f_next = _neighbours(u, d, is_first, is_last, D, w)
-        return _spike_apply(v, WL, WR, l_prev, f_next)
+        def spike_setup(rho_x, rho_d, rho_c):
+            """M = P + sigma I + A^T R A and its SPIKE partition factorization
+            (local block LDL^T, WL/WR spikes, reduced interface inverse).  Once
+            a rho round; rho adaptation re-enters here."""
+            diag = Hb + sigma * eye + torch.diag_embed(rho_x)
+            if r:
+                diag = diag + _rho_outer(rho_d, J0, J0)
+                # Residual row k-1's contribution through J1 on stage k.
+                rho_sh = torch.cat([right_shift(rho_d[:, -1])[:, None], rho_d[:, :-1]], dim=1)
+                J1m = _mask_row(J1_sh, 0, keep_first)
+                diag = diag + _rho_outer(rho_sh, J1m, J1m)
+                # Subdiagonal L_k = J1_{k-1}^T R J0_{k-1}; local row k holds L_k.
+                J0_sh = torch.cat([J0_prev[:, None], J0[:, :-1]], dim=1)
+                lower = _mask_row(_rho_outer(rho_sh, J1m, J0_sh), 0, keep_first)
+            else:
+                lower = torch.zeros((S, C, w, w), dtype=dtype, device=dev)
+            if r2:
+                diag = diag + _rho_outer(rho_c, Jc, Jc)
 
-    empty = torch.zeros((S, C, 0), dtype=dtype, device=dev)
+            fac = btd_factor(_stage_first(diag), _stage_first(lower[:, 1:]))
+            zeros = torch.zeros_like(lower[:, 0])
+            L0 = torch.where(is_first[:, None, None], zeros, lower[:, 0])
+            Ln = torch.where(is_last[:, None, None], zeros, left_shift(lower[:, 0]))
+            BL, BR = _spike_blocks(L0, Ln, C)
+            WL = btd_solve_mat(fac, _stage_first(BL)).movedim(0, 1)
+            WR = btd_solve_mat(fac, _stage_first(BR)).movedim(0, 1)
+            K = _reduced_operator(g(WL[:, 0]), g(WL[:, -1]), g(WR[:, 0]), g(WR[:, -1]), D, w)
+            # inv_ex: a singular K gives non-finite entries, as jnp.linalg.inv.
+            Kinv = torch.linalg.inv_ex(K).inverse
+            return fac, WL, WR, Kinv
 
-    # ---- A / A^T with boundary exchanges ----
-    def apply_A(x):
-        if r:
-            x_next = torch.cat([x[:, 1:], left_shift(x[:, 0])[:, None]], dim=1)
-            x_next = _mask_row(x_next, C - 1, keep_last)
-            ax_d = (_rows(J0, x) + _rows(J1, x_next)) * dyn_valid
-        else:
-            ax_d = empty
-        ax_c = _rows(Jc, x) if r2 else empty
-        return x, ax_d, ax_c
+        def spike_solve(ops, rhs):
+            fac, WL, WR, Kinv = ops
+            v = btd_solve(fac, _stage_first(rhs)).movedim(0, 1)
+            rred = torch.stack([g(v[:, 0]), g(v[:, -1])], dim=2).reshape(S, nred)
+            u = torch.sum(Kinv * rred[:, None, :], dim=-1)
+            l_prev, f_next = _neighbours(u, d, is_first, is_last, D, w)
+            return _spike_apply(v, WL, WR, l_prev, f_next)
 
-    def apply_AT(tx, td, tc):
-        out = tx
-        if r:
-            out = out + _cols(J0, td)
-            td_sh = torch.cat([right_shift(td[:, -1])[:, None], td[:, :-1]], dim=1)
-            out = out + _cols(J1_sh, _mask_row(td_sh, 0, keep_first))
-        if r2:
-            out = out + _cols(Jc, tc)
-        return out
+        # ---- A / A^T with boundary exchanges ----
+        def apply_A(x):
+            if r:
+                x_next = torch.cat([x[:, 1:], left_shift(x[:, 0])[:, None]], dim=1)
+                x_next = _mask_row(x_next, C - 1, keep_last)
+                ax_d = (_rows(J0, x) + _rows(J1, x_next)) * dyn_valid
+            else:
+                ax_d = empty
+            ax_c = _rows(Jc, x) if r2 else empty
+            return x, ax_d, ax_c
 
-    def P(x):
-        return torch.sum(Hb * x[:, :, None, :], dim=-1)
+        def apply_AT(tx, td, tc):
+            out = tx
+            if r:
+                out = out + _cols(J0, td)
+                td_sh = torch.cat([right_shift(td[:, -1])[:, None], td[:, :-1]], dim=1)
+                out = out + _cols(J1_sh, _mask_row(td_sh, 0, keep_first))
+            if r2:
+                out = out + _cols(Jc, tc)
+            return out
+
+        def P(x):
+            return torch.sum(Hb * x[:, :, None, :], dim=-1)
+
+        def one_iter(rhos, ops, carry):
+            rho_x, rho_d, rho_c = rhos
+            x, zx, zd, zc, yx, yd, yc = carry
+            rhs = sigma * x - q + apply_AT(rho_x * zx - yx, rho_d * zd - yd, rho_c * zc - yc)
+            xt = spike_solve(ops, rhs)
+            ztx, ztd, ztc = apply_A(xt)
+            x_new = alpha * xt + (1 - alpha) * x
+
+            def upd(zt, z, y, rho, lo, hi):
+                z_rel = alpha * zt + (1 - alpha) * z
+                z_new = _clip(z_rel + y / rho, lo, hi)
+                return z_new, y + rho * (z_rel - z_new)
+
+            zx_n, yx_n = upd(ztx, zx, yx, rho_x, lx, ux)
+            zd_n, yd_n = upd(ztd, zd, yd, rho_d, ld, ud)
+            zc_n, yc_n = upd(ztc, zc, yc, rho_c, lc, uc)
+            return (x_new, zx_n, zd_n * dyn_valid, zc_n, yx_n, yd_n * dyn_valid, yc_n)
+
+        def residuals(x, zx, zd, zc, yx, yd, yc):
+            """Unscaled residuals (OSQP): rows divided by their E factor,
+            variables by Dv, dual quantities by the cost scaling c."""
+            a_x, a_d, a_c = apply_A(x)
+            px = P(x)
+            aty = apply_AT(yx, yd, yc)
+            rp_loc = _amax((a_x - zx) * exi, (a_d - zd) * dyn_valid * edi, (a_c - zc) * eci)
+            rd_loc = cinv * _amax((px + q + aty) * dvi)
+            mp_loc = torch.maximum(_amax(a_x * exi, a_d * edi, a_c * eci),
+                                   _amax(zx * exi, zd * edi, zc * eci))
+            md_loc = cinv * torch.maximum(torch.maximum(_amax(aty * dvi), _amax(px * dvi)),
+                                          _amax(q * dvi))
+            r_prim, r_dual = ax.pmax(rp_loc, sync_axes), ax.pmax(rd_loc, sync_axes)
+            max_prim, max_dual = ax.pmax(mp_loc, sync_axes), ax.pmax(md_loc, sync_axes)
+            eps_pri = st.eps_abs + st.eps_rel * max_prim
+            eps_dua = st.eps_abs + st.eps_rel * max_dual
+            done = (r_prim <= eps_pri) & (r_dual <= eps_dua)
+            return done, r_prim, r_dual, max_prim, max_dual
+
+        def certificates(dx, dyx, dyd, dyc):
+            """OSQP infeasibility certificates (Banjac et al.) on one check
+            block's scaled iterate deltas, tested on unscaled quantities.
+            Reductions span the horizon axis only: a certificate is one
+            problem's, so on a 2-D mesh each scenario keeps its own flags."""
+            tiny = 1e-12
+            pm = lambda t: ax.pmax(t, axis)  # noqa: E731
+            ps = lambda t: ax.psum(t, axis)  # noqa: E731
+            cb = lambda t: _bvec(cinv, t)  # noqa: E731
+            # -- primal infeasibility: dy with A^T dy ~ 0 and support function
+            #    u'(dy)_+ + l'(dy)_- < 0 (padded dynamics rows carry zero
+            #    deltas: one_iter masks yd with dyn_valid).
+            if r:
+                dyd = dyd * dyn_valid
+            dyx_u = dyx * exi * cb(dyx)
+            dyd_u = dyd * edi * cb(dyd) if r else dyd
+            dyc_u = dyc * eci * cb(dyc) if r2 else dyc
+            ndy = pm(_amax(dyx_u, dyd_u, dyc_u))
+
+            def support_of(dy_u, lo_s, hi_s, e_inv):
+                # Masked products so inf * 0 cannot produce NaN; an infinite
+                # bound with matching delta sign gives +inf, blocking the
+                # certificate.
+                dy_p = torch.clamp(dy_u, min=0.0)
+                dy_m = torch.clamp(dy_u, max=0.0)
+                zero = torch.zeros_like(dy_u)
+                t_u = torch.where(dy_p > 0, (hi_s * e_inv) * dy_p, zero)
+                t_l = torch.where(dy_m < 0, (lo_s * e_inv) * dy_m, zero)
+                return torch.sum((t_u + t_l).reshape(S, -1), dim=1)
+
+            support = support_of(dyx_u, lx, ux, exi)
+            if r:
+                support = support + support_of(dyd_u, ld, ud, edi)
+            if r2:
+                support = support + support_of(dyc_u, lc, uc, eci)
+            support = ps(support)
+            atdy = apply_AT(dyx, dyd, dyc)
+            n_Atdy = pm(_amax(cb(atdy) * atdy * dvi))
+            pinf = ((ndy > tiny) & (support < -st.eps_prim_inf * ndy)
+                    & (n_Atdy < st.eps_prim_inf * ndy))
+            # -- dual infeasibility: dx with P dx ~ 0, q'dx < 0 and A dx
+            #    consistent with a feasible recession direction.
+            dx_u = Dv * dx
+            ndx = pm(_amax(dx_u))
+            thr = st.eps_dual_inf * ndx
+            cond_q = ps(torch.sum((q * dx).reshape(S, -1), dim=1)) * cinv < -thr
+            pdx = P(dx)
+            cond_P = pm(_amax(cb(pdx) * pdx * dvi)) < thr
+            a_x, a_d, a_c = apply_A(dx)
+            ok = torch.ones((S,), dtype=torch.bool, device=dev)
+            for adx, lo, hi, e in ((a_x, lx, ux, exi), (a_d * dyn_valid, ld, ud, edi),
+                                   (a_c, lc, uc, eci)):
+                if not adx.numel():
+                    continue
+                adx_u, t = (adx * e).reshape(S, -1), _bvec(thr, adx.reshape(S, -1))
+                hi_u, lo_u = (hi * e).reshape(S, -1), (lo * e).reshape(S, -1)
+                ok = ok & torch.all(torch.where(hi_u < _INF, adx_u < t, True), dim=1)
+                ok = ok & torch.all(torch.where(lo_u > -_INF, adx_u > -t, True), dim=1)
+            # all() must hold on EVERY shard: pmax-reduce the violation flag.
+            cond_A = pm((~ok).to(dtype)) < 0.5
+            dinf = (ndx > tiny) & cond_q & cond_P & cond_A
+            return pinf, dinf
+
+        def stop_of(done, pinf, dinf):
+            """The loop-exit flag, the same on every shard of `sync_axes`:
+            converged OR certified everywhere there."""
+            go = (~(done | pinf | dinf)).to(dtype)
+            return ax.pmax(go, sync_axes) < 0.5
+
+        def block(rhos, ops, k, carry, pinf, dinf):
+            """One check block: ``check_every`` iterations, then termination
+            and the certificates on the block's deltas.  Returns the round
+            state ``(k, *carry, done, pinf, dinf, stop, rp, rd, mp, md)``."""
+            x_o, yx_o, yd_o, yc_o = carry[0], carry[4], carry[5], carry[6]
+            if on_device:
+                new = _repeat(st.check_every,
+                              lambda c, i: kit(_LoopData(*i[:_N_DATA])).one_iter(
+                                  i[-3:], _ops_of(i[_N_DATA:-3]), c),
+                              carry, (*data, *_flat_ops(ops), *rhos), True)
+            else:
+                new = _repeat(st.check_every, lambda c, _: one_iter(rhos, ops, c), carry, (),
+                              False)
+            done_n, rp, rd, mp, md = residuals(*new)
+            pinf_n, dinf_n = pinf, dinf
+            if st.check_infeasibility:
+                pi, di_ = certificates(new[0] - x_o, new[4] - yx_o, new[5] - yd_o, new[6] - yc_o)
+                pinf_n = pinf | (pi & ~done_n)
+                dinf_n = dinf | (di_ & ~done_n)
+            return (k + st.check_every, *new, done_n, pinf_n, dinf_n,
+                    stop_of(done_n, pinf_n, dinf_n), rp, rd, mp, md)
+
+        def run_round(rhos, it0, carry, done, pinf, dinf, stop):
+            """Check blocks while the round's condition holds on some shard;
+            a shard where it fails keeps its state (a ``vmap``-ed scenario
+            that stopped).  Returns the round state of :func:`block`."""
+            ops = spike_setup(*rhos)
+            zero = torch.zeros((S,), dtype=dtype, device=dev)
+            state = (torch.zeros((S,), dtype=torch.int32, device=dev), *carry, done, pinf, dinf,
+                     stop, zero, zero, zero, zero)
+
+            def go_of(it0, k, *rest):
+                return (k < interval) & (it0 + k < st.max_iter) & ~rest[10]
+
+            def step(state):
+                return block(rhos, ops, state[0], state[1:8], *state[9:11])
+
+            if on_device:
+                def body(s, c):
+                    new = kit(_LoopData(*c[:_N_DATA])).block(
+                        c[-4:-1], _ops_of(c[_N_DATA:-4]), s[0], s[1:8], *s[9:11])
+                    return _select(go_of(c[-1], *s), new, s)
+
+                return _while(lambda s, c: go_of(c[-1], *s).any(), body, state,
+                              (*data, *_flat_ops(ops), *rhos, it0))
+            while True:
+                go = go_of(it0, *state)
+                n = _count(go)
+                if n == 0:
+                    return state
+                new = step(state)
+                state = new if n == S else _select(go, new, state)
+
+        def adapt(rhos, stop, rp, rd, mp, md):
+            """The OSQP rho rule on globally reduced residuals: every shard
+            computes the same scale, so the next round's refactorization
+            collectives stay uniform."""
+            if not st.adaptive_rho:
+                return rhos
+            num = rp / torch.clamp(mp, min=1e-10)
+            den = rd / torch.clamp(md, min=1e-10)
+            scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-10)), 1e-3, 1e3)
+            trigger = ((scale > st.adaptive_rho_tolerance)
+                       | (scale < 1.0 / st.adaptive_rho_tolerance))
+            s_eff = torch.where(trigger & ~stop, scale, torch.ones_like(scale))
+            rho_x_n, rho_d_n, rho_c_n = (
+                torch.clamp(rh * _bvec(s_eff, rh), _RHO_MIN, _RHO_MAX) for rh in rhos)
+            return rho_x_n, rho_d_n * dyn_valid + (1 - dyn_valid) * _RHO_MIN, rho_c_n
+
+        def outer(state):
+            """One rho round and its adaptation: ``(it, *carry, *rhos, done,
+            pinf, dinf, stop)`` in and out."""
+            it, carry, rhos, flags = state[0], state[1:8], state[8:11], state[11:15]
+            rnd = run_round(rhos, it, carry, *flags)
+            return (it + rnd[0], *rnd[1:8], *adapt(rhos, rnd[11], *rnd[12:]), *rnd[8:12])
+
+        return SimpleNamespace(apply_A=apply_A, residuals=residuals, stop_of=stop_of,
+                               one_iter=one_iter, block=block, outer=outer)
+
+
+    data = _LoopData(Hb, J0, J1, Jc, q, lx, ux, ld, ud, lc, uc, Dv, Exs, Eds, Ecs, cinv,
+                     exi, edi, eci, dvi, dyn_valid, keep_first, keep_last, is_first,
+                     is_last, d, sigma, alpha, J0_prev, J1_sh, eye, empty)
+    it_ = kit(data)
 
     # ---- the ADMM iteration ----
     # Warm starts arrive in UNSCALED units (admm_solve's x0/y0 semantics).
@@ -357,190 +695,40 @@ def seq_admm_local(
         yx = _bvec(c, yx_u) * yx_u / Exs
         yd = _bvec(c, yd_u) * yd_u / Eds if r else yd_u
         yc = _bvec(c, yc_u) * yc_u / Ecs if r2 else yc_u
-    zx, zd, zc = apply_A(x)
+    zx, zd, zc = it_.apply_A(x)
     zx = _clip(zx, lx, ux)
     zd = _clip(zd, ld, ud) * dyn_valid
     zc = _clip(zc, lc, uc)
 
-    def one_iter(rhos, ops, carry):
-        rho_x, rho_d, rho_c = rhos
-        x, zx, zd, zc, yx, yd, yc = carry
-        rhs = sigma * x - q + apply_AT(rho_x * zx - yx, rho_d * zd - yd, rho_c * zc - yc)
-        xt = spike_solve(ops, rhs)
-        ztx, ztd, ztc = apply_A(xt)
-        x_new = alpha * xt + (1 - alpha) * x
+    carry = (x, zx, zd, zc, yx, yd, yc)
+    # Termination once up front: an already converged warm start exits.
+    done, *_ = it_.residuals(*carry)
+    pinf = torch.zeros((S,), dtype=torch.bool, device=dev)
+    dinf = pinf
+    stop = it_.stop_of(done, pinf, dinf)
+    state = (torch.zeros((S,), dtype=torch.int32, device=dev), *carry, rho_x, rho_d, rho_c,
+             done, pinf, dinf, stop)
 
-        def upd(zt, z, y, rho, lo, hi):
-            z_rel = alpha * zt + (1 - alpha) * z
-            z_new = _clip(z_rel + y / rho, lo, hi)
-            return z_new, y + rho * (z_rel - z_new)
+    def outer_go(it, *rest):
+        return (it < st.max_iter) & ~rest[13]
 
-        zx_n, yx_n = upd(ztx, zx, yx, rho_x, lx, ux)
-        zd_n, yd_n = upd(ztd, zd, yd, rho_d, ld, ud)
-        zc_n, yc_n = upd(ztc, zc, yc, rho_c, lc, uc)
-        return (x_new, zx_n, zd_n * dyn_valid, zc_n, yx_n, yd_n * dyn_valid, yc_n)
-
-    exi, edi, eci, dvi = 1.0 / Exs, 1.0 / Eds, 1.0 / Ecs, 1.0 / Dv
-
-    def residuals(x, zx, zd, zc, yx, yd, yc):
-        """Unscaled residuals (OSQP): rows divided by their E factor,
-        variables by Dv, dual quantities by the cost scaling c."""
-        a_x, a_d, a_c = apply_A(x)
-        px = P(x)
-        aty = apply_AT(yx, yd, yc)
-        rp_loc = _amax((a_x - zx) * exi, (a_d - zd) * dyn_valid * edi, (a_c - zc) * eci)
-        rd_loc = cinv * _amax((px + q + aty) * dvi)
-        mp_loc = torch.maximum(_amax(a_x * exi, a_d * edi, a_c * eci),
-                               _amax(zx * exi, zd * edi, zc * eci))
-        md_loc = cinv * torch.maximum(torch.maximum(_amax(aty * dvi), _amax(px * dvi)),
-                                      _amax(q * dvi))
-        r_prim, r_dual = ax.pmax(rp_loc, sync_axes), ax.pmax(rd_loc, sync_axes)
-        max_prim, max_dual = ax.pmax(mp_loc, sync_axes), ax.pmax(md_loc, sync_axes)
-        eps_pri = st.eps_abs + st.eps_rel * max_prim
-        eps_dua = st.eps_abs + st.eps_rel * max_dual
-        done = (r_prim <= eps_pri) & (r_dual <= eps_dua)
-        return done, r_prim, r_dual, max_prim, max_dual
-
-    def certificates(dx, dyx, dyd, dyc):
-        """OSQP infeasibility certificates (Banjac et al.) on one check
-        block's scaled iterate deltas, tested on unscaled quantities.
-        Reductions span the horizon axis only: a certificate is one
-        problem's, so on a 2-D mesh each scenario keeps its own flags."""
-        tiny = 1e-12
-        pm = lambda t: ax.pmax(t, axis)  # noqa: E731
-        ps = lambda t: ax.psum(t, axis)  # noqa: E731
-        cb = lambda t: _bvec(cinv, t)  # noqa: E731
-        # -- primal infeasibility: dy with A^T dy ~ 0 and support function
-        #    u'(dy)_+ + l'(dy)_- < 0 (padded dynamics rows carry zero
-        #    deltas: one_iter masks yd with dyn_valid).
-        if r:
-            dyd = dyd * dyn_valid
-        dyx_u = dyx * exi * cb(dyx)
-        dyd_u = dyd * edi * cb(dyd) if r else dyd
-        dyc_u = dyc * eci * cb(dyc) if r2 else dyc
-        ndy = pm(_amax(dyx_u, dyd_u, dyc_u))
-
-        def support_of(dy_u, lo_s, hi_s, e_inv):
-            # Masked products so inf * 0 cannot produce NaN; an infinite
-            # bound with matching delta sign gives +inf, blocking the
-            # certificate.
-            dy_p = torch.clamp(dy_u, min=0.0)
-            dy_m = torch.clamp(dy_u, max=0.0)
-            zero = torch.zeros_like(dy_u)
-            t_u = torch.where(dy_p > 0, (hi_s * e_inv) * dy_p, zero)
-            t_l = torch.where(dy_m < 0, (lo_s * e_inv) * dy_m, zero)
-            return torch.sum((t_u + t_l).reshape(S, -1), dim=1)
-
-        support = support_of(dyx_u, lx, ux, exi)
-        if r:
-            support = support + support_of(dyd_u, ld, ud, edi)
-        if r2:
-            support = support + support_of(dyc_u, lc, uc, eci)
-        support = ps(support)
-        atdy = apply_AT(dyx, dyd, dyc)
-        n_Atdy = pm(_amax(cb(atdy) * atdy * dvi))
-        pinf = (ndy > tiny) & (support < -st.eps_prim_inf * ndy) & (n_Atdy < st.eps_prim_inf * ndy)
-        # -- dual infeasibility: dx with P dx ~ 0, q'dx < 0 and A dx
-        #    consistent with a feasible recession direction.
-        dx_u = Dv * dx
-        ndx = pm(_amax(dx_u))
-        thr = st.eps_dual_inf * ndx
-        cond_q = ps(torch.sum((q * dx).reshape(S, -1), dim=1)) * cinv < -thr
-        pdx = P(dx)
-        cond_P = pm(_amax(cb(pdx) * pdx * dvi)) < thr
-        a_x, a_d, a_c = apply_A(dx)
-        ok = torch.ones((S,), dtype=torch.bool, device=dev)
-        for adx, lo, hi, e in ((a_x, lx, ux, exi), (a_d * dyn_valid, ld, ud, edi),
-                               (a_c, lc, uc, eci)):
-            if not adx.numel():
-                continue
-            adx_u, t = (adx * e).reshape(S, -1), _bvec(thr, adx.reshape(S, -1))
-            hi_u, lo_u = (hi * e).reshape(S, -1), (lo * e).reshape(S, -1)
-            ok = ok & torch.all(torch.where(hi_u < _INF, adx_u < t, True), dim=1)
-            ok = ok & torch.all(torch.where(lo_u > -_INF, adx_u > -t, True), dim=1)
-        # all() must hold on EVERY shard: pmax-reduce the violation flag.
-        cond_A = pm((~ok).to(dtype)) < 0.5
-        dinf = (ndx > tiny) & cond_q & cond_P & cond_A
-        return pinf, dinf
-
-    # ---- rho rounds: the SPIKE setup once an adaptation interval ----
-    # Each round refactors with the current rho (the trigger a globally
-    # reduced scalar, so every shard scales alike), then up to `interval`
-    # iterations run with early termination synced over `sync_axes`.
-    # adaptive_rho=False is a single round.
-    if st.adaptive_rho:
-        interval = max(st.adaptive_rho_interval, st.check_every)
-        interval = ((interval + st.check_every - 1) // st.check_every) * st.check_every
+    if on_device and not st.adaptive_rho:
+        # Without adaptation the host loop runs one round (its interval is
+        # the budget): the same here, its SPIKE setup outside every loop.
+        state = _select(outer_go(*state), it_.outer(state), state)
+    elif on_device:
+        state = _while(lambda s, c: outer_go(*s).any(),
+                       lambda s, c: _select(outer_go(*s), kit(_LoopData(*c)).outer(s), s),
+                       state, data)
     else:
-        interval = st.max_iter
-
-    def stop_of(done, pinf, dinf):
-        """The loop-exit flag, the same on every shard of `sync_axes`:
-        converged OR certified everywhere there."""
-        go = (~(done | pinf | dinf)).to(dtype)
-        return ax.pmax(go, sync_axes) < 0.5
-
-    def run_round(rhos, it0, carry, done, pinf, dinf, stop):
-        ops = spike_setup(*rhos)
-        k = torch.zeros((S,), dtype=torch.int32, device=dev)
-        zero = torch.zeros((S,), dtype=dtype, device=dev)
-        res = (zero, zero, zero, zero)
         while True:
-            go = (k < interval) & (it0 + k < st.max_iter) & ~stop
+            go = outer_go(*state)
             n = _count(go)
             if n == 0:
                 break
-            x_o, yx_o, yd_o, yc_o = carry[0], carry[4], carry[5], carry[6]
-            new = carry
-            for _ in range(st.check_every):
-                new = one_iter(rhos, ops, new)
-            done_n, rp, rd, mp, md = residuals(*new)
-            pinf_n, dinf_n = pinf, dinf
-            if st.check_infeasibility:
-                pi, di_ = certificates(new[0] - x_o, new[4] - yx_o, new[5] - yd_o, new[6] - yc_o)
-                pinf_n = pinf | (pi & ~done_n)
-                dinf_n = dinf | (di_ & ~done_n)
-            stop_n = stop_of(done_n, pinf_n, dinf_n)
-            state = (k + st.check_every, *new, done_n, pinf_n, dinf_n, stop_n, rp, rd, mp, md)
-            if n < S:  # a vmap-ed scenario that stopped keeps its state
-                state = _select(go, state, (k, *carry, done, pinf, dinf, stop, *res))
-            k, carry, (done, pinf, dinf, stop), res = (
-                state[0], state[1:8], state[8:12], state[12:])
-        return k, carry, done, pinf, dinf, stop, res
-
-    carry = (x, zx, zd, zc, yx, yd, yc)
-    # Termination once up front: an already converged warm start exits.
-    done, *_ = residuals(*carry)
-    pinf = torch.zeros((S,), dtype=torch.bool, device=dev)
-    dinf = pinf
-    stop = stop_of(done, pinf, dinf)
-    rhos = (rho_x, rho_d, rho_c)
-    it = torch.zeros((S,), dtype=torch.int32, device=dev)
-    while True:
-        go = (it < st.max_iter) & ~stop
-        n = _count(go)
-        if n == 0:
-            break
-        k, carry_n, done_n, pinf_n, dinf_n, stop_n, (rp, rd, mp, md) = run_round(
-            rhos, it, carry, done, pinf, dinf, stop)
-        rhos_n = rhos
-        if st.adaptive_rho:
-            # The OSQP rho rule on globally reduced residuals: every shard
-            # computes the same scale, so the next round's refactorization
-            # collectives stay uniform.
-            num = rp / torch.clamp(mp, min=1e-10)
-            den = rd / torch.clamp(md, min=1e-10)
-            scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-10)), 1e-3, 1e3)
-            trigger = (scale > st.adaptive_rho_tolerance) | (scale < 1.0 / st.adaptive_rho_tolerance)
-            s_eff = torch.where(trigger & ~stop_n, scale, torch.ones_like(scale))
-            rho_x_n, rho_d_n, rho_c_n = (
-                torch.clamp(rh * _bvec(s_eff, rh), _RHO_MIN, _RHO_MAX) for rh in rhos)
-            rho_d_n = rho_d_n * dyn_valid + (1 - dyn_valid) * _RHO_MIN
-            rhos_n = (rho_x_n, rho_d_n, rho_c_n)
-        state = (it + k, *carry_n, *rhos_n, done_n, pinf_n, dinf_n, stop_n)
-        if n < S:
-            state = _select(go, state, (it, *carry, *rhos, done, pinf, dinf, stop))
-        it, carry, rhos, (done, pinf, dinf, stop) = state[0], state[1:8], state[8:11], state[11:]
+            new = it_.outer(state)
+            state = new if n == S else _select(go, new, state)
+    it, carry, (done, pinf, dinf) = state[0], state[1:8], state[11:14]
 
     x, zx, zd, zc, yx, yd, yc = carry
     x_u = Dv * x
@@ -555,7 +743,7 @@ def seq_admm_local(
 
 @f32_matmuls
 def admm_solve_seq_parallel(qp: ShardedBandedQP, settings: ADMMSettings, *, mesh: Mesh,
-                            axis: str = "h"):
+                            axis: str = "h", on_device: bool = False):
     """Solve the stage-structured QP with stages sharded over ``mesh[axis]``.
 
     Returns ``(x (N, w), iters, converged, prim_inf, dual_inf)``.  Only
@@ -563,8 +751,12 @@ def admm_solve_seq_parallel(qp: ShardedBandedQP, settings: ADMMSettings, *, mesh
     the OSQP infeasibility certificates (False when
     ``settings.check_infeasibility`` is off); a certified QP exits early.
     Fields that are not tensors go to the mesh's device
-    (:func:`..device.as_tensors`).
+    (:func:`..device.as_tensors`).  ``on_device`` keeps the loops on the
+    device (the same results; in-process meshes only): the function's
+    ``export_form``.
     """
+    if on_device:
+        check_device_form(mesh)
     qp = ShardedBandedQP(*as_tensors(*qp, device=mesh.device))
     N = qp.Hb.shape[0]
     if axis not in mesh.shape:
@@ -576,6 +768,9 @@ def admm_solve_seq_parallel(qp: ShardedBandedQP, settings: ADMMSettings, *, mesh
     ax = mesh.shards()
     spec = (axis,)
     x, its, done, pinf, dinf, _ = seq_admm_local(
-        ax, *(ax.shard(a, spec) for a in qp), settings=settings, axis=axis,
+        ax, *(ax.shard(a, spec) for a in qp), settings=settings, axis=axis, on_device=on_device,
     )
     return ax.unshard(x, spec), its[0], done[0], pinf[0], dinf[0]
+
+
+admm_solve_seq_parallel.export_form = functools.partial(admm_solve_seq_parallel, on_device=True)

@@ -21,12 +21,21 @@ batched ``(B, N, w)`` inputs to split scenarios over one axis and the
 horizon over another; each shard's scenarios are its own problems (JAX
 ``vmap``s the per-scenario program over them).
 
+``on_device`` runs each QP's loops on the device
+(:func:`.seq_admm.seq_admm_local`; in-process meshes only): the same
+results, no host read, and the function's ``export_form``, which
+``utils/serialization.export_solver`` finds through a
+``functools.partial`` of it, so that exporting the function is written as
+with JAX's ``export_solver``.
+
 JAX caches its compiled program per call signature (``_SOLVE_CACHE``, keyed
 on ``id()``); the port builds nothing worth caching — its stage maps are
 made per call in microseconds — so it keeps no cache.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -36,7 +45,7 @@ from ..device import as_tensors
 from ..solvers.admm import ADMMSettings, f32_matmuls
 from ..stagewise import StageStructure
 from .mesh import Mesh
-from .seq_admm import seq_admm_local
+from .seq_admm import check_device_form, seq_admm_local
 
 __all__ = ["sqp_solve_seq_parallel"]
 
@@ -61,11 +70,11 @@ def _stage_map(fn, dtype):
 
 def seq_sqp_local(ax, x_l, ref_l, lx_l, ux_l, *, ss: StageStructure, sqp_iters, alpha,
                   admm: ADMMSettings, axis, sync_axes, hessian_reg, line_search, ls_num,
-                  ls_alpha_max, ls_merit_mu):
+                  ls_alpha_max, ls_merit_mu, on_device=False):
     """The per-device SQP over local tensors ``(S, C, ...)``.  Returns the
     trajectory ``(S, C, w)``, the ADMM iterations ``(S, sqp_iters)`` and
     the per-iteration QP flags (converged, prim_inf, dual_inf)
-    ``(S, sqp_iters, 3)``."""
+    ``(S, sqp_iters, 3)``; ``on_device`` as :func:`.seq_admm.seq_admm_local`."""
     dtype, dev = x_l.dtype, x_l.device
     S, C, w = x_l.shape
     D = ax.size(axis)
@@ -138,7 +147,7 @@ def seq_sqp_local(ax, x_l, ref_l, lx_l, ux_l, *, ss: StageStructure, sqp_iters, 
 
         dx, it, done, pinf, dinf, warm = seq_admm_local(
             ax, Hb, J0, J1, Jc, g, lx_l - frames, ux_l - frames, ld, ud, lc, uc,
-            settings=admm, axis=axis, sync_axes=sync_axes, warm=warm,
+            settings=admm, axis=axis, sync_axes=sync_axes, warm=warm, on_device=on_device,
         )
         if line_search == "none":
             x_new = x_l + alpha * dx
@@ -194,6 +203,7 @@ def sqp_solve_seq_parallel(
     ls_num: int = 8,
     ls_alpha_max: float = 1.0,
     ls_merit_mu: float = 10.0,
+    on_device: bool = False,
 ):
     """Run ``sqp_iters`` damped SQP iterations with everything sharded over
     ``mesh[axis]``.  Returns ``(x, its, qp_status)``: the final trajectory
@@ -203,7 +213,11 @@ def sqp_solve_seq_parallel(
     (B, sqp_iters) and (B, sqp_iters, 3).  The arrays stay on the mesh's
     device; on a distributed mesh every rank returns the global result.
     Arrays that are not tensors go to the mesh's device
-    (:func:`..device.as_tensors`)."""
+    (:func:`..device.as_tensors`).  ``on_device`` keeps every QP's loops on
+    the device (the same results; in-process meshes only): the function's
+    ``export_form``."""
+    if on_device:
+        check_device_form(mesh)
     x0, ref, lx, ux = as_tensors(x0, ref, lx, ux, device=mesh.device)
     if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r}: {mesh.shape}")
@@ -243,7 +257,7 @@ def sqp_solve_seq_parallel(
         ax, *(to_local(t) for t in (x0, ref, lx, ux)), ss=ss, sqp_iters=sqp_iters,
         alpha=alpha, admm=admm, axis=axis, sync_axes=sync_axes, hessian_reg=hessian_reg,
         line_search=line_search, ls_num=ls_num, ls_alpha_max=ls_alpha_max,
-        ls_merit_mu=ls_merit_mu,
+        ls_merit_mu=ls_merit_mu, on_device=on_device,
     )
     # Back to the global layout: the trajectory from every shard, the
     # flags (the same on every shard of the horizon axis) from the first.
@@ -256,3 +270,6 @@ def sqp_solve_seq_parallel(
     if batch_axis is None:
         return x.reshape(N, w), its, status
     return x.reshape(B, N, w), its.reshape(B, sqp_iters), status.reshape(B, sqp_iters, 3)
+
+
+sqp_solve_seq_parallel.export_form = functools.partial(sqp_solve_seq_parallel, on_device=True)

@@ -54,7 +54,10 @@ class HorizonShardedSolver:
 
     The OCP must have a registered stage structure (reduced formulation),
     live on the mesh's device, and its horizon must split into >= 2
-    stages a shard along ``mesh[axis]``.
+    stages a shard along ``mesh[axis]``.  A tick is one call of
+    :func:`.seq_sqp.sqp_solve_seq_parallel` at the solver's settings, so
+    ``export_solver`` of a ``functools.partial`` of that function at those
+    settings (in-process mesh) exports the tick.
     """
 
     def __init__(self, ocp: OptimalControlProblem, mesh: Mesh, axis: str = "h",

@@ -54,6 +54,7 @@ __all__ = [
     "banded_certificates",
     "banded_certificates_T",
     "banded_polish",
+    "banded_polish_T",
 ]
 
 _INF = float("inf")
@@ -453,6 +454,49 @@ def banded_certificates(qp: BandedQP, dx_s, dy_s, D, E, cinv, st: ADMMSettings, 
 # Polish
 
 
+def banded_polish_T(qpT: BandedQP, st: ADMMSettings, x, y, z, r_prim, r_dual, Einv, Dinv, cinv,
+                    factor=btd_factor, solve=btd_solve):
+    """Active-set polish with block structure (OSQP ``polish.c`` analog),
+    batch-last: rows whose dual sits on a bound with matching sign are
+    pinned via a 1/delta penalty in the same block-tridiagonal operator
+    family, and two augmented-Lagrangian sweeps remove the O(delta) bias.
+    Each scenario's polished point is accepted only if both of its
+    unscaled residuals improve.  All quantities in SCALED space: ``x (n,
+    B)``, ``y``/``z`` ``(m, B)``, ``r_prim``/``r_dual``/``cinv`` ``(B,)``,
+    ``Einv (m, B)``, ``Dinv (n, B)``; returns updated ``(x, y, z, r_prim,
+    r_dual)``.  ``factor``/``solve`` take the blocks stage-first with the
+    scenarios after the stage dim (``(N, B, w, w)``, right-hand sides
+    ``(N, B, w)``), as ``btd_factor``/``btd_solve`` do: one pass over the
+    whole batch, the same launches at every B."""
+    N, w, B = qpT.Hb.shape[0], qpT.Hb.shape[1], x.shape[-1]
+    n, m = N * w, qpT.l.shape[0]
+    dtype, dev = qpT.Hb.dtype, qpT.Hb.device
+    l, u, q = qpT.l, qpT.u, qpT.q
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    delta = torch.tensor(st.polish_delta, dtype=dtype, device=dev)
+    lower_act = y < 0.0
+    upper_act = y > 0.0
+    active = torch.logical_or(lower_act, upper_act)
+    b_act = torch.where(upper_act, u, torch.where(lower_act, l, zero))
+    rho_pol = torch.where(active, 1.0 / delta, zero)
+    diag_p, lower_p = _build_M_blocks_T(qpT, rho_pol, delta)
+    fac_p = factor(diag_p.movedim(-1, 1), lower_p.movedim(-1, 1))
+
+    nu = torch.zeros((m, B), dtype=dtype, device=dev)
+    x_p = x
+    for _ in range(2):  # augmented-Lagrangian sweeps
+        rhs = -q + _apply_AT_T(qpT, rho_pol * b_act - nu).reshape(n, B)
+        x_p = solve(fac_p, rhs.reshape(N, w, B).movedim(-1, 1)).movedim(1, -1).reshape(n, B)
+        Axp = _apply_A_T(qpT, x_p.reshape(N, w, B))
+        nu = nu + torch.where(active, rho_pol * (Axp - b_act), zero)
+    y_p = torch.where(active, nu, zero)
+    z_p = torch.clip(_apply_A_T(qpT, x_p.reshape(N, w, B)), l, u)
+    rp_p, rd_p, _, _, _, _ = banded_residuals_T(qpT, x_p, z_p, y_p, Einv, Dinv, cinv, st)
+    better = torch.logical_and(rp_p <= r_prim, rd_p <= r_dual)
+    pick = lambda a, b: torch.where(better, a, b)  # noqa: E731
+    return pick(x_p, x), pick(y_p, y), pick(z_p, z), pick(rp_p, r_prim), pick(rd_p, r_dual)
+
+
 def banded_polish(
     qp: BandedQP,
     st: ADMMSettings,
@@ -469,45 +513,20 @@ def banded_polish(
     *,
     device=None,
 ):
-    """Active-set polish with block structure (OSQP ``polish.c`` analog):
-    rows whose dual sits on a bound with matching sign are pinned via a
-    1/delta penalty in the same block-tridiagonal operator family, and two
-    augmented-Lagrangian sweeps remove the O(delta) bias.  Accepted only if
-    both unscaled residuals improve.  Per scenario, all quantities in
-    SCALED space; returns updated ``(x, y, z, r_prim, r_dual)``.  Arrays
-    that are not tensors go to ``device`` (:func:`_banded_tensors`).
+    """Per-scenario :func:`banded_polish_T` with the per-scenario
+    ``factor``/``solve`` pair (``btd_*`` or ``cr_*``); returns updated
+    ``(x, y, z, r_prim, r_dual)``.  Arrays that are not tensors go to
+    ``device`` (:func:`_banded_tensors`).
     """
     qp, x, y, z, r_prim, r_dual, Einv, Dinv, cinv = _banded_tensors(
         qp, x, y, z, r_prim, r_dual, Einv, Dinv, cinv, device=device)
-    N, w = qp.Hb.shape[0], qp.Hb.shape[1]
-    m = qp.l.shape[0]
-    dtype, dev = qp.Hb.dtype, qp.Hb.device
-    l, u, q = qp.l, qp.u, qp.q
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    delta = torch.tensor(st.polish_delta, dtype=dtype, device=dev)
-    lower_act = y < 0.0
-    upper_act = y > 0.0
-    active = torch.logical_or(lower_act, upper_act)
-    b_act = torch.where(upper_act, u, torch.where(lower_act, l, zero))
-    rho_pol = torch.where(active, 1.0 / delta, zero)
-    diag_p, lower_p = _build_M_blocks(qp, rho_pol, delta)
-    fac_p = factor(diag_p, lower_p)
-
-    nu = torch.zeros((m,), dtype=dtype, device=dev)
-    x_p = x
-    for _ in range(2):  # augmented-Lagrangian sweeps
-        rhs = -q + _apply_AT(qp, (rho_pol * b_act - nu)).reshape(-1)
-        x_p = solve(fac_p, rhs.reshape(N, w)).reshape(-1)
-        Axp = _apply_A(qp, x_p.reshape(N, w))
-        nu = nu + torch.where(active, rho_pol * (Axp - b_act), zero)
-    y_p = torch.where(active, nu, zero)
-    z_p = torch.clip(_apply_A(qp, x_p.reshape(N, w)), l, u)
-    rp_p, rd_p, _, _, _, _ = banded_residuals(
-        qp, x_p, z_p, y_p, Einv, Dinv, cinv, st
+    outs = banded_polish_T(
+        _batch1(qp), st, x[:, None], y[:, None], z[:, None], r_prim.reshape(1),
+        r_dual.reshape(1), Einv[:, None], Dinv[:, None], cinv.reshape(1),
+        factor=lambda d, lo: factor(d[:, 0], lo[:, 0]),
+        solve=lambda f, b: solve(f, b[:, 0])[:, None],
     )
-    better = torch.logical_and(rp_p <= r_prim, rd_p <= r_dual)
-    pick = lambda a, b: torch.where(better, a, b)  # noqa: E731
-    return pick(x_p, x), pick(y_p, y), pick(z_p, z), pick(rp_p, r_prim), pick(rd_p, r_dual)
+    return tuple(o[..., 0] for o in outs)
 
 
 # ---------------------------------------------------------------------------

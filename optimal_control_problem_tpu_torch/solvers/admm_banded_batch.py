@@ -23,7 +23,7 @@ axis):
   run;
 * between chunks (PyTorch): infeasibility certificates on the chunk deltas
   and OSQP adaptive rho (the refactorization happens at the next launch);
-* finish: optional active-set polish (per scenario), unscaling.
+* finish: optional active-set polish (one batched pass), unscaling.
 
 Semantics match the per-scenario ``admm_solve_banded`` (thomas), except
 that certificates are evaluated once per chunk instead of once per check
@@ -48,13 +48,12 @@ from ..device import as_tensors, resolve_device
 from ..ops.banded_cr_kernel import banded_admm_chunk_cr
 from ..ops.banded_kernel import KERNEL_WIDTHS, banded_admm_chunk
 from ..ops.banded_rolled_kernel import banded_admm_chunk_rolled
-from ..ops.block_tridiag import btd_factor, btd_solve
 from .admm import ADMMSettings, QPSolution, _RHO_MAX, _RHO_MIN, _fresh, f32_matmuls
 from .admm_banded import (
     BandedQP,
     _rho_vec,
     banded_certificates_T,
-    banded_polish,
+    banded_polish_T,
     ruiz_equilibrate_banded_T,
 )
 
@@ -369,16 +368,11 @@ def _solve_banded_batch_T(
     the first chunk, then (with adaptive rho) a ``torch.while_loop`` of
     chunks while any scenario is active; the same results as the host
     loop, and the form ``torch.export`` traces (the chunk kernel one op
-    node).  ``polish=True`` has no such form (its polish runs per scenario
-    on the host) and raises there."""
+    node).  With ``polish=True`` both forms end with the same batched
+    polish (:func:`.admm_banded.banded_polish_T`)."""
     dtype, dev = qpT.Hb.dtype, qpT.Hb.device
     N, w, B = qpT.Hb.shape[0], qpT.Hb.shape[1], qpT.Hb.shape[-1]
     n = N * w
-    if on_device and st.polish:
-        raise ValueError(
-            "the banded batch solve with polish=True has no device-side form: its polish "
-            "runs per scenario on the host"
-        )
     prob = prepare_banded_batch_T(qpT, st, x0T, y0T, scalingsT)
     scaled = prob.scaled
     r, r2 = scaled.J0.shape[1], scaled.Jc.shape[1]
@@ -451,20 +445,12 @@ def _solve_banded_batch_T(
     it_b, done, pinf, dinf, rp, rd, x, y, z, rho = s
 
     if st.polish:
-        # Opt-in and per scenario (plain PyTorch), as in the JAX driver's
-        # vmapped polish.
-        flat = scaled._replace(q=scaled.q.reshape(n, B))
-        cols = [list(t) for t in (x.unbind(-1), y.unbind(-1), z.unbind(-1))]
-        rp_l, rd_l = list(rp.unbind(0)), list(rd.unbind(0))
-        for b in range(B):
-            qp_b = BandedQP(*(a[..., b] for a in flat))
-            (cols[0][b], cols[1][b], cols[2][b], rp_l[b], rd_l[b]) = banded_polish(
-                qp_b, st, btd_factor, btd_solve,
-                cols[0][b], cols[1][b], cols[2][b], rp_l[b], rd_l[b],
-                prob.Einv[:, b], prob.Dinv[:, b], prob.cinv[b],
-            )
-        x, y, z = (torch.stack(c, dim=-1) for c in cols)
-        rp, rd = torch.stack(rp_l), torch.stack(rd_l)
+        # Opt-in: one batched pass over every scenario (plain PyTorch, as
+        # the JAX driver's vmapped polish is plain jnp).
+        x, y, z, rp, rd = banded_polish_T(
+            scaled._replace(q=scaled.q.reshape(n, B)), st, x, y, z, rp, rd,
+            prob.Einv, prob.Dinv, prob.cinv,
+        )
 
     had_r, had_r2 = prob.had_r, prob.had_r2
     return (

@@ -785,8 +785,7 @@ class SQPOptimizationSolver:
         batch (per rho-constant chunk).  ``export_form`` (built with
         ``export=True``) is its twin for ``torch.export``: the chunk loop on
         the device, each chunk kernel one op node, the fields as a tuple;
-        the same results.  ``polish=True`` has none (its polish runs per
-        scenario on the host)."""
+        the same results (with ``polish=True`` the batched polish too)."""
         from ..stagewise import build_stage_blocks_batch, build_stage_vectors_batch
         from .admm_banded import BandedQP
         from .admm_banded_batch import _solve_banded_batch_T, ruiz_scalings_batch_T
@@ -863,10 +862,7 @@ class SQPOptimizationSolver:
             return tuple(res) if export else res
 
         if not export:
-            solve_batch.export_form = (
-                None if admm_settings.polish else self._build_solve_banded_batch_fn(export=True))
-            solve_batch.no_export = ("the banded batch solve with polish=True (its polish runs "
-                                     "per scenario on the host)")
+            solve_batch.export_form = self._build_solve_banded_batch_fn(export=True)
         return solve_batch
 
     # -- reference-parity stateful API ----------------------------------

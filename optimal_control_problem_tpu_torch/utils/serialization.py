@@ -9,13 +9,22 @@
   ``torch.export`` program (``torch.export.save`` / ``load``), the analog
   of the reference's generated ``.so`` solver libraries and of JAX's
   export of a jitted solve: it reloads and runs without the Python
-  problem definition.  The solve functions of ``SQPOptimizationSolver``
-  (``solve_fn``, ``solve_batch_fn``, ``solve_batch_banded_fn``,
-  ``solve_batch_dense_fn``) read their loop conditions on the host, which
-  ``torch.export`` cannot trace; each carries an ``export_form`` twin
-  with every condition on the device (``torch.while_loop``) and the same
-  results, and that is what is exported.  The hand-written CUDA kernels
-  are custom ops (``torch.ops.ocp_torch.*``, registered when the port is
+  problem definition.  What exports: the solve functions of
+  ``SQPOptimizationSolver`` (``solve_fn``, ``solve_batch_fn``,
+  ``solve_batch_banded_fn`` with or without ``polish``,
+  ``solve_batch_dense_fn``) and the sequence-parallel solves
+  (``parallel.admm_solve_seq_parallel``, ``parallel.sqp_solve_seq_parallel``,
+  also as a ``functools.partial`` of them, as one writes it for JAX's
+  ``export_solver``; ``HorizonShardedSolver``'s tick is such a call) over
+  an in-process mesh.  Their direct forms read loop conditions on the
+  host, which ``torch.export`` cannot trace; each carries an
+  ``export_form`` twin with every condition on the device
+  (``torch.while_loop`` or its operator) and the same results, and that
+  is what is exported.  What is refused: a sequence-parallel solve over a
+  ``torch.distributed`` mesh (its collectives are rank-local calls of a
+  process group, which no program of one process holds).  The hand-written
+  CUDA kernels are
+  custom ops (``torch.ops.ocp_torch.*``, registered when the port is
   imported): the program holds each as one node, never its plain
   version's operations, and the reloaded program launches the same
   kernels on the card (their plain versions on the CPU).  An artifact
@@ -27,6 +36,8 @@
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from pathlib import Path
 from typing import Any, Dict, Sequence
@@ -79,6 +90,46 @@ def load_solver_state(solver, path: str) -> None:
                                                     device=solver.device))
 
 
+def _export_form(fn):
+    """``fn``'s ``export_form`` (``fn`` itself without one), found also
+    through a ``functools.partial`` of ``fn``, whose arguments it keeps."""
+    if isinstance(fn, functools.partial):
+        return functools.partial(_export_form(fn.func), *fn.args, **fn.keywords)
+    return getattr(fn, "export_form", fn)
+
+
+@contextlib.contextmanager
+def _no_stack_traces():
+    """The trace without each node's Python stack trace (metadata only):
+    recording them is about a fifth of tracing the device-side loops,
+    whose bodies are traced several times over."""
+    try:
+        from torch.fx import config as fx_config
+    except ImportError:
+        fx_config = None
+    if not hasattr(fx_config, "do_not_emit_stack_traces"):
+        yield
+        return
+    saved = fx_config.do_not_emit_stack_traces
+    fx_config.do_not_emit_stack_traces = True
+    try:
+        yield
+    finally:
+        fx_config.do_not_emit_stack_traces = saved
+
+
+def _as_input(a):
+    """An example argument as the trace takes it: a tensor, or a tuple
+    (a ``NamedTuple`` such as ``ShardedBandedQP`` too) of them; other
+    arrays become tensors."""
+    if isinstance(a, torch.Tensor):
+        return a
+    if isinstance(a, tuple):
+        parts = [_as_input(v) for v in a]
+        return type(a)(*parts) if hasattr(a, "_fields") else tuple(parts)
+    return torch.as_tensor(np.asarray(a))
+
+
 class _Exported(torch.nn.Module):
     def __init__(self, fn):
         super().__init__()
@@ -98,25 +149,26 @@ def export_program(fn, example_args: Sequence[Any]) -> torch.export.ExportedProg
     ``torch.func`` transforms, which only that level traces (they run as
     the trace is taken, and the program holds the operations they
     produce: the direct call's, so its values)."""
-    form = getattr(fn, "export_form", fn)
-    if form is None:
-        raise ValueError(f"export_solver: {getattr(fn, 'no_export', 'this function')} has no "
-                         "export form")
-    args = tuple(a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-                 for a in example_args)
-    return _export(_Exported(form), args, strict=False, pre_dispatch=False)
+    form = _export_form(fn)
+    with _no_stack_traces():
+        return _export(_Exported(form), tuple(_as_input(a) for a in example_args),
+                       strict=False, pre_dispatch=False)
 
 
 def export_solver(fn, example_args: Sequence[Any], path: str) -> None:
     """Serialize a solve function, traced at ``example_args`` (their
     shapes, dtypes and device), to ``path`` as a ``torch.export`` program.
 
-    ``fn`` may be one of ``SQPOptimizationSolver``'s solve functions (its
-    ``export_form`` is traced) or any torch function of tensors.  The
+    ``fn`` may be one of ``SQPOptimizationSolver``'s solve functions, a
+    sequence-parallel solve or a ``functools.partial`` of one (their
+    ``export_form`` is traced), or any torch function of tensors; an
+    example argument may be a tuple of tensors (``ShardedBandedQP``).  The
     kernels it reaches are traced as their custom ops.  Raises
-    ``ValueError`` for a solve function without an export form (custom
-    local-system parts without one; the banded batch solve with
-    ``polish=True``, whose polish runs per scenario on the host).
+    ``ValueError`` for a sequence-parallel solve over a
+    ``torch.distributed`` mesh (the message names the backend).  A
+    function without an export form (custom local-system parts called
+    directly, say) is traced as it is, and fails where it reads a tensor
+    on the host.
     """
     torch.export.save(export_program(fn, example_args), str(path))
 

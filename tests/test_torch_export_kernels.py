@@ -12,7 +12,8 @@ device-side forms of the three batch drivers that reach them.
   ``torch.while_loop``, the loop conditions on the device) gives the host
   loop's iterates, flags and iteration counts bitwise under a forced budget
   (a negative ``eps_abs``: no residual meets it), with and without adaptive
-  rho: the banded batch on each of its three chunk kernels, the LTI batch
+  rho: the banded batch on each of its three chunk kernels (and with
+  ``polish=True``, whose batched polish both forms end with), the LTI batch
   on the shared chunk (``"pallas"``, both forms of B3) and on the
   ``"xla"`` loop, the dense batch on the device loop and on ``"xla"``.
 
@@ -212,10 +213,13 @@ def test_banded_batch_on_device_equals_host_loop(kernel, adaptive):
     assert host.iters.tolist() == [60] * 3
 
 
-def test_banded_batch_on_device_refuses_polish():
+def test_banded_batch_on_device_polish_equals_host_polish():
+    """``polish=True``: both forms end with the same batched polish pass."""
     st = ADMMSettings(method="banded", polish=True, **FORCED)
-    with pytest.raises(ValueError, match="polish"):
-        abb.admm_solve_banded_batch(banded_qp(), st, device="cpu", on_device=True)
+    host = abb.admm_solve_banded_batch(banded_qp(), st, device="cpu")
+    dev = abb.admm_solve_banded_batch(banded_qp(), st, device="cpu", on_device=True)
+    assert_same(host, dev)
+    assert host.iters.tolist() == [60] * 3
 
 
 @pytest.mark.parametrize("adaptive", [False, True], ids=["constant-rho", "adaptive-rho"])

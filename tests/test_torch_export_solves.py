@@ -10,8 +10,8 @@ converges):
 
 * the cart-pole banded batch (B=4): B1, the one-way chunk, one op node a
   step (no adaptive rho: one chunk);
-* with ``polish=True`` the banded batch has no export form, and
-  ``export_solver`` raises a ``ValueError`` naming it.
+* the same with ``polish=True``: the batched polish pass after the
+  chunk, one B1 op node a step all the same.
 
 The other kernels' ticks: ``test_torch_export_dense.py`` (B5),
 ``test_torch_export_rolled.py`` (B2), ``test_torch_export_cr.py`` (B4),
@@ -19,13 +19,10 @@ The other kernels' ticks: ``test_torch_export_dense.py`` (B5),
 LTI ``"xla"`` loop).
 """
 
-import pytest
-
 from optimal_control_problem_tpu.models import cartpole as jcp
 from optimal_control_problem_tpu.parallel import BatchedSolver as JBatchedSolver
 from optimal_control_problem_tpu_torch.parallel import BatchedSolver
-from optimal_control_problem_tpu_torch.utils.serialization import export_solver
-from torch_export_cases import BANDED, cartpole, inputs, round_trip, solve_args, tcp
+from torch_export_cases import BANDED, cartpole, round_trip, tcp
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -37,14 +34,15 @@ def test_cartpole_banded_batch_exports_b1(monkeypatch, tmp_path):
     assert bool(direct.qp_converged.all())
 
 
-def test_banded_batch_with_polish_has_no_export_form(tmp_path):
-    """``polish=True`` (opt-in, per scenario on the host) has no device-side
-    form: ``export_solver`` says so instead of tracing."""
-    cfg = tcp.make_config(horizon=4, dt=0.04, alpha=0.3, step_num=1, formulation="reduced",
-                          ADMM_settings={**BANDED, "polish": True})
-    tb = BatchedSolver(tcp.build(cfg, stagewise=True, device="cpu"), device="cpu")
-    frames, refs = inputs("cartpole", 2)
-    args = solve_args(tb, frames, refs, tb.init_state(2))
-    assert tb._solve_batch.export_form is None
-    with pytest.raises(ValueError, match="polish=True"):
-        export_solver(tb._solve_batch, args, str(tmp_path / "polish.pt2"))
+def test_banded_batch_with_polish_exports_b1(monkeypatch, tmp_path):
+    """``polish=True`` (opt-in; one batched polish pass after the chunk
+    loop, plain PyTorch as in JAX): still one B1 op node a step."""
+    admm = {**BANDED, "polish": True}
+    cfg = lambda m: m.make_config(horizon=4, dt=0.04, alpha=0.3, step_num=1,  # noqa: E731
+                                  formulation="reduced", ADMM_settings=dict(admm))
+    tb = BatchedSolver(tcp.build(cfg(tcp), stagewise=True, device="cpu"), device="cpu")
+    jb = JBatchedSolver(jcp.build(cfg(jcp), stagewise=True))
+    assert tb.solver.options.admm.polish
+    direct = round_trip(monkeypatch, tmp_path, tb, jb, "cartpole", 4, "banded_admm_chunk",
+                        {("top", "banded_admm_chunk"): 1}, lambda: 1)
+    assert bool(direct.qp_converged.all())
