@@ -150,7 +150,10 @@ Phases:
      (kernel B1), ``HorizonShardedSolver`` on the cart-pole YAML h20 over
      4 shards (3 ticks) and on a (2, 4) scenario x horizon mesh, the
      quadrotor h100 over 4 shards, a world-size-1 NCCL group against the
-     in-process mesh, and the solves' bits with the caller's TF32 on;
+     in-process mesh, 7a's tick and 7c's SQP exported over such a group
+     one program a rank and reloaded (``rank_dist_job``, ``rank_seq_job``
+     in two workers beside phases 7 and 8, held after phase 8 by
+     ``phase7_ranks``), and the solves' bits with the caller's TF32 on;
   8. the six example twins (``examples/torch/``) at the JAX examples' own
      settings on the card (see ``phase8``), each with its original's
      asserts as gates: seconds per twin and the launches of every kernel.
@@ -250,6 +253,12 @@ DENSE_ADMM = {
 EXPORT_STEPS = 2
 # ... and phase 7c's horizon-sharded quadrotor h100 over 4 in-process shards.
 SEQ_EXPORT = {"horizon": 100, "shards": 4}
+# Phases 7a and 7d export over a torch.distributed mesh, one program a rank,
+# in a world of this many ranks: NCCL runs no two ranks on one card, and
+# gloo, which would, crashes in all_gather_into_tensor on CUDA tensors
+# (torch 2.11 on the H100: SIGSEGV; its all_reduce takes them).  So one
+# NCCL rank, as phase 7d has run since PR 11.
+RANK_WORLD = 1
 
 
 def log(msg: str) -> None:
@@ -507,10 +516,10 @@ def closed_loop(device):
 def _save_program(program, path):
     """``torch.export.save`` under a temporary name, then renamed: a job
     waiting on ``path`` (``_saved_program``) never reads half a file."""
-    import torch
+    from optimal_control_problem_tpu_torch.utils.serialization import save_program
 
     part = path[:-len(".pt2")] + ".part.pt2"
-    torch.export.save(program, part)
+    save_program(program, part)
     os.replace(part, path)
 
 
@@ -559,15 +568,16 @@ def _batched_case(case):
     return solver, args
 
 
-def _op_nodes(program):
-    """The program's ``ocp_torch`` op nodes by graph (top, loop bodies)."""
+def _op_nodes(program, prefix="ocp_torch."):
+    """The program's op nodes of the namespace ``prefix`` by graph (top,
+    loop bodies); ``program`` exported or loaded."""
     import torch
 
     nodes = {}
-    for gname, gm in program.graph_module.named_modules():
+    for gname, gm in getattr(program, "graph_module", program).named_modules():
         if isinstance(gm, torch.fx.GraphModule):
             for node in gm.graph.nodes:
-                if str(node.target).startswith("ocp_torch."):
+                if str(node.target).startswith(prefix):
                     key = f"{gname or 'top'}:{str(node.target).split('.')[1]}"
                     nodes[key] = nodes.get(key, 0) + 1
     return nodes
@@ -703,7 +713,9 @@ def export_job(case):
 
 
 def _seq_case(case):
-    """Phase 7c's quadrotor (``case``: horizon, shards, device) at
+    """Phase 7c's quadrotor (``case``: horizon, shards, device; with
+    ``"ranks"``, over a ``torch.distributed`` mesh of the process group
+    this process joined instead) at
     ``HorizonShardedSolver``'s settings with its SQP iterations cut to
     ``EXPORT_STEPS``: the solver, ``functools.partial(sqp_solve_seq_parallel,
     ...)`` built from its settings as a user writes it for JAX's
@@ -725,8 +737,9 @@ def _seq_case(case):
     H = case["horizon"]
     qcfg = quadrotor.make_config(horizon=H, dt=0.02, alpha=0.3, step_num=EXPORT_STEPS,
                                  formulation="reduced", ADMM_settings=dict(QUAD_ADMM))
-    sharded = HorizonShardedSolver(quadrotor.build(qcfg, stagewise=True, device=dev),
-                                   make_mesh(("h",), shape=(case["shards"],), devices=dev))
+    mesh = (make_mesh(("h",), devices="distributed") if case.get("ranks")
+            else make_mesh(("h",), shape=(case["shards"],), devices=dev))
+    sharded = HorizonShardedSolver(quadrotor.build(qcfg, stagewise=True, device=dev), mesh)
     frame = quadrotor.initial_state(pos=(0.3, -0.2, 1.0))
     ref = quadrotor.reference_hover(H)
     lx, ux = sharded._lx.copy(), sharded._ux.copy()
@@ -797,6 +810,162 @@ def seq_run_job(case):
         "direct_ms": statistics.median(ms["direct"]),
         "loaded_ms": statistics.median(ms["loaded"]), "job_s": time.perf_counter() - t_job,
     }
+
+
+def free_port() -> int:
+    """A free local TCP port."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _join_world(device, world, rank, port):
+    """This process as ``rank`` of a world of ``world`` through
+    ``initialize_distributed`` (NCCL on the card, gloo on the CPU), rank
+    0 listening on local ``port`` (a free one when None)."""
+    from optimal_control_problem_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(f"127.0.0.1:{port or free_port()}", world, rank, device=device)
+
+
+def _rank_round_trip(device, build, path, reps, case):
+    """A solve exported over ranks and reloaded as a user does it, in a
+    worker process (``case``: ``world`` ranks, ``RANK_WORLD`` when left
+    out, this one ``rank``, 0 by default, rank 0 listening on the two
+    local ``ports``, free ones by default): join the world, ``build()``
+    the solve over a mesh of
+    it (``(fn, args)``), ``export_solver`` this rank's program to
+    ``path``; leave the world, join it again, build the same mesh and
+    solve, ``import_solver``; then the direct call and the loaded program
+    on the same inputs, B1's launch counter reset before each and read
+    after, and ``reps`` more of each, interleaved; the ms are the median
+    of all the runs of each.  Returns
+    the program's nodes, the file, the seconds, both results and ms."""
+    import torch
+    import torch.distributed as tdist
+
+    from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
+    from optimal_control_problem_tpu_torch.utils.serialization import (
+        export_solver,
+        import_solver,
+    )
+
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    world, rank = case.get("world", RANK_WORLD), case.get("rank", 0)
+    ports = case.get("ports", (None, None))
+    _join_world(device, world, rank, ports[0])
+    try:
+        fn, args = build()
+        t0 = time.perf_counter()
+        written = export_solver(fn, args, path)
+        trace_s = time.perf_counter() - t0
+    finally:
+        tdist.destroy_process_group()
+    _join_world(device, world, rank, ports[1])
+    try:
+        fn, args = build()
+        t0 = time.perf_counter()
+        loaded = import_solver(path)
+        load_s = time.perf_counter() - t0
+        runs, ms = {}, {"direct": [], "loaded": []}
+        for rep in range(1 + reps):
+            for which, run in (("direct", fn), ("loaded", loaded)):
+                bk.banded_admm_chunk.launches = 0
+                sync()
+                t0 = time.perf_counter()
+                out = run(*args)
+                sync()
+                ms[which].append((time.perf_counter() - t0) * 1e3)
+                if not rep:
+                    runs[which] = [t.clone() for t in out]
+                    runs[which + "_launches"] = bk.banded_admm_chunk.launches
+        backend = tdist.get_backend()
+    finally:
+        tdist.destroy_process_group()
+    direct, out = runs["direct"], runs["loaded"]
+    return {
+        "backend": backend, "world": world, "rank": rank, "file": os.path.basename(written),
+        "bytes": os.path.getsize(written), "trace_s": trace_s, "load_s": load_s,
+        "kernel_nodes": _op_nodes(loaded), "collective_nodes": _op_nodes(loaded,
+                                                                        "_c10d_functional."),
+        # numpy: a worker's tensors would travel through its shared memory,
+        # gone once it exits.
+        "direct": [t.cpu().numpy() for t in direct], "loaded": [t.cpu().numpy() for t in out],
+        "equal": all(torch.equal(a, b) for a, b in zip(direct, out)),
+        "gap": max(float((a.float() - b.float()).abs().max()) for a, b in zip(direct, out)),
+        "finite": bool(torch.isfinite(out[0]).all()), "device": str(out[0].device),
+        "n_direct": runs["direct_launches"], "n_loaded": runs["loaded_launches"],
+        "direct_ms": statistics.median(ms["direct"]), "loaded_ms": statistics.median(ms["loaded"]),
+        "runs": 1 + reps,
+    }
+
+
+def rank_dist_job(case):
+    """Phase 7a over ranks, in a worker process beside phases 7 and 8:
+    ``DistributedSolver``'s tick (``solve_jit``) on phase 7a's cart-pole
+    h20 banded batch (``case``: B, device, and ``_rank_round_trip``'s
+    world, rank and ports; the SQP steps cut to ``EXPORT_STEPS``, a cold
+    tick) over a ``torch.distributed`` mesh of its world on ``"batch"``,
+    B / world scenarios a rank through B1, exported and reloaded
+    (``_rank_round_trip``); and the same tick on phase 7a's in-process
+    mesh of 4 shards, for the gap."""
+    import torch
+
+    from optimal_control_problem_tpu_torch.models import cartpole
+    from optimal_control_problem_tpu_torch.parallel import (
+        BatchedSolver,
+        DistributedSolver,
+        make_mesh,
+    )
+
+    t_job = time.perf_counter()
+    dev = torch.device(case["device"])
+    B = case["B"]
+    cfg = cartpole.make_config(horizon=20, dt=0.04, alpha=0.3, step_num=EXPORT_STEPS,
+                               formulation="reduced", ADMM_settings=dict(MAIN_ADMM))
+    batched = BatchedSolver(cartpole.build(cfg, stagewise=True, device=dev), device=dev)
+    rng = np.random.default_rng(0)
+    frames = np.zeros((B, cartpole.FRAME), np.float32)
+    frames[:, 2] = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+    as_t = lambda a: torch.as_tensor(a, dtype=batched.dtype, device=dev)  # noqa: E731
+    args = (as_t(frames), as_t(np.full((B, 1), np.pi)), *batched.init_state(B))
+
+    def build():
+        dsol = DistributedSolver(batched, make_mesh(("batch",), devices="distributed"))
+        return dsol.solve_jit, args
+
+    r = _rank_round_trip(dev, build, case["path"], case["reps"], case)
+    shards = DistributedSolver(batched, make_mesh(("batch",), shape=(4,), devices=dev))
+    inproc = shards.solve_jit(*args)
+    r["inproc_gap"] = float(np.abs(inproc[0].cpu().numpy() - r["loaded"][0]).max())
+    r["B"], r["job_s"] = B, time.perf_counter() - t_job
+    return r
+
+
+def rank_seq_job(case):
+    """Phase 7d's export, in a worker process beside phases 7 and 8: phase
+    7c's sequence-parallel quadrotor h100 SQP (``_seq_case``:
+    ``EXPORT_STEPS`` iterations, cold) over a ``torch.distributed`` mesh of
+    ``_rank_round_trip``'s world on ``"h"``, exported and reloaded; and
+    the same call over phase 7c's in-process mesh of 4 shards, for the
+    gap."""
+    t_job = time.perf_counter()
+
+    def build():
+        _, fn, args, _, _ = _seq_case(dict(case, ranks=True))
+        return fn, args
+
+    r = _rank_round_trip(case["device"], build, case["path"], case["reps"], case)
+    _, fn, args, _, _ = _seq_case(case)
+    inproc = fn(*args)
+    r["inproc_gap"] = float(np.abs(inproc[0].cpu().numpy() - r["loaded"][0]).max())
+    r["inproc_iters"] = inproc[1].tolist()
+    r["job_s"] = time.perf_counter() - t_job
+    return r
 
 
 def toy_export_job(path):
@@ -896,12 +1065,20 @@ def process_map(jobs, workers, threads):
 
 def phase7(dev) -> dict:
     """Phase 7: the multi-device paths of ``parallel/`` on one card, each
-    part timed.  Returns the parts' seconds and findings.
+    part timed.  Returns the parts' seconds and findings.  The exports
+    over ranks of (a) and (d) run in workers beside phases 7 and 8
+    (``rank_dist_job``, ``rank_seq_job``) and are held by
+    :func:`phase7_ranks`.
 
     (a) ``DistributedSolver`` in-process over ``"batch"`` of 4: the
         cart-pole h20 banded batch of phase 4 in one call (kernel B1,
         counted), equal to ``BatchedSolver`` within 1e-5; the consensus
-        first control equal to the mean taken by hand.
+        first control equal to the mean taken by hand.  Over ranks
+        (``rank_dist_job``, ``EXPORT_STEPS`` SQP steps): the reloaded
+        rank program of ``DistributedSolver.solve_jit`` equals the direct
+        call bitwise, holds B1's op node and the functional collectives,
+        and launches B1 once a step as the direct call does; its gap to
+        the in-process mesh is a finding.
     (b) ``HorizonShardedSolver`` on the shipped cart-pole YAML (h20) over
         ``"h"`` of 4, 3 warm-started ticks, against the single-device front
         end (5e-2), no infeasibility certificate, first-frame pinning; then
@@ -912,7 +1089,11 @@ def phase7(dev) -> dict:
         single-device banded tick (``BatchedSolver`` at B=1) is a finding.
     (d) A world-size-1 NCCL group through ``initialize_distributed``: its
         ``psum``, ``consensus_mean`` and ``horizon_sharded_solve`` equal
-        the in-process D=1 results bitwise.
+        the in-process D=1 results bitwise.  And (``rank_seq_job``) the
+        sequence-parallel quadrotor h100 of (c) exported over such a
+        group and reloaded: equal to the direct call (gap 0, ADMM
+        iterations and QP flags), its collectives op nodes; its gap to
+        (c)'s four in-process shards is a finding.
     (e) True f32 under a caller's TF32: a dense cart-pole tick and a
         double-integrator tick with ``backend="xla"`` (cuBLAS loops) give
         the same bits with TF32 switched on globally as without.
@@ -1160,6 +1341,42 @@ def phase7(dev) -> dict:
     log("phase 7: " + ", ".join(f"({k[0]}) {out[k]:.1f} s" for k in sorted(out) if
                                  k.endswith("_s") and len(k) == 3))
     return out
+
+
+def phase7_ranks(dist_r, seq_r, on_card) -> None:
+    """Phases 7a and 7d over ranks: ``rank_dist_job``'s and
+    ``rank_seq_job``'s results.  Each reloaded rank program equals its
+    direct call bitwise, holds the functional collectives, and launches
+    B1 as the direct call does (once a step for 7a's tick, never for 7d's
+    SQP, which holds no kernel); 7a's program holds B1's op node.  Gaps
+    to the in-process mesh are findings."""
+
+    def check_rank(part, label, r, launches_ok):
+        log(f"phase 7{part} {label} over a torch.distributed mesh of {r['world']} "
+            f"{r['backend']} rank(s), one program a rank ({EXPORT_STEPS} SQP steps, cold; "
+            f"worker beside phases 7-8, job {r['job_s']:.1f} s): {r['file']} "
+            f"{r['bytes']} bytes, traced in {r['trace_s']:.1f} s, loaded in {r['load_s']:.1f} s "
+            f"after the world was joined again and the mesh rebuilt; op nodes "
+            f"{r['kernel_nodes']}, collectives {r['collective_nodes']}; loaded on {r['device']}: "
+            f"every output bitwise the direct call's {r['equal']} (max gap {r['gap']:.3g}, "
+            f"limit 0), one-way chunk launches {r['n_loaded']} (direct {r['n_direct']}); ms "
+            f"direct {r['direct_ms']:.3f}, loaded {r['loaded_ms']:.3f} (median of {r['runs']}, "
+            f"interleaved); finding: max |loaded - "
+            f"in-process mesh of 4| {r['inproc_gap']:.3g}")
+        if not (r["equal"] and r["finite"] and r["collective_nodes"] and launches_ok
+                and (r["device"].startswith("cuda") or not on_card)):
+            raise SystemExit(f"phase 7{part}: the reloaded rank program differs from the "
+                             "direct call")
+
+    held = any(k.endswith(":banded_admm_chunk") for k in dist_r["kernel_nodes"])
+    check_rank("a", f"DistributedSolver cart-pole h20 banded B={dist_r['B']}", dist_r,
+               held and (not on_card or dist_r["n_loaded"] == dist_r["n_direct"]
+                         == EXPORT_STEPS))
+    check_rank("d", f"sequence-parallel quadrotor h{SEQ_EXPORT['horizon']} SQP", seq_r,
+               seq_r["n_loaded"] == seq_r["n_direct"] == 0)
+    log(f"phase 7d: ADMM iterations {seq_r['loaded'][1].tolist()}, QP flags "
+        f"{seq_r['loaded'][2].astype(int).tolist()} over the ranks; "
+        f"{seq_r['inproc_iters']} over 4 in-process shards")
 
 
 # The example twins of phase 8, each with its function's arguments at the
@@ -3471,14 +3688,28 @@ def main(argv) -> int:
             f"{us['op'] - us['direct']:.1f} us a launch (kernel {row['ms'] * 1e3:.1f} us)")
 
     # -- 7. the multi-device paths on the card ----------------------------
-    t0 = time.perf_counter()
+    # Phases 7a and 7d's exports over a torch.distributed mesh (host work
+    # mostly, each worker its own world) run in two workers beside phases
+    # 7 and 8, away from the timed ticks of phases 4-5, and are held after
+    # phase 8.
+    rank_wait = process_map(
+        [(rank_dist_job, (dict(B=Bm, device="cuda", reps=2,
+                               path=os.path.join(e_dir, "chip_smoke_rank_dist.pt2")),)),
+         (rank_seq_job, (dict(SEQ_EXPORT, device="cuda", reps=0,
+                              path=os.path.join(e_dir, "chip_smoke_rank_seq.pt2")),))],
+        workers=2, threads=1)
+    t_ranks = time.perf_counter()
     phase7(dev)
-    log(f"phase 7: {time.perf_counter() - t0:.1f} s in all")
+    log(f"phase 7: {time.perf_counter() - t_ranks:.1f} s in all")
 
     # -- 8. the example twins on the card ---------------------------------
     t0 = time.perf_counter()
     phase8(dev)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    phase7_ranks(*rank_wait(), on_card=True)
+    log(f"phase 7a/7d over ranks: {t0 - t_ranks:.1f} s beside phases 7-8, then waited "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [row1, row2, row3, *tc_rows, row4, row5]}), flush=True)

@@ -112,68 +112,122 @@ def _mm_t(a, b):
     return acc
 
 
-def btd_factor(diag: torch.Tensor, lower: torch.Tensor, *, device=None) -> BTDFactor:
+# Stages a trip of a sweep's scan: a solve's stage is a few small ops, as
+# many as the trip's own fixed cost, which its stages share; the factor's
+# stage (a pivot inverse) is ~200, and each a trip would only lengthen the
+# trace.
+SWEEP_STAGES_A_TRIP = 8
+
+
+def _stages(step, first, xs, loop: bool, reverse: bool = False, trip: int = 1):
+    """A stage recursion ``v_k = step(v_{k-1}, *xs_k)[0]`` from ``v = first``
+    over the leading (stage) dim of ``xs``, backwards with ``reverse``;
+    ``step`` may return more per-stage tensors after ``v_k``.  Returns the
+    stacked ``v`` (``first`` included, in stage order) and each stacked
+    extra.  A Python loop; with ``loop`` the stages past the first
+    ``n % trip`` run as one scan operator, ``trip`` stages a trip: the
+    device loop ``torch.export`` traces once whatever the number of
+    stages, each trip reading its stages' slices and writing only its own
+    outputs, the same ops on the same values (bitwise)."""
+    n = xs[0].shape[0]
+    h = n % trip if loop else n  # the stages of the Python loop
+    vs, extra = [first], []
+    for k in range(n - 1, n - 1 - h, -1) if reverse else range(h):
+        v, *e = step(vs[-1], *(x[k] for x in xs))
+        vs.append(v)
+        extra.append(e)
+    if h == n:
+        outs = [list(t) for t in zip(*extra)]
+        if reverse:
+            for t in (vs, *outs):
+                t.reverse()
+        return (torch.stack(vs), *(torch.stack(t) for t in outs))
+    from torch._higher_order_ops.scan import scan_op
+
+    def body(prev, *xk):
+        got = []
+        for j in range(trip):
+            got.append(step(prev, *(x[j] for x in xk)))
+            prev = got[-1][0]
+        return (prev.contiguous(),  # row-major, as the carry went in
+                *(torch.stack(t) for t in zip(*got)))  # aliasing nothing
+
+    rest = [x[:n - h].flip(0) if reverse else x[h:] for x in xs]
+    _, vb, *eb = scan_op(
+        body, [vs[-1].clone(memory_format=torch.contiguous_format)],
+        [r.reshape(-1, trip, *r.shape[1:]).contiguous() for r in rest], ())
+    vs = torch.cat([torch.stack(vs), vb.flatten(0, 1)])
+    outs = [t.flatten(0, 1) for t in eb]
+    if extra:
+        outs = [torch.cat([torch.stack(a), b]) for a, b in zip(zip(*extra), outs)]
+    if reverse:
+        return (vs.flip(0), *(t.flip(0) for t in outs))
+    return (vs, *outs)
+
+
+def _factor_step(dinv_prev, d_k, a_km1):
+    """One block-LDL^T stage: ``(D_k^{-1}, G_k)`` from ``D_{k-1}^{-1}``."""
+    g_k = _mm(a_km1, dinv_prev)
+    return small_spd_inv(d_k - _mm_t(g_k, a_km1)), g_k
+
+
+def btd_factor(diag: torch.Tensor, lower: torch.Tensor, *, device=None,
+               loop: bool = False) -> BTDFactor:
     """Factor an SPD block-tridiagonal matrix.
 
     ``diag``: (N, w, w) diagonal blocks; ``lower``: (N-1, w, w) subdiagonal
     blocks (block (k+1, k)); what is not a tensor goes to ``device``
-    (:func:`..device.as_tensors`).
+    (:func:`..device.as_tensors`).  ``loop``: the stage recursion as one
+    device loop (:func:`_stages`).
     """
     diag, lower = as_tensors(diag, lower, device=device)
-    N = diag.shape[0]
-    dinv = [small_spd_inv(diag[0])]
-    gs = []
-    for k in range(1, N):
-        a_km1 = lower[k - 1]
-        g_k = _mm(a_km1, dinv[-1])
-        schur = diag[k] - _mm_t(g_k, a_km1)
-        dinv.append(small_spd_inv(schur))
-        gs.append(g_k)
-    g = torch.stack(gs) if gs else lower[:0]
-    return BTDFactor(dinv=torch.stack(dinv), g=g, lower=lower)
+    if diag.shape[0] == 1:
+        return BTDFactor(dinv=small_spd_inv(diag[:1]), g=lower[:0], lower=lower)
+    dinv, g = _stages(_factor_step, small_spd_inv(diag[0]), (diag[1:], lower), loop)
+    return BTDFactor(dinv=dinv, g=g, lower=lower)
 
 
-def btd_solve(fac: BTDFactor, b: torch.Tensor) -> torch.Tensor:
+def _sweeps(fac, b, fwd, bwd, last, loop):
+    """Forward ``y_k = fwd(y_{k-1}, b_k, G_k)`` from ``y_0 = b_0``, then
+    backward ``x_k = bwd(x_{k+1}, Dinv_k, y_k, G_k)`` from ``x_N =
+    last(Dinv_N, y_N)``: the two block-Thomas sweeps of a solve."""
+    dinv, g, _ = fac
+    y, = _stages(lambda y, b_k, g_k: (fwd(y, b_k, g_k),), b[0], (b[1:], g), loop,
+                 trip=SWEEP_STAGES_A_TRIP)
+    x, = _stages(lambda x, d_k, y_k, g_k: (bwd(x, d_k, y_k, g_k),), last(dinv[-1], y[-1]),
+                 (dinv[:-1], y[:-1], g), loop, reverse=True, trip=SWEEP_STAGES_A_TRIP)
+    return x
+
+
+def btd_solve(fac: BTDFactor, b: torch.Tensor, *, loop: bool = False) -> torch.Tensor:
     """Solve M x = b given the factorization.  ``b``: (N, w) -> (N, w);
     batch dims after the stage dim (``b (N, ..., w)`` against factors
     ``(N, ..., w, w)``) solve every system at once.
 
     Block "matvecs" are broadcast-multiply-reduce in the chunk kernel's
     sweep order.  What is not a tensor goes to the factor's device.
+    ``loop``: each sweep one device loop (:func:`_stages`).
     """
-    dinv, g, _, b = as_tensors(*fac, b)
-    N = b.shape[0]
-    # Forward: y_k = b_k - G_k y_{k-1}
-    y = [b[0]]
-    for k in range(1, N):
-        y.append(b[k] - torch.sum(g[k - 1] * y[-1][..., None, :], dim=-1))
-    # Backward: x_N = Dinv_N y_N; x_k = Dinv_k y_k - G_{k+1}^T x_{k+1}
-    x = [None] * N
-    x[N - 1] = torch.sum(dinv[N - 1] * y[N - 1][..., None, :], dim=-1)
-    for k in range(N - 2, -1, -1):
-        x[k] = torch.sum(dinv[k] * y[k][..., None, :], dim=-1) - torch.sum(
-            g[k] * x[k + 1][..., :, None], dim=-2
-        )
-    return torch.stack(x)
+    dinv, g, lower, b = as_tensors(*fac, b)
+    return _sweeps(
+        BTDFactor(dinv, g, lower), b,
+        lambda y, b_k, g_k: b_k - torch.sum(g_k * y[..., None, :], dim=-1),
+        lambda x, d_k, y_k, g_k: (torch.sum(d_k * y_k[..., None, :], dim=-1)
+                                  - torch.sum(g_k * x[..., :, None], dim=-2)),
+        lambda d, y: torch.sum(d * y[..., None, :], dim=-1), loop)
 
 
-def btd_solve_mat(fac: BTDFactor, B: torch.Tensor) -> torch.Tensor:
+def btd_solve_mat(fac: BTDFactor, B: torch.Tensor, *, loop: bool = False) -> torch.Tensor:
     """Solve M X = B with block right-hand sides: ``B (N, w, k) -> (N, w,
     k)`` (batch dims after the stage dim as in :func:`btd_solve`).  The
     JAX module's two scans as one forward and one backward sweep; every
-    block product an ascending j-chain (``_mm``)."""
-    dinv, g, _ = fac
-    N = B.shape[0]
-    # Forward: Y_k = B_k - G_k Y_{k-1}
-    y = [B[0]]
-    for k in range(1, N):
-        y.append(B[k] - _mm(g[k - 1], y[-1]))
-    # Backward: X_N = Dinv_N Y_N; X_k = Dinv_k Y_k - G_{k+1}^T X_{k+1}
-    x = [None] * N
-    x[N - 1] = _mm(dinv[N - 1], y[N - 1])
-    for k in range(N - 2, -1, -1):
-        x[k] = _mm(dinv[k], y[k]) - _mm(g[k].transpose(-1, -2), x[k + 1])
-    return torch.stack(x)
+    block product an ascending j-chain (``_mm``).  ``loop`` as in
+    :func:`btd_solve`."""
+    return _sweeps(
+        fac, B,
+        lambda y, b_k, g_k: b_k - _mm(g_k, y),
+        lambda x, d_k, y_k, g_k: _mm(d_k, y_k) - _mm(g_k.transpose(-1, -2), x),
+        _mm, loop)
 
 
 def btd_matvec(diag: torch.Tensor, lower: torch.Tensor, x: torch.Tensor, *,

@@ -89,17 +89,21 @@ class BatchedSolver:
         ).clone()
         return BatchState(x=x, qp_x=z(batch, self.solver._qp_n), qp_y=z(batch, self.solver._qp_m))
 
-    def _batched_res(self, frames, references, x, qp_x, qp_y):
-        """The batch solve with first-frame pinning; the full SQPResult."""
+    def _batch_args(self, frames, references, x, qp_x, qp_y):
+        """The batch function's arguments, with first-frame pinning."""
         B, fs = frames.shape[0], self.frame_size
-        lbx = self._lbx_tail.expand(B, -1).clone()
-        ubx = self._ubx_tail.expand(B, -1).clone()
-        # First-frame pinning per scenario (cpp:93-96).
-        lbx[:, :fs] = frames
-        ubx[:, :fs] = frames
+        # First-frame pinning per scenario (cpp:93-96); no in-place write,
+        # which an export trace refuses on these constant tensors.
+        frames = frames.to(self.dtype)
+        lbx = torch.cat([frames, self._lbx_tail[fs:].expand(B, -1)], dim=1)
+        ubx = torch.cat([frames, self._ubx_tail[fs:].expand(B, -1)], dim=1)
         lbg = self._lbg.expand(B, -1)
         ubg = self._ubg.expand(B, -1)
-        res = self._solve_batch(x, references, lbx, ubx, lbg, ubg, qp_x, qp_y)
+        return x, references, lbx, ubx, lbg, ubg, qp_x, qp_y
+
+    def _batched_res(self, frames, references, x, qp_x, qp_y):
+        """The batch solve with first-frame pinning; the full SQPResult."""
+        res = self._solve_batch(*self._batch_args(frames, references, x, qp_x, qp_y))
         self.last_result = res
         return res
 
@@ -119,10 +123,17 @@ class BatchedSolver:
         """The batched function ``(frames, refs, x, qp_x, qp_y) -> (x, f,
         qp_x, qp_y)`` on tensors of the solver's device and dtype, for
         composition with sharding (``parallel/dist.py``); the JAX
-        package's jitted function of that name."""
+        package's jitted function of that name.  Its ``export_form`` runs
+        the batch function's (``export_solver`` traces it)."""
 
         def slim(frames, references, x, qp_x, qp_y):
             res = self._batched_res(frames, references, x, qp_x, qp_y)
             return res.x, res.f, res.qp_x, res.qp_y
 
+        def export_form(frames, references, x, qp_x, qp_y):
+            res = self._solve_batch.export_form(
+                *self._batch_args(frames, references, x, qp_x, qp_y))
+            return tuple(res[:4])
+
+        slim.export_form = export_form
         return slim

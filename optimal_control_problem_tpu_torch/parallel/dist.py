@@ -7,7 +7,9 @@ collectives — port of ``optimal_control_problem_tpu/parallel/dist.py``.
   device, so the whole batch goes through :attr:`BatchedSolver.solve_jit`
   at once (on the card, one chunk launch per rho-constant chunk for all of
   it); with ``torch.distributed`` each rank solves its own slice and the
-  results are gathered.
+  results are gathered.  :attr:`DistributedSolver.solve_jit` is that tick
+  on tensors; ``export_solver`` of it writes one program a rank (this
+  rank's slice, the batch function's ``export_form``, the gather).
 * **Consensus step**: the mean of a per-scenario quantity over every
   scenario, a ``psum`` over the mesh axis (the analog of a data-parallel
   gradient all-reduce).
@@ -68,22 +70,38 @@ class DistributedSolver:
             raise ValueError(f"batch {batch} not divisible by mesh size {self.n_devices}")
         return self.batched.init_state(batch, x0)
 
+    def _tick(self, batch_fn, frames, references, x, qp_x, qp_y):
+        if not self.mesh.distributed:
+            # Every shard on one device: the whole batch in one call.
+            return batch_fn(frames, references, x, qp_x, qp_y)
+        ax = self.mesh.shards()
+        # This rank's scenarios; S = 1 on a rank.
+        local = [ax.shard(a, (self.axis,))[0] for a in (frames, references, x, qp_x, qp_y)]
+        return tuple(ax.unshard(t[None], (self.axis,)) for t in batch_fn(*local))
+
+    @property
+    def solve_jit(self):
+        """The sharded tick ``(frames, refs, x, qp_x, qp_y) -> (x, f,
+        qp_x, qp_y)`` on global tensors of the solver's device and dtype
+        (JAX's ``solve_jit`` under the mesh's sharding).  Its
+        ``export_form`` is what ``export_solver`` traces: on a
+        ``torch.distributed`` mesh this rank's slice, the batch function's
+        ``export_form`` and the gather, one program a rank."""
+        jit = self.batched.solve_jit
+
+        def tick(*args):
+            return self._tick(jit, *args)
+
+        tick.export_form = lambda *args: self._tick(jit.export_form, *args)
+        return tick
+
     @f32_matmuls
     def solve(self, frames, references, state: BatchState):
         """One sharded batched MPC tick; returns ``(x, f, new_state)``."""
         b = self.batched
         frames = torch.as_tensor(frames, dtype=b.dtype, device=b.device)
         references = torch.as_tensor(references, dtype=b.dtype, device=b.device)
-        args = (frames, references, state.x, state.qp_x, state.qp_y)
-        if self.mesh.distributed:
-            ax = self.mesh.shards()
-            # This rank's scenarios; S = 1 on a rank.
-            local = [ax.shard(a, (self.axis,))[0] for a in args]
-            out = b.solve_jit(*local)
-            x, f, qp_x, qp_y = (ax.unshard(t[None], (self.axis,)) for t in out)
-        else:
-            # Every shard on one device: the whole batch in one call.
-            x, f, qp_x, qp_y = b.solve_jit(*args)
+        x, f, qp_x, qp_y = self.solve_jit(frames, references, state.x, state.qp_x, state.qp_y)
         return x, f, BatchState(x=x, qp_x=qp_x, qp_y=qp_y)
 
     def consensus_first_control(self, trajectories: torch.Tensor, field_slice: slice) -> torch.Tensor:

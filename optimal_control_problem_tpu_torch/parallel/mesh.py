@@ -17,7 +17,10 @@ which a :class:`Mesh` serves in one of two ways:
   what runs a D-way sharded solve on one card;
 * **torch.distributed** (``devices`` a process group, or
   ``"distributed"`` for the default one): one shard per rank, NCCL on the
-  GPU and gloo on the CPU.
+  GPU and gloo on the CPU.  Each collective is torch's functional one
+  (``torch.ops._c10d_functional``) on the process group of its axes,
+  which the mesh makes when it is built: ``torch.export`` keeps them as
+  op nodes, so a solve exports as one program a rank.
 
 A per-device function sees local tensors whose leading dimension S counts
 the shards it holds: S is the mesh size in-process and 1 on a rank (times
@@ -59,6 +62,8 @@ class Mesh:
         self.group = group
         self.devices = np.arange(math.prod(shape), dtype=np.int64).reshape(shape)
         self._groups = {}
+        if group is not None:
+            self._make_axis_groups()
 
     @property
     def size(self) -> int:
@@ -82,32 +87,39 @@ class Mesh:
         idx = np.unravel_index(dist.get_rank(self.group), tuple(self.shape.values()))
         return dict(zip(self.axis_names, (int(i) for i in idx)))
 
+    def _make_axis_groups(self):
+        """Every axis group a solve can ask for, made by every rank when
+        the mesh is built, in one fixed order: the subsets of the axes by
+        size, each in layout order, and within a subset one group for
+        each coordinate of the other axes, row-major.  A process names
+        its groups by a counter (``"1"`` for the first ``new_group``), and
+        an exported rank program names the groups it reaches
+        (``utils/serialization.export_solver``): a process that builds the
+        same meshes in the same order has groups of the same names."""
+        import torch.distributed as dist
+
+        mine = self.coords()
+        ranks_of = dist.get_process_group_ranks(self.group)
+        for k in range(1, len(self.axis_names)):
+            for axes in itertools.combinations(self.axis_names, k):
+                others = [a for a in self.axis_names if a not in axes]
+                for fixed in itertools.product(*(range(self.shape[a]) for a in others)):
+                    pin = dict(zip(others, fixed))
+                    members = []
+                    for free in itertools.product(*(range(self.shape[a]) for a in axes)):
+                        c = {**pin, **dict(zip(axes, free))}
+                        flat = np.ravel_multi_index(tuple(c[a] for a in self.axis_names),
+                                                    tuple(self.shape.values()))
+                        members.append(ranks_of[int(flat)])
+                    g = dist.new_group(members)
+                    if all(mine[a] == pin[a] for a in others):
+                        self._groups[axes] = g
+
     def axis_group(self, axes: Tuple[str, ...]):
         """The process group of the ranks that differ only on ``axes``
-        (made on first use, by every rank in the same order)."""
+        (the mesh's own group for all of them)."""
         axes = tuple(a for a in self.axis_names if a in axes)
-        if axes == self.axis_names:
-            return self.group
-        if axes not in self._groups:
-            import torch.distributed as dist
-
-            mine = self.coords()
-            others = [a for a in self.axis_names if a not in axes]
-            ranks_of = dist.get_process_group_ranks(self.group)
-            found = None
-            for fixed in itertools.product(*(range(self.shape[a]) for a in others)):
-                pin = dict(zip(others, fixed))
-                members = []
-                for free in itertools.product(*(range(self.shape[a]) for a in axes)):
-                    c = {**pin, **dict(zip(axes, free))}
-                    flat = np.ravel_multi_index(tuple(c[a] for a in self.axis_names),
-                                                tuple(self.shape.values()))
-                    members.append(ranks_of[int(flat)])
-                g = dist.new_group(members)
-                if all(mine[a] == pin[a] for a in others):
-                    found = g
-            self._groups[axes] = found
-        return self._groups[axes]
+        return self.group if axes == self.axis_names else self._groups[axes]
 
     def shards(self) -> "Shards":
         """The collective interface over this mesh's axes."""
@@ -193,11 +205,7 @@ class Shards:
             t = v.expand(self._local_shape() + list(t.shape[1:])).reshape(t.shape)
         remote = tuple(a for a, _, loc in self.axes if not loc and a in names)
         if remote:  # the collective runs even over one rank
-            import torch.distributed as dist
-
-            t = t.contiguous().clone()
-            dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
-                            group=self.mesh.axis_group(remote))
+            t = _all_reduce(t, op, self.mesh.axis_group(remote))
         return t.to(dtype) if dtype == torch.bool else t
 
     def psum(self, t: torch.Tensor, names) -> torch.Tensor:
@@ -221,11 +229,8 @@ class Shards:
             g = v.movedim(i, k - 1).unsqueeze(k - 1)
             g = g.expand(g.shape[: k - 1] + (n,) + g.shape[k:]).movedim(k - 1, i)
             return g.reshape((self.S, n) + tuple(t.shape[1:]))
-        import torch.distributed as dist
-
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t.contiguous(), group=self.mesh.axis_group((name,)))
-        return torch.stack(parts, dim=1)
+        g = _all_gather(t, n, self.mesh.axis_group((name,)))
+        return g.movedim(0, 1).contiguous()
 
     def ppermute(self, t: torch.Tensor, name: str, shift: int) -> torch.Tensor:
         """Shard i's value to shard i + shift (mod D) of axis ``name``:
@@ -273,7 +278,10 @@ class Shards:
                 if local:
                     v = v.expand(v.shape[: len(lead)] + (n,) + v.shape[len(lead) + 1:])
                 lead.append(v.shape[len(lead)])
-        return v.reshape((self.S,) + tuple(v.shape[len(lead):])).contiguous()
+        # A fresh tensor: on a rank, a view at this rank's offset into the
+        # global array fails forward-mode derivatives in an export trace.
+        return v.reshape((self.S,) + tuple(v.shape[len(lead):])).clone(
+            memory_format=torch.contiguous_format)
 
     def unshard(self, t: torch.Tensor, spec: Sequence[str]) -> torch.Tensor:
         """The inverse of :meth:`shard`, on every process: the global
@@ -301,19 +309,31 @@ class Shards:
         remote = [a for a, _, local in self.axes if not local]
         if not remote:
             return t
-        import torch.distributed as dist
-
-        group = self.mesh.axis_group(tuple(remote))
-        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, t.contiguous(), group=group)
         # (remote sizes..., local sizes..., rest) -> layout order.
         rs = [self.size(a) for a in remote]
         ls = self._local_shape()
-        v = torch.stack(parts).reshape(rs + ls + list(t.shape[1:]))
+        v = _all_gather(t, math.prod(rs), self.mesh.axis_group(tuple(remote)))
+        v = v.reshape(rs + ls + list(t.shape[1:]))
         names = remote + [a for a, _, local in self.axes if local]
         perm = [names.index(a) for a, _, _ in self.axes]
         v = v.permute(perm + list(range(len(names), v.dim())))
         return v.reshape((math.prod(rs + ls),) + tuple(t.shape[1:]))
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` reduced (``"sum"`` or ``"max"``) over ``group``: torch's
+    functional collective, waited for (out of place; ``torch.export``
+    keeps it and its wait as op nodes of the program)."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_reduce(t.contiguous(), op, group.group_name))
+
+
+def _all_gather(t: torch.Tensor, n: int, group) -> torch.Tensor:
+    """``(S, ...) -> (n, S, ...)``: every rank's ``t`` of the ``n``-rank
+    ``group`` in group order, as :func:`_all_reduce`."""
+    c10d = torch.ops._c10d_functional
+    g = c10d.wait_tensor(c10d.all_gather_into_tensor(t.contiguous(), n, group.group_name))
+    return g.reshape((n,) + tuple(t.shape))
 
 
 def make_mesh(

@@ -25,14 +25,17 @@ rank takes the same branch.  Where JAX ``vmap``s this function over a
 local scenario batch (a 2-D mesh, :mod:`.seq_sqp`), its loops run while
 any scenario's condition holds and freeze the others; the port masks the
 same way.  ``on_device`` runs both loops, the check block's iterations
-and the Ruiz sweeps as device-side loops (:func:`_while`) instead, the
-conditions on the device and the freezing by the same masks: the same
+and the Ruiz sweeps as device-side loops (:func:`_while`) instead, and
+the SPIKE chunk's stage recursions as scan operators (``ops/block_tridiag``,
+``loop=True``), the conditions on the device and the freezing by the same
+masks: the same
 results bitwise, no host read, and the form ``torch.export`` traces
 (``admm_solve_seq_parallel.export_form``, which ``export_solver`` finds
-through a ``functools.partial``).  It runs on an in-process mesh only: a
-``torch.distributed`` mesh's collectives are rank-local calls, which
-the device form refuses.  Local tensors carry the shard dimension S
-first (``parallel/mesh.py``).
+through a ``functools.partial``).  Over a ``torch.distributed`` mesh the
+collectives are torch's functional ones, which the trace keeps as op
+nodes, and the rank's coordinate is a constant: each rank exports its own
+program.  Local tensors carry the shard dimension S first
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -192,20 +195,6 @@ def _repeat(n: int, fn, carry, inputs, on_device: bool):
     j0 = torch.zeros((), dtype=torch.int64, device=carry[0].device)
     return _while(lambda s, c: s[0] < n, lambda s, c: (s[0] + 1, *fn(s[1:], c)),
                   (j0, *carry), inputs)[1:]
-
-
-def check_device_form(mesh: Mesh) -> None:
-    """Raise for a ``torch.distributed`` mesh: the device-side loops (and
-    so ``export_solver``) run on an in-process mesh only, since a rank's
-    collectives are calls of its own process group that no program of
-    one process holds."""
-    if mesh.distributed:
-        import torch.distributed as dist
-
-        raise ValueError(
-            f"the sequence-parallel solve has no device-side form over a torch.distributed "
-            f"mesh ({dist.get_backend(mesh.group)} backend): its collectives are rank-local "
-            f"calls, which export_solver does not trace; use an in-process mesh")
 
 
 def _ruiz_seq_local(ax, Hb, J0, J1, Jc, q, *, iters, axis, keep_first, left_shift, right_shift,
@@ -422,7 +411,11 @@ def seq_admm_local(
 
     # The functions of the iteration, over the tensors it reads.  The host
     # loops build them once; on the device each loop body rebuilds them
-    # over its explicit inputs (:func:`_while`).
+    # over its explicit inputs (:func:`_while`), and the SPIKE chunk's
+    # stage recursions are scan operators (``loop``).
+    factor, solve, solve_mat = (functools.partial(f, loop=on_device)
+                                for f in (btd_factor, btd_solve, btd_solve_mat))
+
     def kit(data: _LoopData):
         """The iteration's functions over ``data``."""
         (Hb, J0, J1, Jc, q, lx, ux, ld, ud, lc, uc, Dv, Exs, Eds, Ecs, cinv, exi, edi,
@@ -448,13 +441,13 @@ def seq_admm_local(
             if r2:
                 diag = diag + _rho_outer(rho_c, Jc, Jc)
 
-            fac = btd_factor(_stage_first(diag), _stage_first(lower[:, 1:]))
+            fac = factor(_stage_first(diag), _stage_first(lower[:, 1:]))
             zeros = torch.zeros_like(lower[:, 0])
             L0 = torch.where(is_first[:, None, None], zeros, lower[:, 0])
             Ln = torch.where(is_last[:, None, None], zeros, left_shift(lower[:, 0]))
             BL, BR = _spike_blocks(L0, Ln, C)
-            WL = btd_solve_mat(fac, _stage_first(BL)).movedim(0, 1)
-            WR = btd_solve_mat(fac, _stage_first(BR)).movedim(0, 1)
+            WL = solve_mat(fac, _stage_first(BL)).movedim(0, 1)
+            WR = solve_mat(fac, _stage_first(BR)).movedim(0, 1)
             K = _reduced_operator(g(WL[:, 0]), g(WL[:, -1]), g(WR[:, 0]), g(WR[:, -1]), D, w)
             # inv_ex: a singular K gives non-finite entries, as jnp.linalg.inv.
             Kinv = torch.linalg.inv_ex(K).inverse
@@ -462,7 +455,7 @@ def seq_admm_local(
 
         def spike_solve(ops, rhs):
             fac, WL, WR, Kinv = ops
-            v = btd_solve(fac, _stage_first(rhs)).movedim(0, 1)
+            v = solve(fac, _stage_first(rhs)).movedim(0, 1)
             rred = torch.stack([g(v[:, 0]), g(v[:, -1])], dim=2).reshape(S, nred)
             u = torch.sum(Kinv * rred[:, None, :], dim=-1)
             l_prev, f_next = _neighbours(u, d, is_first, is_last, D, w)
@@ -752,11 +745,8 @@ def admm_solve_seq_parallel(qp: ShardedBandedQP, settings: ADMMSettings, *, mesh
     ``settings.check_infeasibility`` is off); a certified QP exits early.
     Fields that are not tensors go to the mesh's device
     (:func:`..device.as_tensors`).  ``on_device`` keeps the loops on the
-    device (the same results; in-process meshes only): the function's
-    ``export_form``.
+    device (the same results): the function's ``export_form``.
     """
-    if on_device:
-        check_device_form(mesh)
     qp = ShardedBandedQP(*as_tensors(*qp, device=mesh.device))
     N = qp.Hb.shape[0]
     if axis not in mesh.shape:

@@ -22,8 +22,9 @@ horizon over another; each shard's scenarios are its own problems (JAX
 ``vmap``s the per-scenario program over them).
 
 ``on_device`` runs each QP's loops on the device
-(:func:`.seq_admm.seq_admm_local`; in-process meshes only): the same
-results, no host read, and the function's ``export_form``, which
+(:func:`.seq_admm.seq_admm_local`): the same results, no host read, and
+the function's ``export_form`` (over a ``torch.distributed`` mesh one
+program a rank), which
 ``utils/serialization.export_solver`` finds through a
 ``functools.partial`` of it, so that exporting the function is written as
 with JAX's ``export_solver``.
@@ -45,7 +46,7 @@ from ..device import as_tensors
 from ..solvers.admm import ADMMSettings, f32_matmuls
 from ..stagewise import StageStructure
 from .mesh import Mesh
-from .seq_admm import check_device_form, seq_admm_local
+from .seq_admm import seq_admm_local
 
 __all__ = ["sqp_solve_seq_parallel"]
 
@@ -214,10 +215,7 @@ def sqp_solve_seq_parallel(
     device; on a distributed mesh every rank returns the global result.
     Arrays that are not tensors go to the mesh's device
     (:func:`..device.as_tensors`).  ``on_device`` keeps every QP's loops on
-    the device (the same results; in-process meshes only): the function's
-    ``export_form``."""
-    if on_device:
-        check_device_form(mesh)
+    the device (the same results): the function's ``export_form``."""
     x0, ref, lx, ux = as_tensors(x0, ref, lx, ux, device=mesh.device)
     if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r}: {mesh.shape}")

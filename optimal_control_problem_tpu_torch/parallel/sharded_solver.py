@@ -57,7 +57,8 @@ class HorizonShardedSolver:
     stages a shard along ``mesh[axis]``.  A tick is one call of
     :func:`.seq_sqp.sqp_solve_seq_parallel` at the solver's settings, so
     ``export_solver`` of a ``functools.partial`` of that function at those
-    settings (in-process mesh) exports the tick.
+    settings exports the tick (over a ``torch.distributed`` mesh, one
+    program a rank).
     """
 
     def __init__(self, ocp: OptimalControlProblem, mesh: Mesh, axis: str = "h",

@@ -11,6 +11,10 @@ solutions are held to 2e-3 at eps 1e-4 (each is within ~1e-3 of the true
 optimum) and polished ones to 5e-4.  Iteration counts are compared only
 under a forced budget or where the run is far from the knife edge of the
 termination test.
+
+Split over this file, ``test_torch_admm_random.py`` (random convex QPs and
+polish) and ``test_torch_admm_certificates.py``, so that test workers
+share them; their helpers are in ``torch_admm_cases.py``.
 """
 
 import jax.numpy as jnp
@@ -20,42 +24,8 @@ import torch
 
 from optimal_control_problem_tpu.solvers import admm as jadmm
 from optimal_control_problem_tpu_torch.solvers import admm as tadmm
-from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
+from torch_admm_cases import SMALL_QPS, TSET, both, j32, random_qp, t32
 from torch_threads import one_torch_thread  # noqa: F401
-
-JSET = jadmm.ADMMSettings(eps_abs=1e-4, eps_rel=1e-4)
-TSET = ADMMSettings(eps_abs=1e-4, eps_rel=1e-4)
-
-
-def t32(a):
-    return torch.as_tensor(np.array(a, np.float32))
-
-
-def j32(a):
-    return jnp.asarray(np.asarray(a, np.float32))
-
-
-def both(P, q, A, l, u, x0=None, y0=None, **kw):
-    """Solve one QP in both packages with the same settings overrides."""
-    js = jadmm.admm_solve(*(j32(a) for a in (P, q, A, l, u)), JSET.replace(**kw),
-                          x0=None if x0 is None else j32(x0),
-                          y0=None if y0 is None else j32(y0))
-    ts = tadmm.admm_solve(*(t32(a) for a in (P, q, A, l, u)), TSET.replace(**kw),
-                          x0=None if x0 is None else t32(x0),
-                          y0=None if y0 is None else t32(y0))
-    return js, ts
-
-
-def random_qp(seed, n=8, m=12, shift=0.1):
-    rng = np.random.default_rng(seed)
-    L = rng.normal(size=(n, n))
-    P = L @ L.T + shift * np.eye(n)
-    q = rng.normal(size=n)
-    A = rng.normal(size=(m, n))
-    center = A @ rng.normal(size=n)
-    l = center - rng.uniform(0.1, 2.0, size=m)
-    u = center + rng.uniform(0.1, 2.0, size=m)
-    return P, q, A, l, u
 
 
 def test_ruiz_equilibrate_matches_jax():
@@ -101,21 +71,6 @@ def test_factor_matches_jax(method):
     np.testing.assert_allclose(to, jo, atol=2e-3 * np.abs(jo).max())
 
 
-SMALL_QPS = {
-    # min x^2 + y^2 s.t. x + y = 1 -> (0.5, 0.5)
-    "equality": (2 * np.eye(2), np.zeros(2), [[1.0, 1.0]], [1.0], [1.0], [0.5, 0.5]),
-    # min (x-3)^2 + (y-4)^2 with x in [0,2], y in [0,3] -> (2, 3)
-    "box": (2 * np.eye(2), [-6.0, -8.0], np.eye(2), np.zeros(2), [2.0, 3.0], [2.0, 3.0]),
-    # min (x-2)^2 + (y-3)^2 s.t. x + y >= 1 -> (2, 3)
-    "inactive": (2 * np.eye(2), [-4.0, -6.0], [[1.0, 1.0]], [1.0], [np.inf], [2.0, 3.0]),
-    # rows with (-inf, inf) bounds must not perturb the solution
-    "loose": (2 * np.eye(2), [-2.0, -2.0], np.vstack([np.eye(2), [[1.0, -1.0]]]),
-              [-np.inf] * 3, [np.inf] * 3, [1.0, 1.0]),
-    # m = 0: the stationary point
-    "unconstrained": (np.diag([2.0, 4.0]), [-2.0, -8.0], np.zeros((0, 2)), [], [], [1.0, 2.0]),
-}
-
-
 @pytest.mark.parametrize("name", sorted(SMALL_QPS))
 def test_small_qps_match_jax_and_the_known_optimum(name):
     P, q, A, l, u, x_ref = SMALL_QPS[name]
@@ -126,20 +81,6 @@ def test_small_qps_match_jax_and_the_known_optimum(name):
     np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x), atol=1e-4)
     np.testing.assert_allclose(ts.y.numpy(), np.asarray(js.y), atol=1e-3)
     assert ts.iters.dtype == torch.int32 and ts.converged.dtype == torch.bool
-
-
-@pytest.mark.parametrize("adaptive", [True, False])
-@pytest.mark.parametrize("method", ["kkt", "condensed"])
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_random_convex_qp_matches_jax(seed, method, adaptive):
-    qp = random_qp(seed)
-    js, ts = both(*qp, method=method, adaptive_rho=adaptive)
-    assert bool(ts.converged) and bool(js.converged)
-    np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x), atol=2e-3)
-    np.testing.assert_allclose(ts.z.numpy(), np.asarray(js.z), atol=2e-3)
-    P, q, A, l, u = qp
-    Ax = A @ ts.x.numpy()
-    assert np.all(Ax >= l - 5e-3) and np.all(Ax <= u + 5e-3)
 
 
 @pytest.mark.parametrize("method", ["kkt", "condensed"])
@@ -185,42 +126,6 @@ def test_indefinite_P_kkt_method():
     _, ts = both(P, np.zeros(2), np.eye(2), l, u, max_iter=2000)
     x = ts.x.numpy()
     assert np.all(x >= l - 1e-2) and np.all(x <= u + 1e-2)
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_polish_matches_jax(seed):
-    qp = random_qp(seed, shift=0.5)
-    _, plain = both(*qp, method="kkt")
-    js, ts = both(*qp, method="kkt", polish=True)
-    assert bool(ts.converged)
-    np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x), atol=5e-4)
-    assert float(ts.r_prim) <= float(plain.r_prim) and float(ts.r_dual) <= float(plain.r_dual)
-
-
-CERTIFICATE_QPS = {
-    # x+y == 1 AND x+y == 3
-    "infeasible_equalities": (2 * np.eye(2), np.zeros(2), [[1.0, 1.0], [1.0, 1.0]],
-                              [1.0, 3.0], [1.0, 3.0], 500, (True, False)),
-    # x >= 1 and x <= 0
-    "infeasible_box": (np.eye(1), np.zeros(1), [[1.0], [1.0]], [1.0, -np.inf], [np.inf, 0.0],
-                       2000, (True, False)),
-    # min -x s.t. x >= 0
-    "unbounded": (np.zeros((1, 1)), [-1.0], [[1.0]], [0.0], [np.inf], 2000, (False, True)),
-    "feasible": (2 * np.eye(2), [-2.0, -2.0], np.eye(2), np.zeros(2), [10.0, 10.0], 10000,
-                 (False, False)),
-}
-
-
-@pytest.mark.parametrize("name", sorted(CERTIFICATE_QPS))
-def test_infeasibility_certificates_match_jax(name):
-    P, q, A, l, u, max_iter, (pinf, dinf) = CERTIFICATE_QPS[name]
-    js, ts = both(P, q, A, l, u, max_iter=max_iter)
-    assert (bool(ts.prim_inf), bool(ts.dual_inf)) == (pinf, dinf)
-    assert (bool(js.prim_inf), bool(js.dual_inf)) == (pinf, dinf)
-    assert bool(ts.converged) == bool(js.converged) == (not (pinf or dinf))
-    assert int(ts.iters) == int(js.iters)
-    if pinf or dinf:
-        assert int(ts.iters) < max_iter  # early exit on the certificate
 
 
 def test_unported_variants_raise():

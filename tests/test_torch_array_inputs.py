@@ -51,7 +51,7 @@ from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
 from tests.test_admm_banded import random_stage_qp
 from tests.test_seq_admm import random_stage_qp as seq_stage_qp
 from tests.test_seq_admm import to_sharded
-from tests.test_torch_admm import random_qp
+from torch_admm_cases import random_qp
 from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
@@ -281,7 +281,7 @@ def test_shared_chunk_and_device_loop_wrappers_take_numpy():
     assert_same(ours, sk.shared_admm_chunk(torch.as_tensor(done0), 50,
                                            *(torch.as_tensor(a) for a in args),
                                            batch_tile=4, **KW))
-    from tests.test_torch_admm_kernel import jax_prep, random_qp as dense_qp, stack, warm
+    from torch_admm_kernel_cases import jax_prep, random_qp as dense_qp, stack, warm
 
     prep = jax_prep(*stack([dense_qp(s) for s in range(2)]))
     x0, y0 = warm(prep, 0)

@@ -2,7 +2,10 @@
 block_tridiag.py``) against the JAX package on the same numpy inputs.
 
 Both run in float32 on the CPU with the same elementwise op order, so they
-agree to f32 roundoff (rtol 1e-5)."""
+agree to f32 roundoff (rtol 1e-5).  The port's scan form of the stage
+recursions (``loop=True``) is held bitwise to its host loops."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +14,7 @@ import torch
 
 from optimal_control_problem_tpu.ops import block_tridiag as jbt
 from optimal_control_problem_tpu_torch.ops import block_tridiag as tbt
+from optimal_control_problem_tpu_torch.utils.serialization import export_solver, import_solver
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -51,6 +55,30 @@ def test_btd_factor_solve_matches_jax(N, w):
     # and it solves the system
     Mx = tbt.btd_matvec(torch.as_tensor(diag), torch.as_tensor(lower), torch.as_tensor(x))
     np.testing.assert_allclose(Mx.numpy(), b, atol=1e-4)
+
+
+@pytest.mark.parametrize("N,w,lead", [(1, 3, ()), (2, 4, ()), (9, 5, (3,)), (6, 12, (2,))])
+def test_btd_loop_form_is_bitwise_the_host_form(N, w, lead, tmp_path):
+    """``loop=True`` (each stage recursion one scan operator, the form the
+    device-side sequence-parallel solves and their exports run) gives the
+    host loops' bits, eagerly and as a reloaded ``torch.export`` program;
+    batch dims after the stage dim as the SPIKE chunk passes them."""
+    rng = np.random.default_rng(N * 10 + w)
+    diag = torch.as_tensor(spd_blocks(rng, (N,) + lead, w) + 4 * np.eye(w, dtype=np.float32))
+    lower = torch.as_tensor((0.3 * rng.normal(size=(N - 1,) + lead + (w, w))).astype(np.float32))
+    b = torch.as_tensor(rng.normal(size=(N,) + lead + (w,)).astype(np.float32))
+    B = torch.as_tensor(rng.normal(size=(N,) + lead + (w, 2)).astype(np.float32))
+
+    def solves(diag, lower, b, B, loop):
+        fac = tbt.btd_factor(diag, lower, loop=loop)
+        return (*fac[:2], tbt.btd_solve(fac, b, loop=loop), tbt.btd_solve_mat(fac, B, loop=loop))
+
+    host = solves(diag, lower, b, B, False)
+    for got in (solves(diag, lower, b, B, True),
+                import_solver(export_solver(functools.partial(solves, loop=True),
+                                            (diag, lower, b, B), str(tmp_path / "btd.pt2")))(
+                    diag, lower, b, B)):
+        assert all(torch.equal(h, g) for h, g in zip(host, got))
 
 
 def test_btd_matvec_and_dense_to_blocks_match_jax():

@@ -27,7 +27,8 @@ in-process mesh of the same layout (``interop.mesh_from_jax_layout``).
   iteration from the pinned frame held over the horizon (350 ADMM
   iterations; the trace unrolls the SQP iterations, ~30 s each here).
 * Over a ``torch.distributed`` mesh (one gloo rank, as phase 7d sets one
-  up) the export raises a ``ValueError`` naming the backend.
+  up) the same two calls export one program a rank, which reloads and
+  equals the direct call (two ranks: ``test_torch_export_dist.py``).
 """
 
 import dataclasses
@@ -60,7 +61,11 @@ from optimal_control_problem_tpu_torch.parallel import (
     sqp_solve_seq_parallel,
 )
 from optimal_control_problem_tpu_torch.parallel.seq_admm import admm_solve_seq_parallel
-from optimal_control_problem_tpu_torch.utils.serialization import export_solver, import_solver
+from optimal_control_problem_tpu_torch.utils.serialization import (
+    export_solver,
+    import_solver,
+    rank_path,
+)
 from test_seq_admm import SET, random_stage_qp, to_sharded
 from test_seq_sqp import ADMM, ALPHA, DT, H, problem
 from torch_threads import one_torch_thread  # noqa: F401
@@ -186,7 +191,10 @@ def test_sqp_export_round_trip(tmp_path, jmesh, mesh):
     np.testing.assert_allclose(out[0].numpy(), jout[0], atol=5e-3)
 
 
-def test_export_refuses_torch_distributed(tmp_path):
+def test_export_round_trips_over_torch_distributed(tmp_path):
+    """The same two calls over a ``torch.distributed`` mesh of one gloo rank
+    (as phase 7d of ``chip_smoke.py`` sets one up): each rank's program
+    (``rank_path``) reloads and equals the direct call."""
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
@@ -198,11 +206,18 @@ def test_export_refuses_torch_distributed(tmp_path):
         fn = functools.partial(sqp_solve_seq_parallel, ss, sqp_iters=1, alpha=ALPHA,
                                admm=settings_from_jax_dict(dataclasses.asdict(ADMM)),
                                mesh=mesh_d, axis="h")
-        with pytest.raises(ValueError, match="torch.distributed mesh \\(gloo backend\\)"):
-            export_solver(fn, tuple(torch.tensor(a) for a in args), str(tmp_path / "d.pt2"))
+        targs = tuple(torch.tensor(a) for a in args)
+        path = str(tmp_path / "d.pt2")
+        assert export_solver(fn, targs, path) == rank_path(path, 0, 1)
+        out, direct = import_solver(path)(*targs), fn(*targs)
+        assert torch.equal(out[1], direct[1]) and torch.equal(out[2], direct[2])
+        np.testing.assert_allclose(out[0].numpy(), direct[0].numpy(), atol=1e-5)
         _, tq = sharded_qp()
-        with pytest.raises(ValueError, match="gloo"):
-            export_solver(functools.partial(admm_solve_seq_parallel, settings=SET, mesh=mesh_d),
-                          (tq,), str(tmp_path / "a.pt2"))
+        fn = functools.partial(admm_solve_seq_parallel, settings=SET, mesh=mesh_d)
+        path = str(tmp_path / "a.pt2")
+        export_solver(fn, (tq,), path)
+        out, direct = import_solver(path)(tq), fn(tq)
+        assert all(torch.equal(a, b) for a, b in zip(out[1:], direct[1:]))
+        np.testing.assert_allclose(out[0].numpy(), direct[0].numpy(), atol=1e-5)
     finally:
         torch.distributed.destroy_process_group()

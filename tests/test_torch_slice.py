@@ -4,7 +4,7 @@ package rules.
 * Batched cart-pole h8 MPC ticks (B=4, step_num=3, the bench's banded
   settings) through ``BatchedSolver`` in both packages: trajectories agree
   to 5e-3 (the f32 closed-loop floor recorded in PARITY.md), objectives to
-  rtol 1e-3.  The same for the quadrotor: ``test_torch_slice_quadrotor.py``.
+  rtol 1e-3.  The same for the quadrotor: ``test_torch_slice_ticks.py``.
 * Batched double-integrator h20 ticks (the LTI, shared-factorization path)
   through ``BatchedSolver`` in both packages and on both backends
   (``"xla"``: the matmul loop; ``"pallas"``: JAX's fused kernel in interpret
@@ -31,12 +31,14 @@ package rules.
   port's module of the same name (AST scan of the JAX package, import of
   the port's), but the TPU kernels' VMEM tile models, which the port does
   not carry over (ROADMAP North star).
+
+Split over this file and ``test_torch_slice_ticks.py`` (the dense cart-pole,
+the double integrator's and the quadrotor's ticks against JAX's), so that
+two test workers carry them; their helpers are in ``torch_slice_cases.py``.
 """
 
-import ast
 import dataclasses
 import importlib
-import pathlib
 
 import numpy as np
 import pytest
@@ -56,30 +58,21 @@ from optimal_control_problem_tpu_torch.interop import (
 from optimal_control_problem_tpu_torch.models import cartpole as tcp
 from optimal_control_problem_tpu_torch.models import double_integrator as tdi
 from optimal_control_problem_tpu_torch.models import quadrotor as tqr
-from optimal_control_problem_tpu_torch.ops import banded_kernel as bk
 from optimal_control_problem_tpu_torch.parallel import BatchedSolver
 from optimal_control_problem_tpu_torch.solvers import admm_banded_batch as abb
 from optimal_control_problem_tpu_torch.solvers.admm import ADMMSettings
 from optimal_control_problem_tpu_torch.solvers.sqp import SQPOptions
+from torch_slice_cases import (
+    ROOT,
+    TPU_ONLY,
+    _all_lists,
+    _imports,
+    config,
+    di_config,
+    di_frames_refs,
+    frames_refs,
+)
 from torch_threads import one_torch_thread  # noqa: F401
-
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-ADMM = {
-    "method": "banded", "max_iter": 500, "adaptive_rho": False, "rho": 0.05,
-    "check_every": 2, "scaling_refresh": "tick",
-}
-
-
-def config(module, H=8, step_num=3):
-    return module.make_config(horizon=H, dt=0.04, alpha=0.3, step_num=step_num,
-                              formulation="reduced", ADMM_settings=dict(ADMM))
-
-
-def frames_refs(B, seed=0):
-    rng = np.random.default_rng(seed)
-    frames = np.zeros((B, tcp.FRAME), np.float32)
-    frames[:, 2] = rng.uniform(-0.5, 0.5, B).astype(np.float32)
-    return frames, np.full((B, 1), np.pi, np.float32)
 
 
 def test_batched_tick_matches_jax():
@@ -228,137 +221,6 @@ def test_shared_system_detection_and_batch_routing():
     assert BatchedSolver(banded, device="cpu")._solve_batch is banded.solver.solve_batch_banded_fn
 
 
-# The JAX bench's cartpole_h20_pallas settings (bench_models.py:257-283);
-# the backend is added per case.
-DENSE_ADMM = {"method": "condensed", "max_iter": 500, "adaptive_rho": False, "rho": 0.05}
-
-
-def dense_config(module, backend, H=6, step_num=3, **admm):
-    return module.make_config(horizon=H, dt=0.02, alpha=0.3, step_num=step_num,
-                              formulation="reduced",
-                              ADMM_settings={**DENSE_ADMM, "backend": backend, **admm})
-
-
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-@pytest.mark.parametrize("forced", [False, True], ids=["bench", "forced"])
-def test_cartpole_dense_tick_matches_jax(backend, forced):
-    """The per-scenario dense batch path (cart-pole without a stage
-    structure; JAX: ``jax.vmap`` of ``solve_fn``), H=6, B=3, step_num 3,
-    two ticks from the same state in both packages: trajectories within
-    5e-3, objectives to rtol 1e-3, equal flags.  Under a forced budget
-    (eps 0, max_iter 60: every QP runs whole check blocks to 75) the
-    per-scenario ``qp_iters`` are equal; at the bench's eps 1e-3 they are
-    compared at the warm tick, where every QP stops at its first check."""
-    B = 3
-    frames, refs = frames_refs(B)
-    kw = dict(eps_abs=0.0, eps_rel=0.0, max_iter=60, check_infeasibility=False) if forced else {}
-    jb = JBatchedSolver(jcp.build(dense_config(jcp, backend, **kw)))
-    tb = BatchedSolver(tcp.build(dense_config(tcp, backend, **kw), device="cpu"), device="cpu")
-    jst = jb.init_state(B)
-    tst = batch_state_from_numpy(jst._asdict(), device="cpu")
-    assert tst.qp_x.shape == (B, 30) and tst.qp_y.shape == (B, 30 + 26)
-    for _ in range(2):
-        jx, jf, jst = jb.solve(frames, refs, jst)
-        tx, tf, tst = tb.solve(frames, refs, tst)
-        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=5e-3)
-        np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-3)
-        tres, jres = tb.last_result, jb.last_result
-        for name in ("qp_converged", "qp_prim_inf", "qp_dual_inf"):
-            np.testing.assert_array_equal(getattr(tres, name).numpy(),
-                                          np.asarray(getattr(jres, name)), err_msg=name)
-    assert np.isfinite(tx.numpy()).all()
-    assert tres.f_history.shape == tres.qp_iters.shape == (B, 3)
-    assert tres.steps_taken.tolist() == [3] * B
-    np.testing.assert_array_equal(tres.qp_iters.numpy(), np.asarray(jres.qp_iters))
-    if forced:
-        assert (tres.qp_iters == 75).all() and not bool(tres.qp_converged.any())
-    else:
-        assert bool(tres.qp_converged.all()) and (tres.qp_iters == 25).all()
-
-
-def test_cartpole_dense_per_problem_pallas_matches_batched():
-    """compute_optimal_trajectory on the "pallas" backend (the device loop
-    with a batch of one) gives the batched tick's scenario 0, and the
-    batch went through the device loop once per SQP step."""
-    from optimal_control_problem_tpu_torch.solvers import admm as tadmm
-
-    frames, refs = frames_refs(2, seed=3)
-    ocp = tcp.build(dense_config(tcp, "pallas"), device="cpu")
-    ocp.compute_optimal_trajectory(frames[0], refs[0])
-    one = ocp.get_optimal_trajectory().numpy()
-    b = BatchedSolver(tcp.build(dense_config(tcp, "pallas"), device="cpu"), device="cpu")
-    before = tadmm._iterate_dense.entries
-    tx, _, _ = b.solve(frames, refs, b.init_state(2))
-    assert tadmm._iterate_dense.entries - before == 3
-    np.testing.assert_allclose(one, tx[0].numpy(), atol=5e-3)
-
-
-# The JAX bench's double-integrator settings (bench.py:109-124).
-DI_ADMM = {"method": "condensed", "eps_abs": 1e-3, "eps_rel": 1e-3, "max_iter": 1000,
-           "adaptive_rho": True}
-
-
-def di_config(module, backend, H=20, step_num=10, **admm):
-    return module.make_config(
-        horizon=H, dt=0.005, solve_method="TPU_SQP", alpha=0.1, step_num=step_num,
-        formulation="reduced", ADMM_settings={**DI_ADMM, "backend": backend, **admm})
-
-
-def di_frames_refs(B, H=20, seed=0):
-    rng = np.random.default_rng(seed)
-    frames = np.zeros((B, tdi.FRAME), np.float32)
-    frames[:, 0:2] = rng.uniform(-1, 1, size=(B, 2)).astype(np.float32)
-    refs = np.tile(tdi.reference_circle(H, 0.005)[None, :], (B, 1)).astype(np.float32)
-    return frames, refs
-
-
-def di_ticks(cfg_kw, B, ticks):
-    """Both packages' ticks from the same zero state; yields per tick
-    ``(port x, JAX x, port f, JAX f, port result, JAX result)``."""
-    frames, refs = di_frames_refs(B)
-    jb = JBatchedSolver(jdi.build(di_config(jdi, **cfg_kw)))
-    tb = BatchedSolver(tdi.build(di_config(tdi, **cfg_kw), device="cpu"), device="cpu")
-    jst = jb.init_state(B)
-    tst = batch_state_from_numpy(jst._asdict(), device="cpu")
-    assert tst.qp_x.shape == (B, 120) and tst.qp_y.shape == (B, 196)
-    for _ in range(ticks):
-        jx, jf, jst = jb.solve(frames, refs, jst)
-        tx, tf, tst = tb.solve(frames, refs, tst)
-        yield (tx.numpy(), np.asarray(jx), tf.numpy(), np.asarray(jf),
-               tb.last_result, jb.last_result)
-
-
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_double_integrator_tick_matches_jax_forced_budget(backend):
-    """h20, n=120, m=196, every QP run to max_iter = 150 (one rho adaptation
-    at 100): equal qp_iters by construction of both drivers' chunk bounds,
-    so the trajectories differ only by f32 roundoff (each package factors
-    its own operator): within the 5e-3 floor of PARITY.md."""
-    kw = dict(backend=backend, step_num=3, eps_abs=1e-7, eps_rel=1e-7, max_iter=150)
-    for tx, jx, tf, jf, tres, jres in di_ticks(kw, B=3, ticks=2):
-        np.testing.assert_array_equal(tres.qp_iters.numpy(), np.asarray(jres.qp_iters))
-        assert tres.qp_iters.tolist() == [150, 150, 150]
-        np.testing.assert_allclose(tx, jx, atol=5e-3)
-        np.testing.assert_allclose(tf, jf, rtol=1e-4)
-    assert np.isfinite(tx).all()
-    assert tres.f_history.shape == (3, 3) and tres.qp_converged.shape == (3, 3)
-    assert int(tres.steps_taken.min()) == 3
-
-
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_double_integrator_tick_matches_jax_bench_settings(backend):
-    B, H = 4, 20
-    for tx, jx, tf, jf, tres, jres in di_ticks(dict(backend=backend), B=B, ticks=3):
-        assert bool(tres.qp_converged.all()) and bool(np.asarray(jres.qp_converged).all())
-        assert not bool(tres.qp_prim_inf.any()) and not bool(tres.qp_dual_inf.any())
-        d = np.abs(tx - jx).reshape(B, H, tdi.FRAME)
-        assert d[..., 0:4].max() <= 5e-3  # positions, velocities
-        assert d[..., 4:6].max() <= 0.1  # accelerations (range +-50)
-        np.testing.assert_allclose(tf, jf, rtol=1e-3)
-    # Warm-started steady state: one check block per step in both.
-    assert tres.qp_iters.tolist() == np.asarray(jres.qp_iters).tolist() == [25] * 10
-
-
 def test_double_integrator_compute_optimal_trajectory_matches_jax():
     """One frame through the per-problem path (dense assembly with
     torch.func, then admm_solve), against JAX's, and against the batched
@@ -407,15 +269,6 @@ def test_settings_from_jax_dicts():
     assert opts.admm == ours and opts.max_iter == 3 and opts.alpha == 0.3
 
 
-def _imports(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module
-
-
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "optimal_control_problem_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -432,27 +285,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert top not in ("jax", "jaxlib", "optimal_control_problem_tpu"), (
                 f"{path.relative_to(ROOT)} imports {name}"
             )
-
-
-# The VMEM tile models of the TPU kernels: the port's layout on the card is
-# its own (ROADMAP North star, "These TPU-specific parts do not carry over").
-TPU_ONLY = {
-    ("optimal_control_problem_tpu.solvers.admm_banded_batch", "pick_batch_tile"),
-    ("optimal_control_problem_tpu.ops.banded_rolled_kernel", "pick_rolled_tile"),
-    ("optimal_control_problem_tpu.ops.banded_cr_kernel", "pick_cr_tile"),
-}
-
-
-def _all_lists():
-    """(module, names) for every ``__all__`` of the JAX package."""
-    pkg = ROOT / "optimal_control_problem_tpu"
-    for path in sorted(pkg.rglob("*.py")):
-        for node in ast.parse(path.read_text()).body:
-            if isinstance(node, ast.Assign) and any(
-                getattr(t, "id", None) == "__all__" for t in node.targets
-            ):
-                mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
-                yield mod.removesuffix(".__init__"), ast.literal_eval(node.value)
 
 
 def test_jax_all_names_resolve_in_the_port():
